@@ -1,0 +1,159 @@
+"""Composite restoration model (PyTorch): SatMAE ViT encoder + CNN decoder.
+
+Counterpart of ``msid_tpu/models/restoration.py``. NHWC in, NHWC out:
+encode the noisy tile to [B, N, D] patch tokens, fold the token grid back
+to [B, D, H/p, W/p], decode to [B, 13, H, W]. Options as in the JAX model:
+the ``unet_skip`` input pyramid, the global residual head
+(``residual_output``) and the dead-band input stage (``input_fill``: fill
+from the ``fill_gram`` Gram matrix, condition the encoder on the detected
+mask through ``mask_cond``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from msid_tpu_torch.models.decoder import DECODER_REGISTRY, InputPyramid
+from msid_tpu_torch.models.encoder import SatMAEEncoder
+from msid_tpu_torch.ops.fill import DEFAULT_RMS_THRESH, detect_and_fill
+
+ENCODER_PRESETS = {
+    "satmae_vit_small": dict(embed_dim=384, depth=12, num_heads=6),
+    "satmae_vit_base": dict(embed_dim=768, depth=12, num_heads=12),
+    "satmae_vit_large": dict(embed_dim=1024, depth=24, num_heads=16),
+}
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device to run on; a CUDA device that is not there raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU unless "
+            "device='cpu' is passed")
+    return device
+
+
+class SatMAERestoration(nn.Module):
+    """Flagship model: 13-band noisy NHWC tile in, restored NHWC tile out."""
+
+    def __init__(self, image_size: int = 192, patch_size: int = 16,
+                 in_channels: int = 13, embed_dim: int = 768, depth: int = 12,
+                 num_heads: int = 12, mlp_ratio: float = 4.0,
+                 decoder_arch: str = "unet_light",
+                 decoder_channels: Sequence[int] = (384, 192, 96, 48),
+                 out_channels: int = 13, norm: str = "batch",
+                 residual_output: bool = False, input_fill: bool = False,
+                 fill_rms_thresh: float = DEFAULT_RMS_THRESH):
+        super().__init__()
+        if decoder_arch not in DECODER_REGISTRY:
+            raise ValueError(f"decoder {decoder_arch!r} is not ported; have "
+                             f"{sorted(DECODER_REGISTRY)}")
+        if (residual_output or input_fill) and out_channels != in_channels:
+            raise ValueError(
+                "residual output and input_fill require out_channels == "
+                f"in_channels, got {out_channels} != {in_channels}")
+        self.image_size = image_size
+        self.patch_size = patch_size
+        self.in_channels = in_channels
+        self.embed_dim = embed_dim
+        self.decoder_arch = decoder_arch
+        self.residual_output = residual_output
+        self.input_fill = input_fill
+        self.fill_rms_thresh = fill_rms_thresh
+        self.dtype = torch.float32
+        if input_fill:
+            self.fill_gram = nn.Parameter(torch.eye(in_channels + 1))
+            self.mask_cond = nn.Linear(in_channels, embed_dim)
+            nn.init.zeros_(self.mask_cond.weight)
+            nn.init.zeros_(self.mask_cond.bias)
+        self.encoder = SatMAEEncoder(image_size, patch_size, in_channels,
+                                     embed_dim, depth, num_heads, mlp_ratio)
+        self.decoder = DECODER_REGISTRY[decoder_arch](
+            in_channels=embed_dim, channels=tuple(decoder_channels),
+            out_channels=out_channels, norm=norm,
+            zero_init_head=residual_output)
+        if decoder_arch == "unet_skip":
+            self.skip_stem = InputPyramid(in_channels, len(decoder_channels),
+                                          norm=norm)
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "SatMAERestoration":
+        """Cast the convs, dense layers, LayerNorms and position embedding to
+        ``dtype``. Norm parameters and statistics, ``fill_gram`` and
+        ``mask_cond`` stay fp32, as in the JAX model's fp32 params."""
+        keep = set(self.mask_cond.modules()) if self.input_fill else set()
+        for m in self.modules():
+            if m not in keep and isinstance(
+                    m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, nn.LayerNorm)):
+                m.to(dtype)
+        self.encoder.pos_embed.data = self.encoder.pos_embed.data.to(dtype)
+        self.dtype = dtype
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        if h != self.image_size or w != self.image_size:
+            raise ValueError(f"expected {self.image_size}x{self.image_size}, "
+                             f"got {h}x{w}")
+        if c != self.in_channels:
+            raise ValueError(f"expected {self.in_channels} bands, got {c}")
+        cond = None
+        if self.input_fill:
+            filled, alive = detect_and_fill(x, self.fill_gram, self.fill_rms_thresh)
+            cond = self.mask_cond(alive.reshape(b, c))
+            x = filled.to(self.dtype)
+        xc = x.contiguous().permute(0, 3, 1, 2)      # NCHW, channels-last
+        tokens = self.encoder(xc, cond)                # [B, N, D]
+        grid = self.image_size // self.patch_size
+        spatial = tokens.reshape(b, grid, grid, self.embed_dim).permute(0, 3, 1, 2)
+        if self.decoder_arch == "unet_skip":
+            out = self.decoder(spatial, self.skip_stem(xc))
+        else:
+            out = self.decoder(spatial)
+        out = out.permute(0, 2, 3, 1)                  # NHWC
+        if self.residual_output:
+            out = out + x.to(out.dtype)
+        return out
+
+    @classmethod
+    def from_config(cls, config: dict, dtype: torch.dtype = torch.float32,
+                    device: str | torch.device = "cuda") -> "SatMAERestoration":
+        """Build from the YAML schema's ``model:`` section on ``device``
+        (the GPU unless told otherwise), computing in ``dtype``."""
+        device = resolve_device(device)
+        enc = config["model"]["encoder"]
+        dec = config["model"]["decoder"]
+        fill = config["model"].get("input_fill", {})
+        preset = ENCODER_PRESETS.get(str(enc.get("name", "")), {})
+        model = cls(
+            image_size=int(config.get("data", {}).get("image_size", 192)),
+            patch_size=int(enc.get("patch_size", 16)),
+            in_channels=int(enc.get("input_channels", 13)),
+            embed_dim=int(enc.get("embed_dim", preset.get("embed_dim", 768))),
+            depth=int(enc.get("depth", preset.get("depth", 12))),
+            num_heads=int(enc.get("num_heads", preset.get("num_heads", 12))),
+            decoder_arch=str(dec.get("architecture", "unet_light")),
+            decoder_channels=tuple(dec.get("channels", (384, 192, 96, 48))),
+            out_channels=int(dec.get("output_channels", 13)),
+            residual_output=bool(dec.get("residual", False)),
+            input_fill=bool(fill.get("enabled", False)),
+            fill_rms_thresh=float(fill.get("rms_thresh", DEFAULT_RMS_THRESH)),
+            norm=str(dec.get("norm", "batch")),
+        )
+        return model.set_compute_dtype(dtype).to(device)
+
+
+def count_parameters(model: nn.Module) -> dict:
+    """Per-submodule parameter breakdown: encoder, decoder, total, other."""
+    def _count(module) -> int:
+        return sum(p.numel() for p in module.parameters())
+
+    encoder, decoder, total = _count(model.encoder), _count(model.decoder), _count(model)
+    out = {"encoder": encoder, "decoder": decoder, "total": total}
+    if total - encoder - decoder:
+        out["other"] = total - encoder - decoder
+    return out
+
