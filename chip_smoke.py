@@ -6,22 +6,39 @@
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
 
-1. build: compile ``msid_tpu_torch/csrc/resblock.cu`` for sm_90a;
-2. kernel: the fused ResidualBlock kernel against its plain PyTorch
+1. build: compile ``msid_tpu_torch/csrc/{resblock,noise}.cu`` for sm_90a,
+   one ``nvcc`` per source, started together;
+2. kernel: the fused ResidualBlock kernel (K1) against its plain PyTorch
    version at the flagship decoder's four shapes, B=1 and B=16
    (rtol 0.03 / atol 0.02), with its time beside the plain version's, a
    cuDNN bf16 composition's and the card's bound;
-3. serve: the full-width bf16 flagship (``long_skip_fill.yaml``) with
+3. noise: the fused corruption kernel (K2) against its plain version at
+   [64,192,192,13] and [4,192,192,13] fp32 and [16,192,192,13] bf16, with
+   striping off and on: dead-band masks and stripe gates exactly equal,
+   fp32 within 1e-6, bf16 within one ulp; the distribution checks of the
+   JAX package's TPU test; its time beside the plain version's and its
+   bytes bound;
+4. serve: the full-width bf16 flagship (``long_skip_fill.yaml``) with
    seeded random weights answers 4 requests at B=1 and 4 at B=16 through
-   ``InferenceSession.predict``; exactly 8 kernel launches per forward;
+   ``InferenceSession.predict``; exactly 8 K1 launches per forward;
    the B=1 output is held against the same weights in fp32 on the CPU;
    latency by host clock (predict) and CUDA events (device), and device
-   time by kernel from ``torch.profiler``.
+   time by kernel from ``torch.profiler``;
+5. train: one bf16 train step of the flagship at B=2 on the card against
+   the same step in fp32 on the CPU (every noise component off); then
+   ``setup_training_session(synthetic=True, epochs=1)`` and
+   ``Trainer.fit``: 6 train steps of 64 tiles and 2 padded validation
+   batches, finite history, no skipped step, encoder blocks 0-5 unchanged,
+   every other parameter moved, one K2 launch per train step and per
+   validation batch and 8 K1 launches per validation batch; then step
+   times with the kernel and with the plain composition (``noise.impl:
+   jnp``) in turns, peak memory, and a profiler breakdown of one step.
 
-The last lines are the kernels JSON line, the card's ``nvidia-smi`` name
-and power limit, and ``{"ok": true, "device": {...}}``. Any failed check
-exits non-zero without that last line; so does a machine with no card,
-or a directory without the package.
+The last lines are the kernels JSON line (K1 and K2, with their launches on
+the serving and training paths), the card's ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
+non-zero without that last line; so does a machine with no card, or a
+directory without the package.
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +61,19 @@ BATCHES = (1, 16)
 REQUESTS = 4
 RTOL, ATOL = 0.03, 0.02          # the TPU kernel v3's golden tolerance
 MAX_REL_RMS = 2e-2               # bf16 GPU forward vs fp32 CPU forward
+KERNELS = ("resblock", "noise")   # csrc/<name>.cu, built in parallel
+# K2 against its plain version: both compute in fp32 from the same Philox
+# words; logf/sincospif against torch's log/cos differ by an ulp or two.
+NOISE_ATOL = 1e-6
+NOISE_CASES = (((64, 192, 192, 13), "float32"), ((4, 192, 192, 13), "float32"),
+               ((16, 192, 192, 13), "bfloat16"))
+# One train step, bf16 autocast on the card against fp32 on the CPU: bf16
+# keeps ~3 digits through 12 ViT blocks, the decoder and the backward; the
+# gradient norm sums squares of ~10^8 bf16-rounded terms, hence the looser bound.
+PARITY_BATCH = 2
+PARITY_LOSS_RTOL = 1e-2
+PARITY_GNORM_RTOL = 5e-2
+TIMED_STEPS = 4
 
 
 def card_line() -> str:
@@ -196,20 +227,19 @@ def rel_rms(a: np.ndarray, ref: np.ndarray) -> float:
     return float(np.sqrt(np.mean((a - ref) ** 2)) / np.sqrt(np.mean(ref ** 2)))
 
 
-def profile_forward(torch, model, x: np.ndarray, iters: int = 3) -> dict:
-    """Device time and launches per forward, by kernel name, from the
-    device-side events of ``torch.profiler`` (CUPTI)."""
+def device_profile(torch, fn, iters: int = 3, tags: dict | None = None) -> dict:
+    """Device time and launches per call of ``fn``, by kernel name, from the
+    device-side events of ``torch.profiler`` (CUPTI). ``tags`` maps a
+    result key to a substring of kernel names whose times it sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    xd = torch.from_numpy(x).to("cuda", model.dtype)
-    with torch.inference_mode():
-        model(xd)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                model(xd)
-            torch.cuda.synchronize()
     per_kernel: dict[str, float] = {}
     launches = 0
     for e in prof.events():
@@ -217,18 +247,26 @@ def profile_forward(torch, model, x: np.ndarray, iters: int = 3) -> dict:
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / iters
             launches += 1
-    busy = sum(per_kernel.values())
-    resblock = sum(v for k, v in per_kernel.items() if "resblock_kernel" in k)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
-    return {"device_busy_ms": busy, "resblock_ms": resblock,
-            "device_launches": launches / iters,
-            "top_ms": [[k[:80], v] for k, v in top]}
+    out = {"device_busy_ms": sum(per_kernel.values()),
+           "device_launches": launches / iters,
+           "top_ms": [[k[:80], v] for k, v in top]}
+    for key, tag in (tags or {}).items():
+        out[key] = sum(v for k, v in per_kernel.items() if tag in k)
+    return out
+
+
+def profile_forward(torch, model, x: np.ndarray, iters: int = 3) -> dict:
+    xd = torch.from_numpy(x).to("cuda", model.dtype)
+    with torch.inference_mode():
+        return device_profile(torch, lambda: model(xd), iters,
+                              {"resblock_ms": "resblock_kernel"})
 
 
 def phase_serve(torch, failures: list, card: str) -> dict:
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder
+    from msid_tpu_torch.ops import cuda_decoder, cuda_noise
     from msid_tpu_torch.utils.config import load_config
 
     cfg = load_config(CONFIG)
@@ -240,17 +278,18 @@ def phase_serve(torch, failures: list, card: str) -> dict:
 
     result = {"check": "serve", "config": str(CONFIG.relative_to(ROOT)),
               "dtype": "bfloat16", "card": card}
-    launches_total = 0
+    launches_total = noise_launches = 0
     for b in BATCHES:
         session = InferenceSession(model, batch_size=b, image_size=size,
                                    num_bands=bands)
         requests = [noisy_tiles(b, size, bands, seed=100 * b + i)
                     for i in range(REQUESTS)]
         session.predict(requests[0])                    # warmup
-        cuda_decoder.launches = 0
+        cuda_decoder.launches = cuda_noise.launches = 0
         outs = [session.predict(r) for r in requests]
         launches = cuda_decoder.launches
         launches_total += launches
+        noise_launches += cuda_noise.launches
         for out in outs:
             if out.shape != (b, size, size, bands) or not np.isfinite(out).all():
                 failures.append(f"serve B={b}: bad output {out.shape}, "
@@ -289,6 +328,220 @@ def phase_serve(torch, failures: list, card: str) -> dict:
                 failures.append(f"serve: rel RMS {result['rel_rms_vs_cpu_fp32']} "
                                 f"vs fp32 CPU > {MAX_REL_RMS}")
     result["launches"] = launches_total
+    result["noise_launches"] = noise_launches
+    emit(result)
+    return result
+
+
+def bf16_ulp(torch, v):
+    """One bf16 ulp at |v| (8 significant bits)."""
+    e = torch.floor(torch.log2(v.abs().float().clamp_min(2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def noise_bound_ms(b: int, n: int, itemsize: int) -> float:
+    """Bytes bound of one corruption pass: read x once, write out once."""
+    return 2 * b * n * itemsize / PEAK_HBM_BYTES * 1e3
+
+
+def phase_noise(torch, failures: list) -> dict:
+    """K2 against its plain version (masks and gates exactly, fp32 to
+    NOISE_ATOL, bf16 to one ulp), the distribution checks, and times."""
+    from msid_tpu_torch.ops import cuda_noise
+    from msid_tpu_torch.ops.noise import NoiseConfig, apply_sensor_noise
+
+    kernel, plain = (cuda_noise.apply_sensor_noise_kernel,
+                     cuda_noise.apply_sensor_noise_kernel_reference)
+    rows, max_err = [], 0.0
+    for shape, dtype_name in NOISE_CASES:
+        dtype = getattr(torch, dtype_name)
+        for striping in (False, True):
+            cfg = NoiseConfig(enable_striping=striping, stripe_prob=0.5)
+            g = torch.Generator(device="cuda").manual_seed(shape[0])
+            x = (torch.rand(shape, device="cuda", generator=g) * 5 - 2.5).to(dtype)
+            seed = 1000 + shape[0] + striping
+            got, masks = kernel(seed, x, cfg, return_masks=True)
+            want, want_masks = plain(seed, x, cfg, return_masks=True)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.float32:
+                ok = err <= NOISE_ATOL
+                max_err = max(max_err, err)
+            else:
+                # the fp32 results differ by up to NOISE_ATOL before rounding
+                ulp = bf16_ulp(torch, torch.maximum(got.float().abs(), want.float().abs()))
+                ok = bool((diff <= ulp + NOISE_ATOL).all())
+            masks_equal = torch.equal(masks, want_masks)
+            gates = int(masks[:, -1].sum())
+            row = {"check": "noise", "shape": list(shape), "dtype": dtype_name,
+                   "striping": striping, "max_abs_err": err, "masks_equal": masks_equal,
+                   "dead_bands": int((masks[:, :-1] == 0).sum()), "gated_samples": gates,
+                   "ok": ok and masks_equal and (gates > 0 or not striping or shape[0] < 16)}
+            emit(row)
+            rows.append(row)
+            if not row["ok"]:
+                failures.append(f"noise {shape} {dtype} striping={striping}: {row}")
+
+    zeros = torch.zeros(4, 192, 192, 13, device="cuda")
+    gauss = kernel(3, zeros, NoiseConfig(gaussian_sigma=0.02, speckle_sigma=0,
+                                         dead_band_prob=0, thermal_scale=0))
+    thermal = kernel(5, zeros, NoiseConfig(gaussian_sigma=0, speckle_sigma=0,
+                                           dead_band_prob=0, thermal_scale=0.01))
+    dead = kernel(7, torch.ones(8, 192, 192, 13, device="cuda"), NoiseConfig())
+    stats = {"check": "noise_statistics",
+             "gauss_mean": float(gauss.mean()), "gauss_std": float(gauss.std()),
+             "thermal_std_band1": float(thermal[..., 0].std()),
+             "thermal_std_band13": float(thermal[..., 12].std()),
+             "dead_of_104": int((dead.abs().mean(dim=(1, 2)) < 0.1).sum())}
+    stats["ok"] = (abs(stats["gauss_mean"]) < 1e-3 and abs(stats["gauss_std"] - 0.02) < 1e-3
+                   and abs(stats["thermal_std_band1"] - 0.01) < 1e-3
+                   and abs(stats["thermal_std_band13"] - 0.02) < 2e-3
+                   and 1 <= stats["dead_of_104"] <= 20)
+    emit(stats)
+    if not stats["ok"]:
+        failures.append(f"noise statistics: {stats}")
+
+    b, h, w, c = NOISE_CASES[0][0]
+    x = torch.rand(b, h, w, c, device="cuda") * 4 - 2
+    cfg = NoiseConfig()
+    timing = {"check": "noise_time", "shape": [b, h, w, c], "dtype": "float32",
+              "kernel_ms": time_ms(torch, lambda: kernel(11, x, cfg)),
+              "plain_ms": time_ms(torch, lambda: plain(11, x, cfg), iters=5, warmup=1),
+              "jnp_impl_ms": time_ms(torch, lambda: apply_sensor_noise(11, x, cfg)),
+              "bound_ms": noise_bound_ms(b, h * w * c, 4), "bound_by": "bytes",
+              "max_abs_err": max_err}
+    timing["hbm_share_of_peak"] = timing["bound_ms"] / timing["kernel_ms"]
+    emit(timing)
+    return timing
+
+
+def train_batch(bands: int, b: int, seed: int) -> np.ndarray:
+    """Raw synthetic DN tiles, as the trainer's loader yields them."""
+    from msid_tpu_torch.data.dataset import SyntheticEuroSAT
+
+    ds = SyntheticEuroSAT(num_samples=4 * b, split="train", seed=seed, num_bands=bands)
+    return np.stack([ds[i] for i in range(b)])
+
+
+def train_step_parity(torch, cfg: dict, failures: list) -> dict:
+    """One bf16 train step on the card against the same step in fp32 on the
+    CPU, from the same random weights, every noise component off."""
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops.noise import NoiseConfig
+    from msid_tpu_torch.training.losses import LossConfig
+    from msid_tpu_torch.training.optim import build_optimizer_from_config
+    from msid_tpu_torch.training.train_state import TrainState, make_train_step
+
+    zero = NoiseConfig(gaussian_sigma=0, speckle_sigma=0, dead_band_prob=0,
+                       thermal_scale=0, enable_striping=False)
+    batch = train_batch(13, PARITY_BATCH, seed=5)
+    out = {}
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        model = SatMAERestoration.from_config(cfg, device="cpu")
+        randomize_(torch, model, seed=1)
+        model.to(device)
+        optimizer, _ = build_optimizer_from_config(cfg, model)
+        step = make_train_step(model, LossConfig.from_config(cfg), zero,
+                               image_size=model.image_size, compute_dtype=dtype)
+        _, metrics = step(TrainState.create(model, optimizer), batch, 0)
+        out[device] = {k: float(metrics[k]) for k in ("loss", "mse", "grad_norm")}
+    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    result = {"cpu_fp32": out["cpu"], "gpu_bf16": out["cuda"], "rel_diff": rel,
+              "ok": rel["loss"] <= PARITY_LOSS_RTOL and rel["grad_norm"] <= PARITY_GNORM_RTOL}
+    if not result["ok"]:
+        failures.append(f"train-step parity: {result}")
+    return result
+
+
+def phase_train(torch, failures: list, card: str) -> dict:
+    """The flagship trains on the card: parity, a 1-epoch Trainer.fit with
+    the launch counts, then step times, memory and a profiler breakdown."""
+    from msid_tpu_torch.ops import cuda_decoder, cuda_noise
+    from msid_tpu_torch.training.train_state import make_train_step
+    from msid_tpu_torch.utils.config import load_config
+    from msid_tpu_torch.utils.setup_helpers import setup_training_session
+
+    cfg = load_config(CONFIG)
+    result = {"check": "train", "config": str(CONFIG.relative_to(ROOT)), "card": card}
+    t0 = time.perf_counter()
+    result["parity"] = train_step_parity(torch, cfg, failures)
+    result["parity_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    session = setup_training_session(cfg, synthetic=True, epochs=1, seed=0)
+    trainer, model = session["trainer"], session["model"]
+    result["setup_seconds"] = time.perf_counter() - t0
+    result["accum_steps"] = trainer.accum_steps
+    print(f"train: accum_steps={trainer.accum_steps}", flush=True)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    labels = trainer.state.optimizer.labels
+    train_loader, val_loader = session["train_loader"], session["val_loader"]
+    steps, val_batches = len(train_loader), len(val_loader)
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_noise.launches = cuda_decoder.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.fit(train_loader, val_loader, epochs=1)
+    torch.cuda.synchronize()
+    result["fit_seconds"] = time.perf_counter() - t0
+    launches = {"noise": cuda_noise.launches, "resblock": cuda_decoder.launches}
+    result.update(launches=launches, steps=steps, val_batches=val_batches,
+                  nan_skips=trainer.state.nan_skips, history=history,
+                  fit_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finite = all(np.isfinite(v).all() for k, v in history.items() if k != "lr")
+    frozen_changed = [k for k in before if labels[k] == "frozen" and
+                      not torch.equal(before[k], model.get_parameter(k))]
+    stuck = [k for k in before if labels[k] != "frozen" and
+             torch.equal(before[k], model.get_parameter(k))]
+    frozen_blocks = {k.split(".")[2] for k in before
+                     if k.startswith("encoder.blocks.") and labels[k] == "frozen"}
+    checks = {
+        "finite": finite, "nan_skips": trainer.state.nan_skips == 0,
+        "frozen_unchanged": not frozen_changed, "others_changed": not stuck,
+        "frozen_blocks_0_5": frozen_blocks == {str(i) for i in range(6)},
+        "noise_launches": launches["noise"] == steps + val_batches,
+        "resblock_launches": launches["resblock"] == 8 * val_batches,
+        "steps": steps == 6 and val_batches == 2,
+    }
+    result["checks"] = checks
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"train: {name} failed ({frozen_changed[:3]} {stuck[:3]} "
+                            f"{launches} steps={steps} val={val_batches})")
+
+    batch = next(iter(train_loader))
+    times: dict[str, list] = {"pallas": [], "jnp": []}
+    turns = []
+    steps_by_impl = {impl: make_train_step(
+        model, trainer.loss_cfg, trainer.noise_cfg, image_size=model.image_size,
+        noise_impl=impl, compute_dtype=trainer.compute_dtype) for impl in times}
+    torch.cuda.reset_peak_memory_stats()
+    for impl in ("pallas", "jnp", "jnp", "pallas"):      # in turns, after a warmup
+        for i in range(TIMED_STEPS + 1):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            steps_by_impl[impl](trainer.state, batch, 100 + i)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times[impl].append((start.elapsed_time(end), (time.perf_counter() - t0) * 1e3))
+        turns.append([impl, float(np.median([p[0] for p in times[impl][-TIMED_STEPS:]]))])
+    result["step_turns_device_p50_ms"] = turns
+    for impl, pairs in times.items():
+        dev = float(np.median([p[0] for p in pairs]))
+        host = float(np.median([p[1] for p in pairs]))
+        result[f"step_{impl}"] = {"device_p50_ms": dev, "host_p50_ms": host,
+                                  "tiles_per_s": batch.shape[0] * 1e3 / host,
+                                  "steps": len(pairs)}
+    result["step_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_profile(torch, lambda: steps_by_impl["pallas"](trainer.state, batch, 7),
+                          iters=2, tags={"noise_ms": "noise_kernel"})
+    prof["noise_share_of_busy"] = prof["noise_ms"] / prof["device_busy_ms"]
+    prof["device_idle_share"] = 1 - prof["device_busy_ms"] / result["step_pallas"]["host_p50_ms"]
+    result["profile"] = prof
     emit(result)
     return result
 
@@ -302,7 +555,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch.nn.functional as F
 
-    from msid_tpu_torch.ops._build import load_library, nvcc_path
+    from msid_tpu_torch.ops._build import build, load_library, nvcc_path
 
     # The plain versions are the yardstick: full fp32, no TF32.
     torch.backends.cudnn.allow_tf32 = False
@@ -313,23 +566,31 @@ def main() -> int:
     failures: list[str] = []
 
     t0 = time.perf_counter()
-    load_library("resblock")
-    emit({"check": "build", "source": "msid_tpu_torch/csrc/resblock.cu",
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source, together
+        list(pool.map(build, KERNELS))
+    for name in KERNELS:
+        load_library(name)
+    emit({"check": "build", "sources": [f"msid_tpu_torch/csrc/{k}.cu" for k in KERNELS],
           "nvcc": nvcc_path(), "seconds": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     rows = phase_kernel(torch, F, failures)
+    noise = phase_noise(torch, failures)
     serve = phase_serve(torch, failures, card)
+    train = phase_train(torch, failures, card)
 
     big = [r for r in rows if r["B"] == max(BATCHES)]
     per_forward = {k: 2 * sum(r[k] for r in big)       # 2 blocks per stage
                    for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+    resblock_by_path = {"serve": serve["launches"], "train": train["launches"]["resblock"]}
+    noise_by_path = {"serve": serve["noise_launches"], "train": train["launches"]["noise"]}
     emit({"kernels": [{
         "name": "fused_residual_block",
         "route": "cuda",
         "source": "msid_tpu_torch/csrc/resblock.cu",
         "replaces": "msid_tpu/ops/pallas_decoder.py:402",
-        "launches": serve["launches"],
+        "launches": sum(resblock_by_path.values()),
+        "launches_by_path": resblock_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": per_forward["kernel_ms"],
         "plain_ms": per_forward["plain_ms"],
@@ -339,6 +600,22 @@ def main() -> int:
         "library_ms": per_forward["library_ms"],
         "library": "cuDNN bf16 conv2d composition of the same block",
         "per": f"the 8 launches of one B={max(BATCHES)} flagship forward",
+    }, {
+        "name": "apply_sensor_noise",
+        "route": "cuda",
+        "source": "msid_tpu_torch/csrc/noise.cu",
+        "replaces": "msid_tpu/ops/pallas_noise.py:152",
+        "launches": sum(noise_by_path.values()),
+        "launches_by_path": noise_by_path,
+        "max_abs_err": noise["max_abs_err"],
+        "ms": noise["kernel_ms"],
+        "plain_ms": noise["plain_ms"],
+        "bound_ms": noise["bound_ms"],
+        "bound_by": noise["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call draws and composes the five "
+                   "noise components",
+        "per": "one launch on a [64,192,192,13] fp32 batch (one train step)",
     }]})
     if failures:
         for f in failures:

@@ -81,8 +81,10 @@ class ResidualBlock(nn.Module):
 
     In eval mode with BatchNorm the block is the fused kernel's function:
     both BNs fold into a ``[4, C]`` affine and ``fused_residual_block``
-    computes it (the Hopper kernel on a CUDA tensor). In train mode, or
-    with GroupNorm, it is plain convs and norms.
+    computes it (the Hopper kernel on a CUDA tensor). Under autocast, x
+    and both conv weights go to the autocast dtype first, as autocast
+    would cast a conv's operands. In train mode, or with GroupNorm, it is
+    plain convs and norms.
     """
 
     def __init__(self, features: int, norm: str = "batch"):
@@ -98,10 +100,14 @@ class ResidualBlock(nn.Module):
             y = self.norm1(self.conv1(y))
             return gelu(x + y)
         affines = torch.stack([*self.norm0.folded(), *self.norm1.folded()])
+        w1, w2 = self.conv0.weight, self.conv1.weight
+        if torch.is_autocast_enabled(x.device.type):
+            dtype = torch.get_autocast_dtype(x.device.type)
+            x, w1, w2 = x.to(dtype), w1.to(dtype), w2.to(dtype)
         out = fused_residual_block(
             channels_last(x).permute(0, 2, 3, 1),
-            self.conv0.weight.permute(2, 3, 1, 0),
-            self.conv1.weight.permute(2, 3, 1, 0),
+            w1.permute(2, 3, 1, 0),
+            w2.permute(2, 3, 1, 0),
             affines,
         )
         return out.permute(0, 3, 1, 2)

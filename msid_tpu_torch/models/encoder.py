@@ -5,6 +5,11 @@ embedding without a CLS token, pre-LN transformer blocks (qkv bias, LN eps
 1e-6, tanh GELU), final LayerNorm. Attention is written out as flax
 computes it: q/k/v projections, ``softmax(q k^T / sqrt(d)) v``, output
 projection. At 144 tokens a fused attention kernel has nothing to gain.
+
+With ``gradient_checkpointing`` each block runs under
+``torch.utils.checkpoint`` in train mode (the JAX encoder's ``nn.remat``):
+only the block boundaries are kept for the backward. The blocks hold no
+BatchNorm, so recomputing them updates no running statistics twice.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-6
 
@@ -92,9 +98,11 @@ class SatMAEEncoder(nn.Module):
 
     def __init__(self, image_size: int = 192, patch_size: int = 16,
                  in_channels: int = 13, embed_dim: int = 768, depth: int = 12,
-                 num_heads: int = 12, mlp_ratio: float = 4.0):
+                 num_heads: int = 12, mlp_ratio: float = 4.0,
+                 gradient_checkpointing: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
+        self.gradient_checkpointing = gradient_checkpointing
         self.num_patches = (image_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(in_channels, embed_dim, patch_size)
         self.pos_embed = nn.Parameter(
@@ -110,6 +118,7 @@ class SatMAEEncoder(nn.Module):
         y = y + self.pos_embed.to(y.dtype)
         if cond is not None:
             y = y + cond[:, None, :].to(y.dtype)
+        remat = self.gradient_checkpointing and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            y = block(y)
+            y = checkpoint(block, y, use_reentrant=False) if remat else block(y)
         return self.norm(y)

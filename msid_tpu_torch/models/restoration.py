@@ -7,6 +7,13 @@ the ``unet_skip`` input pyramid, the global residual head
 (``residual_output``) and the dead-band input stage (``input_fill``: fill
 from the ``fill_gram`` Gram matrix, condition the encoder on the detected
 mask through ``mask_cond``).
+
+Two ways to compute in bf16. Serving casts the weights
+(``set_compute_dtype``). Training keeps fp32 parameters and runs under
+``torch.autocast``; the model then casts where the JAX model casts to its
+compute dtype (the filled tile, the skip stem's input, the residual add)
+to the autocast dtype, while the fill stage and ``mask_cond`` run in fp32
+with autocast off, as ``mask_cond`` is an fp32 layer in the JAX model.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ class SatMAERestoration(nn.Module):
                  decoder_channels: Sequence[int] = (384, 192, 96, 48),
                  out_channels: int = 13, norm: str = "batch",
                  residual_output: bool = False, input_fill: bool = False,
-                 fill_rms_thresh: float = DEFAULT_RMS_THRESH):
+                 fill_rms_thresh: float = DEFAULT_RMS_THRESH,
+                 gradient_checkpointing: bool = False):
         super().__init__()
         if decoder_arch not in DECODER_REGISTRY:
             raise ValueError(f"decoder {decoder_arch!r} is not ported; have "
@@ -71,7 +79,8 @@ class SatMAERestoration(nn.Module):
             nn.init.zeros_(self.mask_cond.weight)
             nn.init.zeros_(self.mask_cond.bias)
         self.encoder = SatMAEEncoder(image_size, patch_size, in_channels,
-                                     embed_dim, depth, num_heads, mlp_ratio)
+                                     embed_dim, depth, num_heads, mlp_ratio,
+                                     gradient_checkpointing)
         self.decoder = DECODER_REGISTRY[decoder_arch](
             in_channels=embed_dim, channels=tuple(decoder_channels),
             out_channels=out_channels, norm=norm,
@@ -93,6 +102,13 @@ class SatMAERestoration(nn.Module):
         self.dtype = dtype
         return self
 
+    def compute_dtype(self, device_type: str) -> torch.dtype:
+        """The dtype the forward computes in: the autocast dtype when
+        autocast is on for ``device_type``, else the weights' dtype."""
+        if torch.is_autocast_enabled(device_type):
+            return torch.get_autocast_dtype(device_type)
+        return self.dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         if h != self.image_size or w != self.image_size:
@@ -100,17 +116,19 @@ class SatMAERestoration(nn.Module):
                              f"got {h}x{w}")
         if c != self.in_channels:
             raise ValueError(f"expected {self.in_channels} bands, got {c}")
+        dtype = self.compute_dtype(x.device.type)
         cond = None
         if self.input_fill:
-            filled, alive = detect_and_fill(x, self.fill_gram, self.fill_rms_thresh)
-            cond = self.mask_cond(alive.reshape(b, c))
-            x = filled.to(self.dtype)
+            with torch.autocast(x.device.type, enabled=False):
+                filled, alive = detect_and_fill(x, self.fill_gram, self.fill_rms_thresh)
+                cond = self.mask_cond(alive.reshape(b, c).to(self.mask_cond.weight.dtype))
+            x = filled.to(dtype)
         xc = x.contiguous().permute(0, 3, 1, 2)      # NCHW, channels-last
         tokens = self.encoder(xc, cond)                # [B, N, D]
         grid = self.image_size // self.patch_size
         spatial = tokens.reshape(b, grid, grid, self.embed_dim).permute(0, 3, 1, 2)
         if self.decoder_arch == "unet_skip":
-            out = self.decoder(spatial, self.skip_stem(xc))
+            out = self.decoder(spatial, self.skip_stem(xc.to(dtype)))
         else:
             out = self.decoder(spatial)
         out = out.permute(0, 2, 3, 1)                  # NHWC
@@ -142,6 +160,7 @@ class SatMAERestoration(nn.Module):
             input_fill=bool(fill.get("enabled", False)),
             fill_rms_thresh=float(fill.get("rms_thresh", DEFAULT_RMS_THRESH)),
             norm=str(dec.get("norm", "batch")),
+            gradient_checkpointing=bool(enc.get("gradient_checkpointing", True)),
         )
         return model.set_compute_dtype(dtype).to(device)
 

@@ -1,1 +1,2 @@
-"""Ops of the PyTorch port: the fused ResidualBlock kernel and the dead-band fill."""
+"""Ops of the PyTorch port: preprocessing, corruption (kernel K2), the
+dead-band fill, SSIM and metrics, and the fused ResidualBlock (kernel K1)."""

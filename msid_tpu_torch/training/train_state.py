@@ -1,0 +1,233 @@
+"""Train state and train/eval steps (PyTorch): counterpart of
+``msid_tpu/training/train_state.py``.
+
+One ``train_step`` call does, in order: preprocess the raw tiles on the
+device, permute bands (optional), corrupt (``ops/noise.corrupt``: kernel
+K2 on the card), forward and backward per micro-batch with the gradients
+summed and then averaged, the non-finite guard, the global-norm clip and
+grouped AdamW (``training/optim.py``), and the EMA.
+
+The parameters live in the module (fp32); the compute dtype is separate:
+bf16 runs the forward under ``torch.autocast`` with no GradScaler (bf16
+keeps fp32's exponent range). BatchNorm running statistics update in place
+during the forward and thread through the micro-batches in order, while
+the parameters stay those of the step's start, as in the JAX step.
+
+The non-finite guard costs one host sync per step: whether the loss and
+the gradient norm are finite decides on the host whether to update. A
+skipped step leaves the parameters, the AdamW moments, the update count
+and the EMA as they were, restores the BatchNorm statistics the forward
+updated, and counts one ``nan_skips``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from msid_tpu_torch.ops.metrics import batch_metric_sums
+from msid_tpu_torch.ops.noise import NoiseConfig, corrupt, fold_in
+from msid_tpu_torch.ops.preprocess import preprocess_tiles, random_band_permutation
+from msid_tpu_torch.training.losses import (
+    LossConfig,
+    combined_loss,
+    combined_loss_per_sample,
+    refuse_vgg,
+)
+from msid_tpu_torch.training.optim import GroupedAdamW
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Step count (updates applied), skipped steps, the optimizer and the
+    optional EMA shadow (``{name: fp32 tensor}`` over every parameter)."""
+
+    optimizer: GroupedAdamW
+    step: int = 0
+    nan_skips: int = 0
+    ema: Optional[dict] = None
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer: GroupedAdamW,
+               ema: bool = False) -> "TrainState":
+        shadow = ({n: p.detach().clone() for n, p in model.named_parameters()}
+                  if ema else None)
+        return cls(optimizer=optimizer, ema=shadow)
+
+    @contextlib.contextmanager
+    def eval_weights(self, model: nn.Module):
+        """The weights to evaluate inside the block: the EMA shadow when
+        there is one (the live parameters are restored after), else the
+        live parameters. BatchNorm statistics are the live ones."""
+        if self.ema is None:
+            yield model
+            return
+        params = dict(model.named_parameters())
+        live = {n: p.detach().clone() for n, p in params.items()}
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(self.ema[n])
+        try:
+            yield model
+        finally:
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(live[n])
+
+
+def _autocast(device: torch.device, dtype: torch.dtype):
+    return torch.autocast(device.type, dtype=dtype, enabled=dtype != torch.float32)
+
+
+def _to_device(batch, device: torch.device) -> torch.Tensor:
+    if isinstance(batch, torch.Tensor):
+        return batch.to(device)
+    return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+
+
+def _clean_batch(batch: torch.Tensor, image_size: int,
+                 preprocess_on_device: bool) -> torch.Tensor:
+    if preprocess_on_device:
+        return preprocess_tiles(batch, image_size)
+    return batch.float()
+
+
+def make_train_step(
+    model: nn.Module,
+    loss_cfg: LossConfig = LossConfig(),
+    noise_cfg: NoiseConfig = NoiseConfig(),
+    accum_steps: int = 1,
+    image_size: int = 192,
+    preprocess_on_device: bool = True,
+    noise_impl: str = "auto",
+    band_permutation_prob: float = 0.0,
+    vgg_params=None,
+    ema_decay: float = 0.0,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Callable:
+    """The train step ``(state, batch, seed) -> (state, metrics)``.
+
+    ``batch`` is raw tiles ``[accum * micro, h0, w0, C]`` (numpy or a
+    tensor; ``preprocess_on_device=True``) or clean model-range images;
+    it goes to the model's device. ``seed`` (an int) seeds the corruption
+    and the band permutation. ``metrics`` holds ``loss``, ``mse`` and
+    ``grad_norm`` as device scalars and ``skipped`` as an int.
+    """
+    refuse_vgg(vgg_params)
+    device = next(model.parameters()).device
+    buffers = [b for b in model.buffers() if b.is_floating_point()]
+
+    def train_step(state: TrainState, batch, seed: int):
+        optimizer = state.optimizer
+        model.train()
+        with torch.no_grad():
+            clean = _clean_batch(_to_device(batch, device), image_size, preprocess_on_device)
+            noise_seed = seed
+            if band_permutation_prob > 0.0:
+                g = torch.Generator().manual_seed(fold_in(seed, 1) % 2 ** 63)
+                clean = random_band_permutation(clean, band_permutation_prob, g)
+                noise_seed = fold_in(seed, 0)
+            noisy = corrupt(noise_seed, clean, noise_cfg, impl=noise_impl)
+        n = clean.shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch {n} not divisible by accum_steps {accum_steps}")
+        micro = n // accum_steps
+        stats = [b.clone() for b in buffers]
+
+        optimizer.zero_grad()
+        loss_sum = mse_sum = None
+        for i in range(accum_steps):
+            rows = slice(i * micro, (i + 1) * micro)
+            with _autocast(device, compute_dtype):
+                out = model(noisy[rows].to(compute_dtype))
+            loss, aux = combined_loss(out, clean[rows], loss_cfg)
+            loss.backward()
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            mse_sum = aux["mse"].detach() if mse_sum is None else mse_sum + aux["mse"].detach()
+        grads = optimizer.grads()
+        if accum_steps > 1:
+            torch._foreach_mul_(grads, 1.0 / accum_steps)
+            loss_sum = loss_sum * (1.0 / accum_steps)
+            mse_sum = mse_sum * (1.0 / accum_steps)
+        grad_norm = optimizer.global_norm()
+
+        finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss_sum))  # host sync
+        if finite:
+            optimizer.clip_(grad_norm)
+            optimizer.step(state.step)
+            state.step += 1
+            if ema_decay > 0.0:
+                if state.ema is None:
+                    raise ValueError("ema_decay > 0 needs TrainState.create(..., ema=True)")
+                names = [n for n, _ in model.named_parameters()]
+                with torch.no_grad():
+                    torch._foreach_lerp_([state.ema[k] for k in names],
+                                         [p.detach() for p in model.parameters()],
+                                         1.0 - ema_decay)
+        else:
+            with torch.no_grad():
+                torch._foreach_copy_(buffers, stats)
+            state.nan_skips += 1
+        optimizer.zero_grad()
+        return state, {"loss": loss_sum, "mse": mse_sum, "grad_norm": grad_norm,
+                       "skipped": int(not finite)}
+
+    return train_step
+
+
+def make_eval_step(
+    model: nn.Module,
+    loss_cfg: LossConfig = LossConfig(),
+    noise_cfg: NoiseConfig = NoiseConfig(),
+    image_size: int = 192,
+    preprocess_on_device: bool = True,
+    noise_impl: str = "auto",
+    vgg_params=None,
+    tta: int = 1,
+    forward_impl: str = "auto",
+    ensemble_size: int = 1,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Callable:
+    """The eval step ``(batch, seed, count) -> sums``: corrupt with the
+    batch's fixed seed, run the eval-mode forward in the compute dtype, and
+    return the metric sums of ``batch_metric_sums`` and ``loss`` (the sum of
+    the per-sample combined loss) as device scalars, over the first
+    ``count`` samples only (the rest is padding)."""
+    refuse_vgg(vgg_params)
+    if forward_impl not in ("auto", "apply", "hybrid"):
+        raise ValueError(f"forward_impl must be auto|apply|hybrid, got {forward_impl!r}")
+    if forward_impl == "hybrid":
+        raise NotImplementedError(
+            "forward_impl='hybrid' needs the folded decoder graph "
+            "(deployment/fastpath.py), not ported yet")
+    if ensemble_size < 1:
+        raise ValueError(f"ensemble_size must be >= 1, got {ensemble_size}")
+    if ensemble_size > 1:
+        raise NotImplementedError(
+            "checkpoint ensembles need the checkpoint manager and the ensemble "
+            "forward of deployment/fastpath.py, not ported yet")
+    if tta != 1:
+        raise NotImplementedError(
+            f"tta={tta}: test-time augmentation (ops/tta.py) is not ported yet")
+    device = next(model.parameters()).device
+
+    def eval_step(batch, seed: int, count: int) -> dict:
+        model.eval()
+        with torch.no_grad():
+            clean = _clean_batch(_to_device(batch, device), image_size, preprocess_on_device)
+            noisy = corrupt(seed, clean, noise_cfg, impl=noise_impl)
+            with _autocast(device, compute_dtype):
+                out = model(noisy.to(compute_dtype))
+            out = out.float()
+            mask = (torch.arange(clean.shape[0], device=device) < count).float()
+            loss_ps = combined_loss_per_sample(out, clean, loss_cfg)
+            sums = batch_metric_sums(out, clean, mask=mask)
+            sums["loss"] = torch.sum(loss_ps * mask)
+        return sums
+
+    return eval_step

@@ -1,7 +1,8 @@
 """YAML configuration loading with inheritance, for the PyTorch port.
 
-The port's own copy of ``load_config`` / ``merge_configs`` of the JAX
-package (``msid_tpu/utils/config.py``), so both packages read the same
+The port's own copy of ``load_config`` / ``merge_configs``,
+``validate_config`` and ``coerce_scheduler_params`` of the JAX package
+(``msid_tpu/utils/config.py``), so both packages read the same
 ``configs/`` files. Two inheritance mechanisms are accepted:
 
   * an explicit ``inherits: ../base.yaml`` top-level key (removed from the
@@ -80,3 +81,39 @@ def merge_configs(base: Dict, override: Dict) -> Dict:
         else:
             merged[key] = value
     return merged
+
+
+def validate_config(config: Dict) -> bool:
+    """Check the required sections and keys; raises ValueError on the
+    first gap."""
+    for section in ("data", "model", "training"):
+        if section not in config:
+            raise ValueError(f"Missing required config section: {section}")
+    for key in ("root_dir", "num_bands", "image_size"):
+        if key not in config["data"]:
+            raise ValueError(f"Missing required data config: {key}")
+    if "encoder" not in config["model"] or "decoder" not in config["model"]:
+        raise ValueError("Model config must have 'encoder' and 'decoder' sections")
+    for key in ("epochs", "micro_batch_size"):
+        if key not in config["training"]:
+            raise ValueError(f"Missing required training config: {key}")
+    return True
+
+
+def coerce_scheduler_params(config: Dict) -> Dict:
+    """Cast optimizer/scheduler numbers that YAML parses as strings (``1e-4``
+    has no dot, so PyYAML reads it as a string)."""
+    training = config.get("training", {})
+    opt = training.get("optimizer", {})
+    for key in ("lr", "weight_decay"):
+        if key in opt:
+            opt[key] = float(opt[key])
+    if "betas" in opt:
+        opt["betas"] = [float(b) for b in opt["betas"]]
+    sched = training.get("scheduler", {})
+    if "eta_min" in sched:
+        sched["eta_min"] = float(sched["eta_min"])
+    for key in ("T_0", "T_mult"):
+        if key in sched:
+            sched[key] = int(sched[key])
+    return config

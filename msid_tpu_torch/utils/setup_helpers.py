@@ -1,0 +1,158 @@
+"""Session bootstrap (PyTorch): counterpart of ``create_model_from_config``,
+``estimate_memory``, ``create_training_components`` and
+``setup_training_session`` of ``msid_tpu/utils/setup_helpers.py``.
+
+``setup_training_session`` returns everything ``Trainer.fit`` needs on one
+device, the GPU unless ``device="cpu"`` is passed. It fits the dead-band
+fill's Gram matrix over the train split when the model has ``input_fill``.
+Checkpointing and the SatMAE weight converter are later slices: the
+session has no checkpoint manager, and an existing ``pretrained_path``
+raises.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+
+def setup_config(config_path: str | Path) -> dict:
+    """Load, coerce and validate a config file."""
+    from msid_tpu_torch.utils.config import (
+        coerce_scheduler_params,
+        load_config,
+        validate_config,
+    )
+
+    config = coerce_scheduler_params(load_config(config_path))
+    validate_config(config)
+    return config
+
+
+def estimate_memory(config: dict, num_params: int) -> dict:
+    """Analytic training-memory estimate in GB: fp32 params, AdamW moments
+    and grads, and activations of a micro batch with one bf16 activation
+    kept per ViT block boundary plus a few fp32 copies of the images."""
+    training = config.get("training", {})
+    data = config.get("data", {})
+    micro = int(training.get("micro_batch_size", 8))
+    size = int(data.get("image_size", 192))
+    bands = int(data.get("num_bands", 13))
+    enc = config.get("model", {}).get("encoder", {})
+    depth = int(enc.get("depth", 12))
+    dim = int(enc.get("embed_dim", 768))
+    patch = int(enc.get("patch_size", 16))
+    tokens = (size // patch) ** 2
+    params_gb = num_params * 4 / 1e9
+    optimizer_gb = num_params * 8 / 1e9
+    grads_gb = num_params * 4 / 1e9
+    acts = micro * (depth + 2) * tokens * dim * 2
+    acts += micro * size * size * bands * 4 * 4
+    activations_gb = acts / 1e9
+    return {
+        "params_gb": params_gb,
+        "optimizer_gb": optimizer_gb,
+        "grads_gb": grads_gb,
+        "activations_gb": activations_gb,
+        "total_gb": params_gb + optimizer_gb + grads_gb + activations_gb,
+    }
+
+
+def create_model_from_config(config: dict, seed: int = 0,
+                             device: str | torch.device = "cuda"):
+    """``(model, param_counts)``: fp32 parameters initialized on the CPU
+    from ``seed`` (the global RNG is left as it was), then moved to
+    ``device``."""
+    from msid_tpu_torch.models.restoration import (
+        SatMAERestoration,
+        count_parameters,
+        resolve_device,
+    )
+
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = SatMAERestoration.from_config(config, device="cpu")
+    model.to(device)
+    counts = count_parameters(model)
+    mem = estimate_memory(config, counts["total"])
+    logger.info("model: encoder=%.1fM decoder=%.1fM total=%.1fM params, "
+                "est. training memory %.2f GB", counts["encoder"] / 1e6,
+                counts["decoder"] / 1e6, counts["total"] / 1e6, mem["total_gb"])
+    return model, counts
+
+
+def create_training_components(config: dict, model, steps_per_epoch: int = 1):
+    """``(optimizer, schedule, loss_cfg, noise_cfg)``."""
+    from msid_tpu_torch.ops.noise import NoiseConfig
+    from msid_tpu_torch.training.losses import LossConfig
+    from msid_tpu_torch.training.optim import build_optimizer_from_config
+
+    optimizer, schedule = build_optimizer_from_config(config, model, steps_per_epoch)
+    return optimizer, schedule, LossConfig.from_config(config), NoiseConfig.from_config(config)
+
+
+def setup_training_session(config_path: str | Path | dict, seed: Optional[int] = None,
+                           epochs: Optional[int] = None, synthetic: bool = False,
+                           device: str | torch.device = "cuda") -> dict:
+    """Everything ``Trainer.fit`` needs, in one call: a dict with
+    ``config``, ``model``, ``state``, ``trainer``, ``train_loader``,
+    ``val_loader``, ``checkpoint_manager`` (None) and ``param_counts``.
+
+    ``config_path`` may be a loaded config dict (deep-copied). ``epochs``
+    overrides ``training.epochs``; ``synthetic`` forces the synthetic
+    dataset whatever ``data.root_dir`` says.
+    """
+    from msid_tpu_torch.data.pipeline import get_dataloaders
+    from msid_tpu_torch.models.restoration import resolve_device
+    from msid_tpu_torch.ops.fill import fit_gram_from_config
+    from msid_tpu_torch.training.train_state import TrainState
+    from msid_tpu_torch.training.trainer import Trainer
+
+    device = resolve_device(device)
+    config = (copy.deepcopy(config_path) if isinstance(config_path, dict)
+              else setup_config(config_path))
+    if epochs is not None:
+        config.setdefault("training", {})["epochs"] = int(epochs)
+    if synthetic:
+        config.setdefault("data", {})["root_dir"] = "/nonexistent-forces-synthetic"
+    seed = int(config.get("seed", 42)) if seed is None else seed
+
+    train_loader, val_loader = get_dataloaders(config)
+    model, counts = create_model_from_config(config, seed, device)
+
+    pretrained = config.get("model", {}).get("encoder", {}).get("pretrained_path")
+    if pretrained and Path(pretrained).exists():
+        raise NotImplementedError(
+            f"pretrained_path {pretrained}: the SatMAE checkpoint converter "
+            "(models/convert.py) is not ported yet")
+    if pretrained:
+        logger.warning("pretrained_path %s not found — training from scratch", pretrained)
+
+    if model.input_fill:
+        logger.info("Fitting dead-band fill Gram on the train split...")
+        gram = torch.from_numpy(fit_gram_from_config(config, device))
+        with torch.no_grad():
+            model.fill_gram.copy_(gram)
+
+    optimizer, schedule, _, _ = create_training_components(
+        config, model, steps_per_epoch=max(1, len(train_loader)))
+    state = TrainState.create(model, optimizer)
+    trainer = Trainer(model, state, config=config, lr_schedule=schedule, seed=seed,
+                      device=device)
+    return {
+        "config": config,
+        "model": model,
+        "state": state,
+        "trainer": trainer,
+        "train_loader": train_loader,
+        "val_loader": val_loader,
+        "checkpoint_manager": None,
+        "param_counts": counts,
+    }
