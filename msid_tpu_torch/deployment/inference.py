@@ -2,8 +2,11 @@
 
 ``predict`` takes a model-space noisy NHWC float32 numpy batch and returns
 the restored NHWC float32 batch, computed in the model's dtype on the
-session's device (the GPU unless ``device="cpu"``). ``benchmark`` times the
-forward with CUDA events after warmup.
+session's device (the GPU unless ``device="cpu"``): a bf16 model's decoder
+blocks run K1, an fp32 model's K4. ``tta`` > 1 averages each prediction
+over that many dihedral views of the input (``ops/tta.py``), checked when
+the session is built. ``benchmark`` times the forward with CUDA events
+after warmup.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from msid_tpu_torch.models.restoration import resolve_device
+from msid_tpu_torch.ops.tta import wrap_forward
 
 
 class InferenceSession:
@@ -19,16 +23,21 @@ class InferenceSession:
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 1,
                  image_size: int = 192, num_bands: int = 13,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", tta: int = 1):
+        self.tta = int(tta)
+        self._infer = wrap_forward(self._model_forward, self.tta, image_size, image_size)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dtype = getattr(model, "dtype", torch.float32)
         self.batch_size = batch_size
         self.input_shape = (batch_size, image_size, image_size, num_bands)
 
+    def _model_forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x.to(self.dtype))
+
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self.model(x.to(self.dtype)).float()
+            return self._infer(x).float()
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Restore a noisy NHWC float32 batch; checks rank, shape and batch."""

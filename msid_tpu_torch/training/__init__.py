@@ -1,2 +1,2 @@
 """Training of the PyTorch port: losses, schedules, the optimizer, the
-train and eval steps and the trainer."""
+train and eval steps, the trainer and evaluation."""

@@ -18,21 +18,28 @@ the gradient norm are finite decides on the host whether to update. A
 skipped step leaves the parameters, the AdamW moments, the update count
 and the EMA as they were, restores the BatchNorm statistics the forward
 updated, and counts one ``nan_skips``.
+
+The eval step scores the live weights, one set of weights given as a
+dict (``torch.func.functional_call``, the counterpart of
+``model.apply(variables, ...)``), or the mean restoration of an ensemble
+of them, optionally over dihedral test-time views (``ops/tta.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from msid_tpu_torch.ops.metrics import batch_metric_sums
 from msid_tpu_torch.ops.noise import NoiseConfig, corrupt, fold_in
 from msid_tpu_torch.ops.preprocess import preprocess_tiles, random_band_permutation
+from msid_tpu_torch.ops.tta import dihedral_ensemble, orbit_prefix
 from msid_tpu_torch.training.losses import (
     LossConfig,
     combined_loss,
@@ -44,20 +51,48 @@ from msid_tpu_torch.training.optim import GroupedAdamW
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count (updates applied), skipped steps, the optimizer and the
-    optional EMA shadow (``{name: fp32 tensor}`` over every parameter)."""
+    """The model, the step count (updates applied), skipped steps, the
+    optimizer and the optional EMA shadow (``{name: fp32 tensor}`` over
+    every parameter)."""
 
     optimizer: GroupedAdamW
     step: int = 0
     nan_skips: int = 0
     ema: Optional[dict] = None
+    model: Optional[nn.Module] = None
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: GroupedAdamW,
                ema: bool = False) -> "TrainState":
         shadow = ({n: p.detach().clone() for n, p in model.named_parameters()}
                   if ema else None)
-        return cls(optimizer=optimizer, ema=shadow)
+        return cls(optimizer=optimizer, ema=shadow, model=model)
+
+    def state_dict(self) -> dict:
+        """Everything a checkpoint holds, by reference (not copied): the
+        module's parameters and BN statistics, the AdamW moments and
+        counts, ``step``, ``nan_skips`` and the EMA shadow."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "nan_skips": self.nan_skips, "ema": self.ema}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict` in place, onto the module's device."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.nan_skips = int(state["nan_skips"])
+        device = next(self.model.parameters()).device
+        self.ema = (None if state["ema"] is None else
+                    {k: v.to(device) for k, v in state["ema"].items()})
+
+    def eval_variables(self, raw: bool = False) -> dict:
+        """The weights to evaluate or serve, as a ``{name: tensor}`` copy
+        of the module's parameters and buffers: the EMA shadow in place of
+        the parameters when there is one (unless ``raw``)."""
+        variables = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        if self.ema is not None and not raw:
+            variables.update({k: v.detach().clone() for k, v in self.ema.items()})
+        return variables
 
     @contextlib.contextmanager
     def eval_weights(self, model: nn.Module):
@@ -193,37 +228,57 @@ def make_eval_step(
     ensemble_size: int = 1,
     compute_dtype: torch.dtype = torch.float32,
 ) -> Callable:
-    """The eval step ``(batch, seed, count) -> sums``: corrupt with the
-    batch's fixed seed, run the eval-mode forward in the compute dtype, and
-    return the metric sums of ``batch_metric_sums`` and ``loss`` (the sum of
-    the per-sample combined loss) as device scalars, over the first
-    ``count`` samples only (the rest is padding)."""
+    """The eval step ``(batch, seed, count, variables=None) -> sums``:
+    corrupt with the batch's fixed seed, run the eval-mode forward in the
+    compute dtype, and return the metric sums of ``batch_metric_sums`` and
+    ``loss`` (the sum of the per-sample combined loss) as device scalars,
+    over the first ``count`` samples only (the rest is padding).
+
+    ``variables`` None scores the module's own weights, a dict of
+    parameters and buffers scores those. With ``ensemble_size`` > 1 it is a
+    sequence of that many dicts, and the step scores their mean
+    restoration, averaged in fp32. ``tta`` > 1 averages over that many
+    dihedral views of the noisy input, each view going through the
+    (ensemble-averaged) forward. Both are checked when the step is built.
+    """
     refuse_vgg(vgg_params)
+    orbit_prefix(tta, image_size, image_size)
     if forward_impl not in ("auto", "apply", "hybrid"):
         raise ValueError(f"forward_impl must be auto|apply|hybrid, got {forward_impl!r}")
+    if ensemble_size < 1:
+        raise ValueError(f"ensemble_size must be >= 1, got {ensemble_size}")
+    if ensemble_size > 1 and forward_impl == "hybrid":
+        raise ValueError("checkpoint ensembling supports only the apply/auto "
+                         "forward, not hybrid")
     if forward_impl == "hybrid":
         raise NotImplementedError(
             "forward_impl='hybrid' needs the folded decoder graph "
             "(deployment/fastpath.py), not ported yet")
-    if ensemble_size < 1:
-        raise ValueError(f"ensemble_size must be >= 1, got {ensemble_size}")
-    if ensemble_size > 1:
-        raise NotImplementedError(
-            "checkpoint ensembles need the checkpoint manager and the ensemble "
-            "forward of deployment/fastpath.py, not ported yet")
-    if tta != 1:
-        raise NotImplementedError(
-            f"tta={tta}: test-time augmentation (ops/tta.py) is not ported yet")
     device = next(model.parameters()).device
 
-    def eval_step(batch, seed: int, count: int) -> dict:
+    def apply(variables: Optional[dict], z: torch.Tensor) -> torch.Tensor:
+        with _autocast(device, compute_dtype):
+            if variables is None:
+                return model(z.to(compute_dtype))
+            return functional_call(model, variables, (z.to(compute_dtype),))
+
+    def eval_step(batch, seed: int, count: int, variables=None) -> dict:
+        if ensemble_size > 1 and (isinstance(variables, dict)
+                                  or len(variables or ()) != ensemble_size):
+            raise ValueError(f"an ensemble of {ensemble_size} needs a sequence of "
+                             f"{ensemble_size} variable dicts")
+
+        def forward(z: torch.Tensor) -> torch.Tensor:
+            if ensemble_size == 1:
+                return apply(variables, z)
+            outs = [apply(v, z).float() for v in variables]
+            return sum(outs[1:], outs[0]) / float(ensemble_size)
+
         model.eval()
         with torch.no_grad():
             clean = _clean_batch(_to_device(batch, device), image_size, preprocess_on_device)
             noisy = corrupt(seed, clean, noise_cfg, impl=noise_impl)
-            with _autocast(device, compute_dtype):
-                out = model(noisy.to(compute_dtype))
-            out = out.float()
+            out = dihedral_ensemble(forward, noisy, tta).float()
             mask = (torch.arange(clean.shape[0], device=device) < count).float()
             loss_ps = combined_loss_per_sample(out, clean, loss_cfg)
             sums = batch_metric_sums(out, clean, mask=mask)
@@ -231,3 +286,13 @@ def make_eval_step(
         return sums
 
     return eval_step
+
+
+def ensemble_members(variables) -> tuple[Optional[dict | Sequence[dict]], int]:
+    """``(variables, ensemble_size)`` from what a caller passes: None or a
+    dict is one set of weights; a tuple or list of dicts is an ensemble
+    (one element means one set)."""
+    if isinstance(variables, (tuple, list)):
+        members = tuple(variables)
+        return (members[0], 1) if len(members) == 1 else (members, len(members))
+    return variables, 1

@@ -2,14 +2,14 @@
 
 Epochs of ``make_train_step`` calls, per-epoch validation through
 ``make_eval_step``, history, best tracking, early stopping on val PSNR,
-and the per-epoch abort after ``MAX_NAN_SKIPS_PER_EPOCH`` skipped steps.
+the per-epoch abort after ``MAX_NAN_SKIPS_PER_EPOCH`` skipped steps, a
+checkpoint after each epoch (``utils/checkpointing.py``) and resume.
 Train losses stay on the device during an epoch and reach the host in one
 transfer at its end. Corruption seeds are ``fold_in(fold_in(seed, epoch),
 batch)`` for training and ``fold_in(eval_seed, batch)`` for validation,
 so validation sees the same corruption every epoch.
 
-One card; checkpoints (``utils/checkpointing.py``) and the multi-device
-mesh are later slices of the port.
+One card; the multi-device mesh is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -48,16 +48,13 @@ class Trainer:
                  eval_step: Optional[Callable] = None, seed: int = 42,
                  eval_seed: int = 1234, log_every: int = 50,
                  device: str | torch.device = "cuda"):
-        if checkpoint_manager is not None:
-            raise NotImplementedError(
-                "checkpointing (utils/checkpointing.py) is not ported yet; "
-                "pass checkpoint_manager=None")
         self.device = resolve_device(device)
         config = config or {}
         training = config.get("training", {})
         self.model = model.to(self.device)
         self.state = state
         self.config = config
+        self.ckpt = checkpoint_manager
         self.loss_cfg = loss_cfg or LossConfig.from_config(config)
         self.noise_cfg = noise_cfg or NoiseConfig.from_config(config)
         self.lr_schedule = lr_schedule
@@ -205,6 +202,15 @@ class Trainer:
                     self.min_delta if self.early_stopping_enabled else 0.0)
                 self.best_val_loss = min(self.best_val_loss, val_m["loss"])
                 self.best_val_metric = max(self.best_val_metric, val_m["psnr"])
+
+                if self.ckpt is not None:
+                    metrics = {"val_loss": val_m["loss"], "val_psnr": val_m["psnr"],
+                               "val_ssim": val_m["ssim"], "val_sam": val_m["sam"]}
+                    self.ckpt.save(
+                        epoch + 1, self.state, metrics=metrics,
+                        metadata={"epoch": epoch + 1, "history": self.history,
+                                  "config": _jsonable(self.config)},
+                        force=(epoch + 1 == epochs))
                 if self.early_stopping_enabled:
                     if improved_metric:
                         self.epochs_without_improvement = 0
@@ -217,4 +223,51 @@ class Trainer:
                             break
         except KeyboardInterrupt:
             logger.warning("Training interrupted — returning partial history")
+        finally:
+            if self.ckpt is not None:
+                self.ckpt.wait_until_finished()     # drain background saves
         return self.history
+
+    def load_checkpoint(self, manager=None, step: Optional[int] = None,
+                        best: bool = False) -> int:
+        """Restore the state, history and best values from a checkpoint
+        manager (this trainer's unless given). Returns the epoch to resume
+        from, 0 if there is no checkpoint."""
+        manager = manager or self.ckpt
+        if manager is None:
+            return 0
+        if step is not None:
+            out = manager.load_step(step, target=self.state)
+        elif best:
+            out = manager.load_best(target=self.state)
+        else:
+            out = manager.load_latest(target=self.state)
+        if out is None:
+            return 0
+        state, metadata, ckpt_step = out
+        if self.ema_decay <= 0.0 and state.ema is not None:
+            # A shadow this run never updates would freeze validation at the
+            # restored weights: drop it, so validation scores the live ones.
+            logger.info("checkpoint carries an EMA shadow but training.ema_decay "
+                        "is 0 — dropping the shadow; validation serves live params")
+            state.ema = None
+        self.state = state
+        history = (metadata or {}).get("history")
+        if history:
+            self.history = history
+            if history.get("val_loss"):
+                self.best_val_loss = min(history["val_loss"])
+            if history.get("val_psnr"):
+                self.best_val_metric = max(history["val_psnr"])
+        return int((metadata or {}).get("epoch", ckpt_step))
+
+
+def _jsonable(obj):
+    """A config dict with every value JSON can hold (others as strings)."""
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    return str(obj)

@@ -1,1 +1,1 @@
-"""Configuration helpers of the PyTorch port."""
+"""Configuration, session set-up and checkpoints of the PyTorch port."""

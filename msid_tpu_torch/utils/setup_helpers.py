@@ -4,10 +4,10 @@
 
 ``setup_training_session`` returns everything ``Trainer.fit`` needs on one
 device, the GPU unless ``device="cpu"`` is passed. It fits the dead-band
-fill's Gram matrix over the train split when the model has ``input_fill``.
-Checkpointing and the SatMAE weight converter are later slices: the
-session has no checkpoint manager, and an existing ``pretrained_path``
-raises.
+fill's Gram matrix over the train split when the model has ``input_fill``,
+and, given an ``output_dir``, builds the checkpoint manager under
+``output_dir/checkpoints`` from the ``checkpoint:`` section. The SatMAE
+weight converter is a later slice: an existing ``pretrained_path`` raises.
 """
 
 from __future__ import annotations
@@ -98,12 +98,35 @@ def create_training_components(config: dict, model, steps_per_epoch: int = 1):
     return optimizer, schedule, LossConfig.from_config(config), NoiseConfig.from_config(config)
 
 
-def setup_training_session(config_path: str | Path | dict, seed: Optional[int] = None,
+def build_checkpoint_manager(config: dict, directory: str | Path):
+    """The ``CheckpointManager`` of the ``checkpoint:`` section: top-K by
+    ``metric`` (minimised when it names a loss), ``save_every``,
+    ``moments_dtype`` and ``background_transfer``."""
+    from msid_tpu_torch.utils.checkpointing import CheckpointManager
+
+    ckpt = config.get("checkpoint", {})
+    metric = str(ckpt.get("metric", "val_psnr"))
+    return CheckpointManager(
+        directory,
+        keep_top_k=int(ckpt.get("keep_top_k", 3)),
+        metric=metric,
+        mode="min" if "loss" in metric else "max",
+        save_every=int(ckpt.get("save_every", 1)),
+        moments_dtype=ckpt.get("moments_dtype"),
+        background_transfer=bool(ckpt.get("background_transfer", False)),
+    )
+
+
+def setup_training_session(config_path: str | Path | dict,
+                           output_dir: Optional[str | Path] = None,
+                           seed: Optional[int] = None,
                            epochs: Optional[int] = None, synthetic: bool = False,
                            device: str | torch.device = "cuda") -> dict:
     """Everything ``Trainer.fit`` needs, in one call: a dict with
     ``config``, ``model``, ``state``, ``trainer``, ``train_loader``,
-    ``val_loader``, ``checkpoint_manager`` (None) and ``param_counts``.
+    ``val_loader``, ``checkpoint_manager`` and ``param_counts``. The
+    manager writes under ``output_dir/checkpoints``; with no
+    ``output_dir`` there is none and nothing is written.
 
     ``config_path`` may be a loaded config dict (deep-copied). ``epochs``
     overrides ``training.epochs``; ``synthetic`` forces the synthetic
@@ -144,8 +167,10 @@ def setup_training_session(config_path: str | Path | dict, seed: Optional[int] =
     optimizer, schedule, _, _ = create_training_components(
         config, model, steps_per_epoch=max(1, len(train_loader)))
     state = TrainState.create(model, optimizer)
-    trainer = Trainer(model, state, config=config, lr_schedule=schedule, seed=seed,
-                      device=device)
+    manager = (build_checkpoint_manager(config, Path(output_dir) / "checkpoints")
+               if output_dir is not None else None)
+    trainer = Trainer(model, state, config=config, checkpoint_manager=manager,
+                      lr_schedule=schedule, seed=seed, device=device)
     return {
         "config": config,
         "model": model,
@@ -153,6 +178,6 @@ def setup_training_session(config_path: str | Path | dict, seed: Optional[int] =
         "trainer": trainer,
         "train_loader": train_loader,
         "val_loader": val_loader,
-        "checkpoint_manager": None,
+        "checkpoint_manager": manager,
         "param_counts": counts,
     }

@@ -192,7 +192,8 @@ def test_norm_folded_matches_fold_batchnorm():
 
 @pytest.mark.parametrize("dtype,error,match", [
     (torch.bfloat16, ValueError, "CUDA"),
-    (torch.float32, NotImplementedError, "K4"),
+    (torch.float16, NotImplementedError, "K4"),     # neither K1 nor K4 takes fp16
+    (torch.float32, ValueError, "CUDA"),
 ])
 def test_wrapper_never_takes_the_plain_version_off_the_cpu(monkeypatch, dtype, error, match):
     """A tensor that is not on the CPU launches the kernel or raises; it
@@ -204,10 +205,10 @@ def test_wrapper_never_takes_the_plain_version_off_the_cpu(monkeypatch, dtype, e
     x = torch.empty(1, 8, 8, 48, dtype=dtype, device="meta")
     w = torch.empty(3, 3, 48, 48, dtype=dtype, device="meta")
     aff = torch.empty(4, 48, device="meta")
-    before = cuda_decoder.launches
+    before = cuda_decoder.launches, cuda_decoder.launches_fp32
     with pytest.raises(error, match=match):
         cuda_decoder.fused_residual_block(x, w, w, aff)
-    assert cuda_decoder.launches == before
+    assert (cuda_decoder.launches, cuda_decoder.launches_fp32) == before
 
 
 def test_cpu_plain_version_keeps_fp32_and_bf16_numerics():

@@ -195,10 +195,12 @@ def test_eval_step_masked_sums_match_jax(jax_setup):
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(tta=2), NotImplementedError, "ops/tta.py"),
+    (dict(tta=0), ValueError, "num_transforms"),
     (dict(forward_impl="hybrid"), NotImplementedError, "fastpath.py"),
-    (dict(ensemble_size=2), NotImplementedError, "fastpath.py"),
+    (dict(ensemble_size=2, forward_impl="hybrid"), ValueError, "not hybrid"),
     (dict(forward_impl="bogus"), ValueError, "forward_impl"),
+    (dict(tta=9), ValueError, "num_transforms"),
+    (dict(ensemble_size=0), ValueError, "ensemble_size"),
 ])
 def test_eval_step_refuses_what_is_not_ported(jax_setup, kwargs, error, match):
     with pytest.raises(error, match=match):

@@ -135,8 +135,9 @@ def test_what_is_not_ported_raises(tmp_path, caplog):
         train, val = get_dataloaders(dict(config, data=dict(config["data"], device_cache=True)))
     assert isinstance(train, BatchLoader) and "not ported yet" in caplog.text
     session = setup_training_session(config, synthetic=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        Trainer(session["model"], session["state"], config, checkpoint_manager=object(),
+    with pytest.raises(NotImplementedError, match="fastpath.py"):
+        Trainer(session["model"], session["state"],
+                dict(config, training=dict(config["training"], eval_forward="hybrid")),
                 device="cpu")
     pretrained = dict(config, model=dict(config["model"], encoder=dict(
         config["model"]["encoder"], pretrained_path=str(TINY))))
