@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``msid_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase, the result lines
+    python3 chip_smoke.py probe hybrid     # those phases alone, no result lines
 
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
 
-1. build: compile ``msid_tpu_torch/csrc/{resblock,noise,resblock_fp32}.cu``
-   for sm_90a, one ``nvcc`` per source, started together;
+1. build: compile the five sources of ``msid_tpu_torch/csrc/`` (resblock,
+   noise, resblock_fp32, resblock_v2, any_dma) for sm_90a, one ``nvcc`` per
+   source, started together;
 2. kernel: the fused ResidualBlock kernel (K1) against its plain PyTorch
    version at the flagship decoder's four shapes, B=1 and B=16
    (rtol 0.03 / atol 0.02), with its time beside the plain version's, a
@@ -51,9 +53,29 @@ network. Phases, each of which must pass:
    metrics within 1e-4), with ``--tta 8`` (64 K1 launches per validation
    batch) and with ``--ensemble`` of the same checkpoint (equal to the
    single score within 1e-5); the checkpoint's size and save time and
-   each evaluation's time are printed.
+   each evaluation's time are printed;
+9. probe: the async-copy probe kernel (K5) against ``x * 2`` at
+   [8,192,48] and [3072,192,48] fp32 (exactly equal), timed beside
+   ``x * 2`` and its bytes bound; the nine-tap fused ResidualBlock (K3)
+   against its plain version and against K1's output at the four flagship
+   shapes, B=1 and B=16, and at the probe's [64,192,192,48] (rtol 0.03 /
+   atol 0.02), timed beside K1, a cuDNN bf16 composition and the bound;
+   then ``msid_tpu_torch.benchmarks.kernel_probe.main`` for every variant,
+   each kernel's launch counter moving by that variant's calls and no
+   other counter moving;
+10. hybrid: the default full-width model (``unet_light`` 384/192/96/48, no
+   fill) in bf16: ``InferenceSession(optimize="auto")`` serves the module's
+   forward at B=1 and the hybrid graph at B=16, ``optimize=True`` the
+   fastpath; each folded graph within relative RMS 2e-2 of the module's
+   forward in bf16 and 1e-4 in fp32, launching no fused-block kernel (the
+   module's forward launches 8); device p50 of the three graphs at B=1, 16
+   and 128; then ``long_skip.yaml`` trained one epoch and scored by
+   ``scripts.evaluate --forward apply`` and ``--forward hybrid`` in fp32
+   (metrics within 1e-4 relative) and under bf16 autocast (within 2e-2),
+   and ``--forward hybrid`` refused with
+   ``ValueError`` on the flagship (it has the input fill stage).
 
-The last lines are the kernels JSON line (K1, K2 and K4, with their
+The last lines are the kernels JSON line (K1 to K5, with their
 launches on each path), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that last line; so does a machine with no card, or a
@@ -83,7 +105,8 @@ BATCHES = (1, 16)
 REQUESTS = 4
 RTOL, ATOL = 0.03, 0.02          # the TPU kernel v3's golden tolerance
 MAX_REL_RMS = 2e-2               # bf16 GPU forward vs fp32 CPU forward
-KERNELS = ("resblock", "noise", "resblock_fp32")   # csrc/<name>.cu, built in parallel
+# csrc/<name>.cu, built in parallel
+KERNELS = ("resblock", "noise", "resblock_fp32", "resblock_v2", "any_dma")
 # K4 against its plain version (cuDNN fp32, TF32 off): both fp32, sums in
 # another order over K = 9C.
 FP32_SHAPES = SHAPES + ((8, 64), (24, 16))
@@ -104,6 +127,16 @@ PARITY_BATCH = 2
 PARITY_LOSS_RTOL = 1e-2
 PARITY_GNORM_RTOL = 5e-2
 TIMED_STEPS = 4
+PROBE_SHAPE = (64, 192, 192, 48)  # the kernel probe's default block
+PROBE_ITERS = 20
+ANY_DMA_SHAPES = ((8, 192, 48), (3072, 192, 48))   # the probe's slice; a 113 MB array
+SKIP_CONFIG = ROOT / "configs" / "experiments" / "long_skip.yaml"   # full width, no fill
+HYBRID_BATCHES = (1, 16, 128)
+HYBRID_FP32_REL_RMS = 1e-4        # folded graphs vs the module's forward, fp32, TF32 off
+HYBRID_METRIC_RTOL = 1e-4         # --forward hybrid vs --forward apply, fp32
+# The same under bf16 autocast: the two graphs round at different places
+# (outputs differ by ~6e-3 relative RMS), as the serving check allows.
+HYBRID_BF16_METRIC_RTOL = 2e-2
 
 
 def load_flagship() -> dict:
@@ -862,6 +895,321 @@ def phase_evaluate(torch, failures: list, card: str) -> dict:
     return result
 
 
+def within(torch, got, want) -> bool:
+    """|got - want| <= ATOL + RTOL |want| everywhere, and got finite."""
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= ATOL + RTOL * want.float().abs()).all()
+                and torch.isfinite(got.float()).all())
+
+
+def phase_probe(torch, F, failures: list) -> dict:
+    """K5 and K3 against their plain versions (K3 against K1 too), with
+    times, then the kernel probe's entry point for every variant."""
+    from msid_tpu_torch.benchmarks import kernel_probe
+    from msid_tpu_torch.ops import cuda_decoder, cuda_probe
+
+    result: dict = {"k5": [], "k3": []}
+    for shape in ANY_DMA_SHAPES:                       # the small one first
+        g = torch.Generator(device="cuda").manual_seed(shape[0])
+        x = torch.randn(shape, device="cuda", generator=g)
+        got = cuda_probe.any_dma_scale(x)
+        want = cuda_probe.any_dma_scale_reference(x)
+        torch.cuda.synchronize()
+        row = {"check": "any_dma", "shape": list(shape),
+               "max_abs_err": float((got - want).abs().max()),
+               "ok": torch.equal(got, want),
+               "kernel_ms": time_ms(torch, lambda: cuda_probe.any_dma_scale(x)),
+               "plain_ms": time_ms(torch, lambda: cuda_probe.any_dma_scale_reference(x)),
+               "library_ms": time_ms(torch, lambda: x * 2),
+               "library": "x * 2 (one elementwise kernel)",
+               "bytes": 2 * x.numel() * 4,
+               "bound_ms": 2 * x.numel() * 4 / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes"}
+        row["hbm_share_of_peak"] = row["bound_ms"] / row["kernel_ms"]
+        emit(row)
+        result["k5"].append(row)
+        if not row["ok"]:
+            failures.append(f"any_dma {shape}: not equal to x * 2 ({row['max_abs_err']})")
+
+    lib = library_block(torch, F)
+    # A wrong byte count on the barrier would hang: the first launch is a
+    # small one, synchronised on its own.
+    tiny = random_block_inputs(torch, 48, 8, 1, seed=1)
+    if not within(torch, cuda_decoder.fused_residual_block_v2(*tiny),
+                  cuda_decoder.fused_residual_block_v2_reference(*tiny)):
+        failures.append("resblock_v2 [1,8,8,48]: disagrees with its plain version")
+    torch.cuda.synchronize()
+    cases = [(c, s, b, random_block_inputs(torch, c, s, b, seed=c + b), 20)
+             for c, s in SHAPES for b in BATCHES]
+    pb, ph, pw, pc = PROBE_SHAPE
+    cases.append((pc, ph, pb, kernel_probe.make_inputs(PROBE_SHAPE, torch.device("cuda")), 5))
+    for c, s, b, (x, w1, w2, aff), iters in cases:
+        got = cuda_decoder.fused_residual_block_v2(x, w1, w2, aff)
+        want = cuda_decoder.fused_residual_block_v2_reference(x, w1, w2, aff)
+        k1 = cuda_decoder.fused_residual_block(x, w1, w2, aff)
+        torch.cuda.synchronize()
+        ok_plain, ok_k1 = within(torch, got, want), within(torch, got, k1)
+        kw1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        kw2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bound_ms, bound_by, flops, nbytes = block_bound(c, s, b)
+        row = {
+            "check": "resblock_v2", "C": c, "H": s, "W": s, "B": b,
+            "tile": list(cuda_decoder.v2_tile(c, None, None)),
+            "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_v2(
+                x, w1, w2, aff), iters=iters),
+            "k1_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
+                x, w1, w2, aff), iters=iters),
+            "plain_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_v2_reference(
+                x, w1, w2, aff), iters=min(iters, 10), warmup=1),
+            "library_ms": time_ms(torch, lambda: lib(x, kw1, kw2, aff), iters=iters),
+            "library": "cuDNN bf16 conv2d composition (channels-last)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "max_abs_vs_k1": float((got.float() - k1.float()).abs().max()),
+            "ok": ok_plain and ok_k1,
+        }
+        row["tflops"] = flops / row["kernel_ms"] / 1e9
+        emit(row)
+        result["k3"].append(row)
+        if not row["ok"]:
+            failures.append(f"resblock_v2 C={c} H={s} B={b}: vs plain {row['max_abs_err']} "
+                            f"({ok_plain}), vs K1 {row['max_abs_vs_k1']} ({ok_k1})")
+    del cases
+
+    # The entry point, one variant per call as a user runs it. Each variant
+    # moves its own kernel's counter by the calls it makes, and no other.
+    counters = {"resblock": (cuda_decoder, "launches"),
+                "resblock_fp32": (cuda_decoder, "launches_fp32"),
+                "resblock_v2": (cuda_decoder, "launches_v2"),
+                "any_dma": (cuda_probe, "launches_any_dma")}
+    moves = {"xla": None, "xla_bf16": None, "fused": "resblock_fp32", "v3": "resblock",
+             "v2": "resblock_v2", "v2:8:32": "resblock_v2", "any_dma": "any_dma"}
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    result["launches"] = {k: 0 for k in counters}
+    result["variants"] = {}
+    for variant, kernel in moves.items():
+        before = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        out = kernel_probe.main([variant, "--shape", ",".join(map(str, PROBE_SHAPE)),
+                                 "--iters", str(PROBE_ITERS)])
+        torch.cuda.synchronize()
+        moved = {k: getattr(m, a) - before[k] for k, (m, a) in counters.items()}
+        expected = {k: (out["calls"] if k == kernel else 0) for k in counters}
+        out["launches"] = moved
+        result["variants"][variant] = out
+        for k, v in moved.items():
+            result["launches"][k] += v
+        if moved != expected:
+            failures.append(f"probe {variant}: counters moved by {moved}, expected {expected}")
+        if variant == "any_dma":
+            if out["correct"] is not True:
+                failures.append("probe any_dma: not correct")
+        elif not (np.isfinite(out["ms"]) and out["ms"] > 0):
+            failures.append(f"probe {variant}: bad time {out['ms']}")
+        elif out["max_abs_vs_xla"] is not None and not out["max_abs_vs_xla"] <= 0.25:
+            # bf16 outputs of |y| <= ~16 differ from the fp32-output block's
+            # by a few bf16 ulps (2^-4 at 8..16)
+            failures.append(f"probe {variant}: max|d| vs xla {out['max_abs_vs_xla']}")
+    emit({"check": "probe", "shape": list(PROBE_SHAPE), "iters": PROBE_ITERS,
+          "variants": result["variants"], "launches": result["launches"]})
+    return result
+
+
+def phase_hybrid(torch, failures: list, card: str) -> dict:
+    """The folded-BN graphs on the default full-width model: the session's
+    choice, agreement with the module's forward, launch counts, device
+    times; then ``--forward hybrid`` through the evaluate CLI."""
+    from msid_tpu_torch.deployment import fastpath
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_decoder
+    from msid_tpu_torch.scripts import evaluate as evaluate_cli
+    from msid_tpu_torch.scripts import train as train_cli
+
+    def block_counts():
+        return (cuda_decoder.launches, cuda_decoder.launches_fp32, cuda_decoder.launches_v2)
+
+    cpu_model = SatMAERestoration().eval()               # the defaults: the model bench.py times
+    randomize_(torch, cpu_model, seed=2)
+    models = {}
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        models[name] = SatMAERestoration().set_compute_dtype(dtype).to("cuda").eval()
+        models[name].load_state_dict(cpu_model.state_dict())
+    del cpu_model
+    model = models["bfloat16"]
+    size, bands = model.image_size, model.in_channels
+    result = {"check": "hybrid", "model": "SatMAERestoration() defaults: ViT-Base, "
+              "unet_light 384/192/96/48, no fill", "card": card}
+    launches = {"resblock": 0, "resblock_fp32": 0}
+
+    def session(b, optimize, m=model):
+        return InferenceSession(m, batch_size=b, image_size=size, num_bands=bands,
+                                optimize=optimize)
+
+    chosen = {"auto_b1": session(1, "auto").optimized, "auto_b16": session(16, "auto").optimized,
+              "true_b1": session(1, True).optimized, "false_b16": session(16, False).optimized}
+    result["chosen"] = chosen
+    if chosen != {"auto_b1": False, "auto_b16": "hybrid", "true_b1": "fastpath",
+                  "false_b16": False}:
+        failures.append(f"hybrid: the session chose {chosen}")
+
+    # Agreement and launch counts: bf16 at B=16 through the sessions a user
+    # builds, fp32 at B=2 with the graphs called directly (auto would serve
+    # the module's forward at B=2).
+    x16 = noisy_tiles(16, size, bands, seed=300)
+    cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
+    ref = session(16, False).predict(x16)
+    after_apply = block_counts()
+    outs = {"hybrid": session(16, "auto").predict(x16),
+            "fastpath": session(16, True).predict(x16)}
+    after_folded = block_counts()
+    launches["resblock"] += after_folded[0]
+    result["bf16_b16"] = {"apply_launches": list(after_apply),
+                          "folded_launches": [a - b for a, b in zip(after_folded, after_apply)],
+                          "rel_rms_vs_apply": {k: rel_rms(v, ref) for k, v in outs.items()}}
+    if after_apply != (8, 0, 0) or after_folded != after_apply:
+        failures.append(f"hybrid bf16: block-kernel counters {after_apply} after the module's "
+                        f"forward, {after_folded} after the folded graphs")
+    for k, v in result["bf16_b16"]["rel_rms_vs_apply"].items():
+        if not (v <= MAX_REL_RMS and np.isfinite(outs[k]).all()):
+            failures.append(f"hybrid bf16 {k}: rel RMS {v} vs the module's forward")
+
+    m32 = models["float32"]
+    x2 = torch.from_numpy(noisy_tiles(2, size, bands, seed=301)).cuda()
+    with torch.inference_mode():
+        cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
+        ref32 = m32(x2)
+        after_apply = block_counts()
+        tree = fastpath.optimize_for_inference(m32, upsample="both")
+        outs32 = {
+            "fastpath_matmul": fastpath.make_fast_inference_fn(m32, True)(tree, x2),
+            "fastpath_ct": fastpath.make_fast_inference_fn(m32, False)(tree, x2),
+            "hybrid": fastpath.make_hybrid_inference_fn(m32)(
+                fastpath.optimize_for_hybrid(m32), x2),
+            "hybrid_live_fold": fastpath.make_hybrid_forward(m32)(None, x2),
+        }
+        torch.cuda.synchronize()
+        after_folded = block_counts()
+    launches["resblock_fp32"] += after_folded[1]
+    result["fp32_b2"] = {"apply_launches": list(after_apply),
+                         "rel_rms_vs_apply": {k: rel_rms(v.cpu().numpy(), ref32.cpu().numpy())
+                                              for k, v in outs32.items()}}
+    if after_apply != (0, 8, 0) or after_folded != after_apply:
+        failures.append(f"hybrid fp32: block-kernel counters {after_apply} after the module's "
+                        f"forward, {after_folded} after the folded graphs")
+    for k, v in result["fp32_b2"]["rel_rms_vs_apply"].items():
+        if not v <= HYBRID_FP32_REL_RMS:
+            failures.append(f"hybrid fp32 {k}: rel RMS {v} vs the module's forward")
+    del tree, outs32, ref32, m32, models["float32"]
+    torch.cuda.empty_cache()
+
+    # Device p50 of the three graphs, in turns (there and back), each called
+    # as the session calls it ("auto" itself serves the module's forward
+    # below 8, so a session cannot be asked for the hybrid graph at B=1).
+    before = cuda_decoder.launches
+    times: dict = {}
+    for b in HYBRID_BATCHES:
+        iters, warmup = (30, 5) if b < 128 else (10, 3)
+        xb = torch.from_numpy(np.random.default_rng(b).uniform(
+            -2.0, 2.0, (b, size, size, bands)).astype(np.float32)).cuda()
+        hybrid_fn = fastpath.make_hybrid_inference_fn(model)
+        fast_fn = fastpath.make_fast_inference_fn(model, matmul_upsample=True)
+        with torch.inference_mode():
+            hybrid_w = fastpath.optimize_for_hybrid(model)
+            fast_w = fastpath.optimize_for_inference(model, upsample="matmul")
+
+        def run_apply():
+            with torch.inference_mode():
+                return model(xb.to(model.dtype)).float()
+
+        def run_hybrid():
+            with torch.inference_mode():
+                return hybrid_fn(hybrid_w, xb).float()
+
+        def run_fast():
+            with torch.inference_mode():
+                return fast_fn(fast_w, xb).float()
+
+        graphs = {"apply": run_apply, "hybrid": run_hybrid, "fastpath": run_fast}
+        turns: dict = {k: [] for k in graphs}
+        for name in ("apply", "hybrid", "fastpath", "fastpath", "hybrid", "apply"):
+            turns[name].append(time_ms(torch, graphs[name], iters, warmup))
+        profiles = {k: device_profile(torch, fn, iters=2) for k, fn in graphs.items()}
+        times[f"b{b}"] = {
+            k: {"device_p50_ms_turns": v, "device_p50_ms": float(np.mean(v)),
+                "tiles_per_s": b * 1e3 / float(np.mean(v)),
+                "device_busy_ms": profiles[k]["device_busy_ms"],
+                "device_launches": profiles[k]["device_launches"],
+                "device_idle_share": 1 - profiles[k]["device_busy_ms"] / float(np.mean(v))}
+            for k, v in turns.items()}
+        del xb, hybrid_w, fast_w
+        torch.cuda.empty_cache()
+    launches["resblock"] += cuda_decoder.launches - before
+    result["device_times"] = times
+
+    # --forward hybrid through the CLIs, fp32, on the flagship without its
+    # fill stage; and its refusal on the flagship.
+    metrics = ("loss", "psnr", "ssim", "sam", "rmse")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmp:
+        tmp = Path(tmp)
+        common = ["--synthetic", "--device", "cuda"]
+        t0 = time.perf_counter()
+        train_cli.main(["--config", str(SKIP_CONFIG), *common, "--epochs", "1",
+                        "--output-dir", str(tmp / "run")])
+        result["train_seconds"] = time.perf_counter() - t0
+        fp32_config = tmp / "fp32.yaml"
+        fp32_config.write_text(
+            f"inherits: {SKIP_CONFIG}\ntraining:\n  mixed_precision: false\n")
+        scores = {}
+        for name, config, impl in (("apply", fp32_config, "apply"),
+                                   ("hybrid", fp32_config, "hybrid"),
+                                   ("apply_bf16", SKIP_CONFIG, "apply"),
+                                   ("hybrid_bf16", SKIP_CONFIG, "hybrid")):
+            cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
+            t0 = time.perf_counter()
+            out = evaluate_cli.main(["--config", str(config), *common, "--forward", impl,
+                                     "--checkpoint", str(tmp / "run" / "checkpoints"),
+                                     "--output-dir", str(tmp / name)])
+            torch.cuda.synchronize()
+            scores[name] = {"seconds": time.perf_counter() - t0,
+                            "block_launches": list(block_counts()),
+                            **{k: out[k] for k in metrics}}
+        launches["resblock_fp32"] += scores["apply"]["block_launches"][1]
+        launches["resblock"] += scores["apply_bf16"]["block_launches"][0]
+        refused = False
+        try:
+            evaluate_cli.main(["--config", str(CONFIG), *common, "--forward", "hybrid",
+                               "--output-dir", str(tmp / "refused")])
+        except ValueError as err:
+            refused = "input_fill" in str(err)
+    result["evaluate"] = scores
+    result["evaluate_rel_diff"] = {k: abs(scores["hybrid"][k] - scores["apply"][k])
+                                   / abs(scores["apply"][k]) for k in metrics}
+    result["evaluate_rel_diff_bf16"] = {
+        k: abs(scores["hybrid_bf16"][k] - scores["apply_bf16"][k])
+        / abs(scores["apply_bf16"][k]) for k in metrics}
+    result["flagship_forward_hybrid_refused"] = refused
+    checks = {
+        "evaluate_hybrid_equals_apply":
+            max(result["evaluate_rel_diff"].values()) <= HYBRID_METRIC_RTOL,
+        "evaluate_apply_launches_k4": scores["apply"]["block_launches"][1] > 0
+        and scores["apply"]["block_launches"][0] == 0,
+        "evaluate_hybrid_launches_no_block_kernel": scores["hybrid"]["block_launches"] == [0, 0, 0]
+        and scores["hybrid_bf16"]["block_launches"] == [0, 0, 0],
+        "evaluate_bf16_hybrid_close_to_apply":
+            max(result["evaluate_rel_diff_bf16"].values()) <= HYBRID_BF16_METRIC_RTOL
+            and scores["apply_bf16"]["block_launches"][0] > 0,
+        "flagship_refused": refused,
+        "finite": all(np.isfinite([scores[i][k] for k in metrics]).all() for i in scores),
+    }
+    result["checks"] = checks
+    result["launches"] = launches
+    emit(result)
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"hybrid: {name} failed")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -890,13 +1238,41 @@ def main() -> int:
           "nvcc": nvcc_path(), "seconds": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    rows = phase_kernel(torch, F, failures)
-    rows_fp32 = phase_kernel_fp32(torch, F, failures)
-    noise = phase_noise(torch, failures)
-    serve, reference = phase_serve(torch, failures, card)
-    serve_fp32 = phase_serve_fp32(torch, failures, card, reference)
-    train = phase_train(torch, failures, card)
-    evaluate = phase_evaluate(torch, failures, card)
+    only = sys.argv[1:]
+    if only:
+        # Named phases alone, while working on one: no result lines.
+        partial = {"probe": lambda: phase_probe(torch, F, failures),
+                   "hybrid": lambda: phase_hybrid(torch, failures, card)}
+        for name in only:
+            if name not in partial:
+                print(f"chip_smoke: only {sorted(partial)} run alone, got {name!r}",
+                      file=sys.stderr)
+                return 2
+            partial[name]()
+        for f in failures:
+            print(f"FAILED: {f}", file=sys.stderr)
+        print(f"partial run of {only}: {'failed' if failures else 'passed'}", flush=True)
+        return 1 if failures else 0
+
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, phase, *args):
+        start = time.perf_counter()
+        out = phase(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    rows = timed("kernel", phase_kernel, torch, F, failures)
+    rows_fp32 = timed("kernel_fp32", phase_kernel_fp32, torch, F, failures)
+    noise = timed("noise", phase_noise, torch, failures)
+    serve, reference = timed("serve", phase_serve, torch, failures, card)
+    serve_fp32 = timed("serve_fp32", phase_serve_fp32, torch, failures, card, reference)
+    train = timed("train", phase_train, torch, failures, card)
+    evaluate = timed("evaluate", phase_evaluate, torch, failures, card)
+    probe = timed("probe", phase_probe, torch, F, failures)
+    hybrid = timed("hybrid", phase_hybrid, torch, failures, card)
+    emit({"check": "phase_seconds", **seconds})
 
     def per_forward(kernel_rows):
         big = [r for r in kernel_rows if r["B"] == max(BATCHES) and (r["C"], r["H"]) in SHAPES]
@@ -909,16 +1285,27 @@ def main() -> int:
     k1, k4 = per_forward(rows), per_forward(rows_fp32)
     resblock_by_path = {"serve": serve["launches"], "serve_fp32": serve_fp32["k1_launches"],
                         "train": train["launches"]["resblock"],
-                        "evaluate": evaluate["launches"]["resblock"]}
+                        "evaluate": evaluate["launches"]["resblock"],
+                        "probe": probe["launches"]["resblock"],
+                        "hybrid": hybrid["launches"]["resblock"]}
     noise_by_path = {"serve": serve["noise_launches"], "train": train["launches"]["noise"],
                      "evaluate": evaluate["launches"]["noise"]}
     fp32_by_path = {"evaluate": evaluate["launches"]["resblock_fp32"],
-                    "serve_fp32": serve_fp32["k4_launches"]}
+                    "serve_fp32": serve_fp32["k4_launches"],
+                    "probe": probe["launches"]["resblock_fp32"],
+                    "hybrid": hybrid["launches"]["resblock_fp32"]}
+    v2_by_path = {"probe": probe["launches"]["resblock_v2"]}
+    any_dma_by_path = {"probe": probe["launches"]["any_dma"]}
+    k3 = per_forward(probe["k3"])
+    k3_probe = probe["k3"][-1]              # one launch at the probe's shape
+    k5_small, k5_large = probe["k5"]
     # Serving corrupts nothing: K2 runs on the training and evaluate paths.
     for name, by_path, paths in (
             ("fused_residual_block", resblock_by_path, resblock_by_path),
             ("apply_sensor_noise", noise_by_path, ("train", "evaluate")),
-            ("fused_residual_block_fp32", fp32_by_path, fp32_by_path)):
+            ("fused_residual_block_fp32", fp32_by_path, fp32_by_path),
+            ("fused_residual_block_v2", v2_by_path, v2_by_path),
+            ("any_dma_scale", any_dma_by_path, any_dma_by_path)):
         if not all(by_path[p] > 0 for p in paths):
             failures.append(f"{name}: a path launched it no time: {by_path}")
     emit({"kernels": [{
@@ -968,6 +1355,42 @@ def main() -> int:
         "library": "cuDNN fp32 conv2d composition of the same block (TF32 off)",
         "peak": "66.9 TFLOP/s fp32 outside the tensor cores, 3.35 TB/s HBM (H100 SXM)",
         "per": f"the 8 launches of one B={max(BATCHES)} flagship forward",
+    }, {
+        "name": "fused_residual_block_v2",
+        "route": "cuda",
+        "source": "msid_tpu_torch/csrc/resblock_v2.cu",
+        "replaces": "msid_tpu/ops/pallas_decoder.py:220",
+        "launches": sum(v2_by_path.values()),
+        "launches_by_path": v2_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in probe["k3"]),
+        "ms": k3_probe["kernel_ms"],
+        "plain_ms": k3_probe["plain_ms"],
+        "bound_ms": k3_probe["bound_ms"],
+        "bound_by": k3_probe["bound_by"],
+        "library_ms": k3_probe["library_ms"],
+        "library": "cuDNN bf16 conv2d composition of the same block",
+        "k1_ms": k3_probe["k1_ms"],
+        "per": f"one launch at the probe's {list(PROBE_SHAPE)} (its main path)",
+        "flagship_forward": dict(
+            k3, k1_ms=2 * sum(r["k1_ms"] for r in probe["k3"][:-1] if r["B"] == max(BATCHES)),
+            per=f"8 launches at the shapes of one B={max(BATCHES)} flagship forward"),
+    }, {
+        "name": "any_dma_scale",
+        "route": "cuda",
+        "source": "msid_tpu_torch/csrc/any_dma.cu",
+        "replaces": "benchmarks/pallas_probe.py:145",
+        "launches": sum(any_dma_by_path.values()),
+        "launches_by_path": any_dma_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in probe["k5"]),
+        "ms": k5_small["kernel_ms"],
+        "plain_ms": k5_small["plain_ms"],
+        "bound_ms": k5_small["bound_ms"],
+        "bound_by": k5_small["bound_by"],
+        "library_ms": k5_small["library_ms"],
+        "library": "x * 2 (one elementwise kernel; also the plain version)",
+        "per": f"one launch on {k5_small['shape']} fp32 (the probe's slice)",
+        "large": {k: k5_large[k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by", "hbm_share_of_peak")},
     }]})
     if failures:
         for f in failures:

@@ -2,14 +2,21 @@
 
 ``predict`` takes a model-space noisy NHWC float32 numpy batch and returns
 the restored NHWC float32 batch, computed in the model's dtype on the
-session's device (the GPU unless ``device="cpu"``): a bf16 model's decoder
-blocks run K1, an fp32 model's K4. ``tta`` > 1 averages each prediction
-over that many dihedral views of the input (``ops/tta.py``), checked when
-the session is built. ``benchmark`` times the forward with CUDA events
-after warmup.
+session's device (the GPU unless ``device="cpu"``). ``optimize`` picks the
+inference graph (``deployment/fastpath.py``): the module's own forward
+(``apply``: a bf16 model's decoder blocks run K1, an fp32 model's K4), the
+hybrid graph (module encoder + folded-BN conv-transpose decoder) or the
+full fastpath (fused QKV, patch embed and upsample as matmuls); the folded
+graphs run library convs and launch no fused-block kernel. ``tta`` > 1
+averages each prediction over that many dihedral views of the input
+(``ops/tta.py``), around whichever graph was chosen, checked when the
+session is built. ``benchmark`` times the forward with CUDA events after
+warmup.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -17,20 +24,76 @@ import torch
 from msid_tpu_torch.models.restoration import resolve_device
 from msid_tpu_torch.ops.tta import wrap_forward
 
+# The batch-size switch points of optimize="auto" are the JAX package's
+# (msid_tpu/deployment/inference.py), kept as behaviour, not as a claim
+# about this card: the H100 times of the three graphs at B=1, 16 and 128
+# are in PERF.md.
+# Largest batch at which "auto" picks the full fastpath (0: never).
+FASTPATH_AUTO_MAX_BATCH = 0
+# Smallest batch at which "auto" picks the hybrid graph; below it "auto"
+# serves the module's own forward (self.optimized = False).
+HYBRID_AUTO_MIN_BATCH = 8
+
 
 class InferenceSession:
     """Restoration inference at a fixed batch size."""
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 1,
                  image_size: int = 192, num_bands: int = 13,
-                 device: str | torch.device = "cuda", tta: int = 1):
+                 device: str | torch.device = "cuda", tta: int = 1,
+                 optimize: bool | str = "auto"):
+        """``optimize`` selects the inference graph. ``"auto"`` (default)
+        picks by batch size and serves the module's own forward for models
+        the folded graphs do not support: below ``HYBRID_AUTO_MIN_BATCH``
+        the module's forward, from there up the hybrid graph (the full
+        fastpath only up to ``FASTPATH_AUTO_MAX_BATCH``, i.e. never).
+        ``True`` forces the full fastpath and raises ``ValueError`` for
+        unsupported models; ``False`` always uses the module's forward.
+        ``self.optimized`` records the choice: ``"fastpath"``, ``"hybrid"``
+        or ``False``."""
         self.tta = int(tta)
-        self._infer = wrap_forward(self._model_forward, self.tta, image_size, image_size)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dtype = getattr(model, "dtype", torch.float32)
         self.batch_size = batch_size
         self.input_shape = (batch_size, image_size, image_size, num_bands)
+        self.optimized: bool | str = False
+        infer = self._model_forward
+        if optimize is True or optimize == "auto":
+            from msid_tpu_torch.deployment.fastpath import (
+                make_fast_inference_fn,
+                make_hybrid_inference_fn,
+                optimize_for_hybrid,
+                optimize_for_inference,
+            )
+
+            small = batch_size <= FASTPATH_AUTO_MAX_BATCH
+            try:
+                if optimize == "auto" and not small and batch_size < HYBRID_AUTO_MIN_BATCH:
+                    pass                       # below the hybrid switch point: the raw graph
+                elif optimize is True or small:
+                    # The JAX package's choice of upsample form: matmul +
+                    # depth-to-space for unet_light, conv-transpose for
+                    # unet_skip.
+                    mm = self.model.decoder_arch != "unet_skip"
+                    with torch.no_grad():
+                        weights = optimize_for_inference(
+                            self.model, dtype=self.dtype,
+                            upsample="matmul" if mm else "ct")
+                    infer = functools.partial(
+                        make_fast_inference_fn(self.model, matmul_upsample=mm), weights)
+                    self.optimized = "fastpath"
+                else:
+                    with torch.no_grad():
+                        weights = optimize_for_hybrid(self.model, dtype=self.dtype)
+                    infer = functools.partial(make_hybrid_inference_fn(self.model), weights)
+                    self.optimized = "hybrid"
+            except ValueError:
+                if optimize is True:
+                    raise
+        elif optimize is not False:
+            raise ValueError(f"optimize must be 'auto', True or False, got {optimize!r}")
+        self._infer = wrap_forward(infer, self.tta, image_size, image_size)
 
     def _model_forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x.to(self.dtype))

@@ -11,7 +11,10 @@ reproduce the trainer's last validation line. The best checkpoint (by
 one (``--raw-weights``: the live parameters), in bf16 under
 ``training.mixed_precision`` and in fp32 otherwise (with TF32 off on the
 card). ``--ensemble`` scores the mean restoration of several checkpoints
-and ``--tta N`` averages N dihedral views; both compose. Results go to
+and ``--tta N`` averages N dihedral views; both compose. ``--forward
+hybrid`` scores through the module's encoder and the folded-BN decoder
+(``deployment/fastpath.py``); it raises ``ValueError`` for models with an
+``input_fill`` stage or without batch norm. Results go to
 ``<output-dir>/evaluation_results.json``.
 """
 
@@ -44,17 +47,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="self-ensemble over N dihedral views of each noisy input "
                         "(1-8; bare --tta means 8)")
     p.add_argument("--forward", choices=("auto", "apply", "hybrid"), default="auto",
-                   help="eval forward graph: auto (= apply) or apply; hybrid is "
-                        "not ported")
+                   help="eval forward graph: auto (= apply), apply (the module's "
+                        "forward) or hybrid (module encoder + folded-BN decoder; "
+                        "unet_light/unet_skip with batch norm and no input_fill)")
     return p.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI; returns what it writes to ``evaluation_results.json``."""
     args = parse_args(argv)
-    if args.forward == "hybrid":
-        raise NotImplementedError("--forward hybrid needs the folded decoder graph "
-                                  "(deployment/fastpath.py), not ported yet")
     if args.save_visualizations:
         raise NotImplementedError("--save_visualizations needs utils/visualization.py "
                                   "(matplotlib), not ported")

@@ -240,6 +240,14 @@ def make_eval_step(
     restoration, averaged in fp32. ``tta`` > 1 averages over that many
     dihedral views of the noisy input, each view going through the
     (ensemble-averaged) forward. Both are checked when the step is built.
+
+    ``forward_impl`` selects the eval forward graph: ``apply`` (what
+    ``auto`` resolves to) is the module's own forward; ``hybrid`` is the
+    module's encoder and the folded-BN conv-transpose decoder, folded from
+    the scored weights on every call (``fastpath.make_hybrid_forward``), so
+    validation can score the graph that serving ships. It is opt-in, raises
+    ``ValueError`` for models the folded graphs do not support, and does
+    not combine with an ensemble.
     """
     refuse_vgg(vgg_params)
     orbit_prefix(tta, image_size, image_size)
@@ -250,14 +258,17 @@ def make_eval_step(
     if ensemble_size > 1 and forward_impl == "hybrid":
         raise ValueError("checkpoint ensembling supports only the apply/auto "
                          "forward, not hybrid")
+    hybrid_forward = None
     if forward_impl == "hybrid":
-        raise NotImplementedError(
-            "forward_impl='hybrid' needs the folded decoder graph "
-            "(deployment/fastpath.py), not ported yet")
+        from msid_tpu_torch.deployment.fastpath import make_hybrid_forward
+
+        hybrid_forward = make_hybrid_forward(model)      # raises for unsupported models
     device = next(model.parameters()).device
 
     def apply(variables: Optional[dict], z: torch.Tensor) -> torch.Tensor:
         with _autocast(device, compute_dtype):
+            if hybrid_forward is not None:
+                return hybrid_forward(variables, z.to(compute_dtype))
             if variables is None:
                 return model(z.to(compute_dtype))
             return functional_call(model, variables, (z.to(compute_dtype),))

@@ -13,14 +13,17 @@ import pytest
 import torch
 
 from msid_tpu_torch.models.blocks import ResidualBlock
-from msid_tpu_torch.ops import cuda_decoder
+from msid_tpu_torch.ops import cuda_decoder, cuda_probe
 from msid_tpu_torch.ops.cuda_decoder import (
     fold_batchnorm,
     fused_residual_block,
     fused_residual_block_reference,
+    fused_residual_block_v2,
+    fused_residual_block_v2_reference,
 )
 
 K4_MAX_ABS = 1e-4      # fp32 against fp32, sums in another order over K = 9C
+K3_RTOL, K3_ATOL = 0.03, 0.02   # the TPU kernels' golden tolerance in bf16
 
 
 def need_card():
@@ -68,3 +71,80 @@ def test_fp32_eval_block_launches_k4_on_the_card():
         got = block(x.cuda()).cpu()
     assert (cuda_decoder.launches, cuda_decoder.launches_fp32) == (before[0], before[1] + 1)
     assert float((got - want).abs().max()) <= K4_MAX_ABS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 192, 48), (5, 7, 12), (33, 50, 6), (70, 1, 1028)])
+def test_k5_equals_scale_on_the_card(shape):
+    """Whole boxes, a box smaller than the array, and ragged rows and
+    columns: the copy engine's zero fill past the edge is never stored."""
+    need_card()
+    x = torch.from_numpy(np.random.default_rng(shape[0]).normal(0, 1, shape)
+                         .astype(np.float32)).cuda()
+    before = cuda_probe.launches_any_dma
+    got = cuda_probe.any_dma_scale(x)
+    torch.cuda.synchronize()
+    assert cuda_probe.launches_any_dma == before + 1
+    assert torch.equal(got, cuda_probe.any_dma_scale_reference(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tiles", [
+    ((2, 16, 16, 48), [None, (8, 8), (16, 16)]),
+    ((1, 20, 36, 48), [None, (5, 7), (3, 40)]),      # ragged rows and columns
+    ((2, 24, 24, 96), [None, (8, 8)]),
+    ((1, 12, 20, 192), [None, (4, 8)]),
+    ((2, 24, 24, 384), [None, (4, 4)]),
+])
+def test_k3_matches_plain_and_k1_on_the_card(shape, tiles):
+    need_card()
+    args = [a if i == 3 else a.bfloat16() for i, a in enumerate(block_inputs(shape, seed=3))]
+    want = fused_residual_block_v2_reference(*args).float()
+    k1 = fused_residual_block(*args).float()
+    outs = []
+    for tile in tiles:
+        before = cuda_decoder.launches_v2, cuda_decoder.launches
+        rb, cb = tile or (None, None)
+        got = fused_residual_block_v2(*args, row_block=rb, col_block=cb)
+        torch.cuda.synchronize()
+        assert (cuda_decoder.launches_v2, cuda_decoder.launches) == (before[0] + 1, before[1])
+        outs.append(got)
+        for ref in (want, k1):
+            assert bool(((got.float() - ref).abs() <= K3_ATOL + K3_RTOL * ref.abs()).all())
+    # the tile only changes which CTA computes a pixel, not its arithmetic
+    for other in outs[1:]:
+        assert torch.equal(outs[0], other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["unet_light", "unet_skip"])
+def test_folded_graphs_match_apply_and_launch_no_block_kernel_on_the_card(arch):
+    """fp32, TF32 off: the fastpath and hybrid graphs against the module's
+    forward (which launches K4), with every fused-block counter still."""
+    need_card()
+    from msid_tpu_torch.deployment import fastpath
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = SatMAERestoration(image_size=32, patch_size=16, embed_dim=64, depth=2,
+                              num_heads=4, decoder_channels=(16, 16, 8, 8),
+                              decoder_arch=arch).cuda().eval()
+    for m in model.modules():
+        if hasattr(m, "running_var"):
+            m.running_mean.normal_(0, 0.1)
+            m.running_var.uniform_(0.5, 2.0)
+    x = torch.randn(2, 32, 32, 13, device="cuda")
+    with torch.no_grad():
+        want = model(x)
+        before = (cuda_decoder.launches, cuda_decoder.launches_fp32, cuda_decoder.launches_v2)
+        tree = fastpath.optimize_for_inference(model)
+        outs = [fastpath.make_fast_inference_fn(model, mm)(tree, x) for mm in (True, False)]
+        outs.append(fastpath.make_hybrid_inference_fn(model)(
+            fastpath.optimize_for_hybrid(model), x))
+        outs.append(fastpath.make_hybrid_forward(model)(None, x))
+    torch.cuda.synchronize()
+    assert before == (cuda_decoder.launches, cuda_decoder.launches_fp32,
+                      cuda_decoder.launches_v2)
+    for got in outs:
+        assert float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= 1e-4

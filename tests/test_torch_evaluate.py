@@ -4,7 +4,8 @@ off, since the two packages draw different random numbers; fp32), for one
 view, eight dihedral views and a two-member ensemble; then the CLIs: the
 tiny recipe trained by ``scripts.train`` and scored by ``scripts.evaluate``
 from its checkpoint reproduces the trainer's validation line, ``--resume``
-continues at the saved epoch, and the flags that cannot work raise."""
+continues at the saved epoch, and the flags that cannot work raise
+(``--forward hybrid`` on a model with the input fill stage among them)."""
 
 import json
 from pathlib import Path
@@ -170,13 +171,17 @@ def test_resume_continues_at_the_saved_epoch(trained, tmp_path):
     ("evaluate", ["--tta", "0", "--checkpoint", "/nonexistent"], ValueError, "num_transforms"),
     ("evaluate", ["--tta", "9"], ValueError, "num_transforms"),
     ("evaluate", ["--ensemble", "/nonexistent"], SystemExit, "--checkpoint"),
-    ("evaluate", ["--forward", "hybrid"], NotImplementedError, "deployment/fastpath.py"),
+    ("evaluate", ["--forward", "hybrid", "--config", "FILL"], ValueError, "input_fill models"),
     ("evaluate", ["--save_visualizations"], NotImplementedError, "utils/visualization.py"),
     ("train", ["--init-from", "/a", "--resume"], SystemExit, "--init-from"),
     ("train", ["--init-from", "/a", "--checkpoint", "/b"], SystemExit, "--init-from"),
 ])
-def test_cli_refusals(cli, argv, error, match):
+def test_cli_refusals(cli, argv, error, match, tmp_path):
     main = evaluate_cli.main if cli == "evaluate" else train_cli.main
+    if "FILL" in argv:      # the tiny recipe with the dead-band input stage
+        fill = tmp_path / "tiny_fill.yaml"
+        fill.write_text(f"inherits: {TINY_CONFIG}\nmodel:\n  input_fill:\n    enabled: true\n")
+        argv = [str(fill) if a == "FILL" else a for a in argv]
     with pytest.raises(error, match=match):
         main(["--config", str(TINY_CONFIG), "--synthetic", "--device", "cpu",
               "--output-dir", "/nonexistent-output", *argv])

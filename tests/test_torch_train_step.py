@@ -196,7 +196,7 @@ def test_eval_step_masked_sums_match_jax(jax_setup):
 
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(tta=0), ValueError, "num_transforms"),
-    (dict(forward_impl="hybrid"), NotImplementedError, "fastpath.py"),
+    (dict(forward_impl="hybrid"), ValueError, "input_fill models"),   # the flagship has a fill stage
     (dict(ensemble_size=2, forward_impl="hybrid"), ValueError, "not hybrid"),
     (dict(forward_impl="bogus"), ValueError, "forward_impl"),
     (dict(tta=9), ValueError, "num_transforms"),
