@@ -2,23 +2,27 @@
 """Smoke run of the PyTorch port (``msid_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, the result lines
-    python3 chip_smoke.py probe hybrid     # those phases alone, no result lines
+    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also probe,
+                                               # hybrid), no result lines
 
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
 
 1. build: compile the five sources of ``msid_tpu_torch/csrc/`` (resblock,
    noise, resblock_fp32, resblock_v2, any_dma) for sm_90a, one ``nvcc`` per
-   source, started together;
-2. kernel: the fused ResidualBlock kernel (K1) against its plain PyTorch
-   version at the flagship decoder's four shapes, B=1 and B=16
-   (rtol 0.03 / atol 0.02), with its time beside the plain version's, a
+   source (four for resblock, one per channel width), started together;
+2. kernel: the fused ResidualBlock kernel (K1, wgmma) against its plain
+   PyTorch version at the flagship decoder's four shapes, B=1 and B=16
+   (rtol 0.03 / atol 0.02), after one tiny launch synchronised on its
+   own, with its tile, cluster and time beside the plain version's, a
    cuDNN bf16 composition's and the card's bound;
-3. kernel_fp32: the fp32 fused ResidualBlock (K4) against its plain
-   version at the four flagship shapes and two tiny widths (C=8 @ 64²,
-   C=24 @ 16²), B=1 and B=16 (max abs error <= 1e-4, relative RMS <= 1e-5,
-   TF32 off), with its time beside the plain version's, a cuDNN fp32
-   composition's and the bound at the fp32 FMA peak;
+3. kernel_fp32: the fp32 fused ResidualBlock (K4, 3xTF32 on the tensor
+   cores) against its plain version at the four flagship shapes and two
+   tiny widths (C=8 @ 64², C=24 @ 16²), B=1 and B=16 (max abs error <=
+   1e-4, relative RMS <= 1e-5, TF32 off), with its geometry and time
+   beside the plain version's, a cuDNN fp32 composition's, the bound of
+   three TF32 passes on the tensor cores and the bound at the fp32 FMA
+   peak;
 4. noise: the fused corruption kernel (K2) against its plain version at
    [64,192,192,13] and [4,192,192,13] fp32 and [16,192,192,13] bf16, with
    striping off and on: dead-band masks and stripe gates exactly equal,
@@ -99,14 +103,20 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "experiments" / "long_skip_fill.yaml"
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_FP32_FLOPS = 66.9e12  # H100 SXM fp32 peak outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core peak
+TF32_PASSES = 3            # K4 multiplies every fp32 product as three TF32 products
+BF16_B1_LAUNCHES_BEFORE = 559   # device launches of one bf16 B=1 flagship forward
+                                # before the blocks kept their prepared operands
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 SHAPES = ((384, 24), (192, 48), (96, 96), (48, 192))   # (C, H=W) per stage
 BATCHES = (1, 16)
 REQUESTS = 4
 RTOL, ATOL = 0.03, 0.02          # the TPU kernel v3's golden tolerance
 MAX_REL_RMS = 2e-2               # bf16 GPU forward vs fp32 CPU forward
-# csrc/<name>.cu, built in parallel
-KERNELS = ("resblock", "noise", "resblock_fp32", "resblock_v2", "any_dma")
+# csrc/<name>.cu with its -D defines, built in parallel (K1 once per width)
+KERNELS = (("resblock", ("MSID_C=384",)), ("resblock", ("MSID_C=192",)),
+           ("resblock", ("MSID_C=96",)), ("resblock", ("MSID_C=48",)), ("noise", ()),
+           ("resblock_fp32", ()), ("resblock_v2", ()), ("any_dma", ()))
 # K4 against its plain version (cuDNN fp32, TF32 off): both fp32, sums in
 # another order over K = 9C.
 FP32_SHAPES = SHAPES + ((8, 64), (24, 16))
@@ -213,26 +223,42 @@ def library_block(torch, F):
 
 
 def phase_kernel(torch, F, failures: list) -> list[dict]:
+    """K1 against its plain version at the flagship shapes, through the
+    functional entry (HWIO weights) and with the prepared K-major operands
+    the model keeps, timed with the latter."""
     from msid_tpu_torch.ops import cuda_decoder
 
     lib = library_block(torch, F)
+    # A wrong byte count on a barrier would hang: the first launch is a
+    # small one, synchronised on its own.
+    tiny = random_block_inputs(torch, 48, 8, 1, seed=1)
+    if not within(torch, cuda_decoder.fused_residual_block(*tiny),
+                  cuda_decoder.fused_residual_block_reference(*tiny)):
+        failures.append("resblock [1,8,8,48]: disagrees with its plain version")
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for c, s in SHAPES:
         for b in BATCHES:
             x, w1, w2, aff = random_block_inputs(torch, c, s, b, seed=c + b)
-            got = cuda_decoder.fused_residual_block(x, w1, w2, aff)
+            p1, p2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
+            got = cuda_decoder.fused_residual_block(x, p1, p2, aff)
+            functional = cuda_decoder.fused_residual_block(x, w1, w2, aff)
             want = cuda_decoder.fused_residual_block_reference(x, w1, w2, aff)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             max_err = float(diff.max())
-            ok = bool((diff <= ATOL + RTOL * want.float().abs()).all()
-                      and torch.isfinite(got.float()).all())
+            ok = bool(within(torch, got, want) and torch.equal(got, functional))
             k1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             bound_ms, bound_by, flops, nbytes = block_bound(c, s, b)
+            th, tw, g, stages = cuda_decoder.bf16_tiling(c, s, s, b, sms)
             row = {
                 "check": "resblock", "C": c, "H": s, "W": s, "B": b,
+                "tile": [th, tw], "cluster": g, "stages": stages,
                 "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
+                    x, p1, p2, aff)),
+                "functional_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
                     x, w1, w2, aff)),
                 "plain_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_reference(
                     x, w1, w2, aff)),
@@ -243,6 +269,7 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
                 "max_abs_err": max_err, "ok": ok,
             }
             row["tflops"] = flops / row["kernel_ms"] / 1e9
+            row["share_of_bound"] = bound_ms / row["kernel_ms"]
             emit(row)
             rows.append(row)
             if not ok:
@@ -252,11 +279,13 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
 
 def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
     """K4 against its plain version (both fp32, TF32 off) at the flagship
-    and tiny widths, with times beside a cuDNN fp32 composition's and the
+    and tiny widths, with times beside a cuDNN fp32 composition's, the
+    bound of its route (three TF32 passes on the tensor cores) and the
     bound at the fp32 FMA peak."""
     from msid_tpu_torch.ops import cuda_decoder
 
     lib = library_block(torch, F)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for c, s in FP32_SHAPES:
         for b in BATCHES:
@@ -272,18 +301,20 @@ def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
                       and torch.isfinite(got).all())
             k1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            bound_ms, bound_by, flops, nbytes = block_bound(c, s, b, 4, PEAK_FP32_FLOPS)
+            ffma_ms, _, flops, nbytes = block_bound(c, s, b, 4, PEAK_FP32_FLOPS)
+            bound_ms, bound_by, _, _ = block_bound(c, s, b, 4, PEAK_TF32_FLOPS / TF32_PASSES)
+            th, tw, nt, nu, g, kc = cuda_decoder.fp32_tiling(c, s, s, b, sms)
             row = {
                 "check": "resblock_fp32", "C": c, "H": s, "W": s, "B": b,
-                "tile_nb_g": list(cuda_decoder.fp32_tiling(
-                    c, s, s, b, torch.cuda.get_device_properties(0).multi_processor_count)),
+                "tile": [th, tw], "cluster": g,
+                "geometry": {"nt": nt, "nu": nu, "kc": kc},
                 "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
                     x, w1, w2, aff), iters=10),
                 "plain_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_reference(
                     x, w1, w2, aff), iters=10),
                 "library_ms": time_ms(torch, lambda: lib(x, k1, k2, aff), iters=10),
                 "library": "cuDNN fp32 conv2d composition (channels-last, TF32 off)",
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bound_ffma_ms": ffma_ms,
                 "flops": flops, "bytes": nbytes,
                 "max_abs_err": max_err, "rel_rms": rel, "ok": ok,
             }
@@ -428,6 +459,9 @@ def phase_serve(torch, failures: list, card: str) -> tuple[dict, tuple]:
         if not prof["device_busy_ms"] > 0 or not prof["resblock_ms"] > 0:
             failures.append(f"serve B={b}: the profiler saw no device time "
                             f"(or none in the resblock kernel): {prof}")
+        if b == 1 and not prof["device_launches"] < BF16_B1_LAUNCHES_BEFORE:
+            failures.append(f"serve B=1: {prof['device_launches']} device launches per "
+                            f"forward, not fewer than {BF16_B1_LAUNCHES_BEFORE}")
         result[f"b{b}"] = {
             "launches": launches, "forwards": REQUESTS,
             "predict_p50_ms": p50, "predict_tiles_per_s": b * 1e3 / p50,
@@ -1230,18 +1264,27 @@ def main() -> int:
     failures: list[str] = []
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source, together
-        list(pool.map(build, KERNELS))
-    for name in KERNELS:
-        load_library(name)
-    emit({"check": "build", "sources": [f"msid_tpu_torch/csrc/{k}.cu" for k in KERNELS],
+    def timed_build(kernel):
+        start = time.perf_counter()
+        build(*kernel)
+        return time.perf_counter() - start
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per build, together
+        build_seconds = list(pool.map(timed_build, KERNELS))
+    for name, defines in KERNELS:
+        load_library(name, defines)
+    emit({"check": "build",
+          "sources": sorted({f"msid_tpu_torch/csrc/{k}.cu" for k, _ in KERNELS}),
+          "builds": {" ".join((k, *d)): t for (k, d), t in zip(KERNELS, build_seconds)},
           "nvcc": nvcc_path(), "seconds": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     only = sys.argv[1:]
     if only:
         # Named phases alone, while working on one: no result lines.
-        partial = {"probe": lambda: phase_probe(torch, F, failures),
+        partial = {"kernel": lambda: phase_kernel(torch, F, failures),
+                   "kernel_fp32": lambda: phase_kernel_fp32(torch, F, failures),
+                   "probe": lambda: phase_probe(torch, F, failures),
                    "hybrid": lambda: phase_hybrid(torch, failures, card)}
         for name in only:
             if name not in partial:
@@ -1277,7 +1320,8 @@ def main() -> int:
     def per_forward(kernel_rows):
         big = [r for r in kernel_rows if r["B"] == max(BATCHES) and (r["C"], r["H"]) in SHAPES]
         out = {k: 2 * sum(r[k] for r in big)       # 2 blocks per stage
-               for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+               for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bound_ffma_ms")
+               if k in big[0]}
         out["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in big)
                            else "bytes")
         return out
@@ -1323,6 +1367,7 @@ def main() -> int:
         "library_ms": k1["library_ms"],
         "library": "cuDNN bf16 conv2d composition of the same block",
         "per": f"the 8 launches of one B={max(BATCHES)} flagship forward",
+        "tiles": {f"C{r['C']}B{r['B']}": r["tile"] + [r["cluster"]] for r in rows},
     }, {
         "name": "apply_sensor_noise",
         "route": "cuda",
@@ -1351,9 +1396,13 @@ def main() -> int:
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
+        "bound_ffma_ms": k4["bound_ffma_ms"],
         "library_ms": k4["library_ms"],
         "library": "cuDNN fp32 conv2d composition of the same block (TF32 off)",
-        "peak": "66.9 TFLOP/s fp32 outside the tensor cores, 3.35 TB/s HBM (H100 SXM)",
+        "peak": "bound_ms: three TF32 passes at 495 TFLOP/s dense on the tensor cores "
+                "(165 TFLOP/s of fp32 work), the route the kernel takes; bound_ffma_ms: "
+                "66.9 TFLOP/s fp32 outside the tensor cores; 3.35 TB/s HBM (H100 SXM)",
+        "tiles": {f"C{r['C']}B{r['B']}": r["tile"] + [r["cluster"]] for r in rows_fp32},
         "per": f"the 8 launches of one B={max(BATCHES)} flagship forward",
     }, {
         "name": "fused_residual_block_v2",

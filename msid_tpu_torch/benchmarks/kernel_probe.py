@@ -180,7 +180,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         def fn():
             return cuda_decoder.fused_residual_block(xf, w1f, w2f, aff).to(x.dtype)
     elif which == "v3":
-        fn = functools.partial(cuda_decoder.fused_residual_block, x, w1, w2, aff)
+        k1, k2 = w1, w2
+        if x.device.type == "cuda":          # K1's K-major operands, made once
+            k1, k2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
+        fn = functools.partial(cuda_decoder.fused_residual_block, x, k1, k2, aff)
     elif parts[0] == "v2" and len(parts) <= 3:
         tile = [int(v) for v in parts[1:]] + [None] * (3 - len(parts))
         fn = functools.partial(cuda_decoder.fused_residual_block_v2, x, w1, w2, aff,

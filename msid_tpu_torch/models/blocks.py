@@ -13,7 +13,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from msid_tpu_torch.ops.cuda_decoder import fused_residual_block
+from msid_tpu_torch.ops.cuda_decoder import (
+    SUPPORTED_WIDTHS,
+    fused_residual_block,
+    prepare_bf16_weights,
+)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # torch convention: flax momentum 0.9 keeps 0.9 of the old value
@@ -83,8 +87,11 @@ class ResidualBlock(nn.Module):
     both BNs fold into a ``[4, C]`` affine and ``fused_residual_block``
     computes it (the Hopper kernel on a CUDA tensor). Under autocast, x
     and both conv weights go to the autocast dtype first, as autocast
-    would cast a conv's operands. In train mode, or with GroupNorm, it is
-    plain convs and norms.
+    would cast a conv's operands. The folded affine and the weights in the
+    kernel's dtype and layout are prepared once and kept on the module
+    (``prepared_operands``); they are made again when a source tensor was
+    written (its ``_version``), replaced, or the dtype or device changed.
+    In train mode, or with GroupNorm, it is plain convs and norms.
     """
 
     def __init__(self, features: int, norm: str = "batch"):
@@ -93,23 +100,52 @@ class ResidualBlock(nn.Module):
         self.norm0 = Norm(features, norm)
         self.conv1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
         self.norm1 = Norm(features, norm)
+        self._prepared: tuple | None = None     # (key, (w1, w2, affines))
+
+    def train(self, mode: bool = True):
+        if mode:
+            self._prepared = None               # training rewrites every source
+        return super().train(mode)
+
+    def prepared_operands(self, dtype: torch.dtype, device: torch.device) -> tuple:
+        """``(w1, w2, affines)`` as ``fused_residual_block`` takes them for an
+        x of ``dtype`` on ``device``: the fp32 ``[4, C]`` affine of the two
+        folded BNs, and the conv weights in ``dtype``: K1's K-major
+        operands for bf16 on a card, contiguous HWIO for fp32 on a card,
+        HWIO views on the CPU."""
+        sources = [self.conv0.weight, self.conv1.weight]
+        for norm in (self.norm0, self.norm1):
+            sources += [norm.weight, norm.bias, norm.running_mean, norm.running_var]
+        try:
+            key = (dtype, device, tuple((t._version, t.data_ptr(), t.dtype) for t in sources))
+        except RuntimeError:                    # inference tensors carry no version
+            key = None
+        if key is not None and self._prepared is not None and self._prepared[0] == key:
+            return self._prepared[1]
+        with torch.no_grad():
+            affines = torch.stack([*self.norm0.folded(), *self.norm1.folded()])
+            weights = [w.to(dtype).permute(2, 3, 1, 0)
+                       for w in (self.conv0.weight, self.conv1.weight)]
+            if device.type == "cuda" and dtype == torch.bfloat16 \
+                    and weights[0].shape[-1] in SUPPORTED_WIDTHS:
+                weights = [prepare_bf16_weights(w) for w in weights]
+            elif device.type == "cuda":
+                weights = [w.contiguous() for w in weights]
+        operands = (weights[0], weights[1], affines)
+        self._prepared = (key, operands) if key is not None else None
+        return operands
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training or self.norm0.kind != "batch":
             y = gelu(self.norm0(self.conv0(x)))
             y = self.norm1(self.conv1(y))
             return gelu(x + y)
-        affines = torch.stack([*self.norm0.folded(), *self.norm1.folded()])
-        w1, w2 = self.conv0.weight, self.conv1.weight
+        dtype = x.dtype
         if torch.is_autocast_enabled(x.device.type):
             dtype = torch.get_autocast_dtype(x.device.type)
-            x, w1, w2 = x.to(dtype), w1.to(dtype), w2.to(dtype)
-        out = fused_residual_block(
-            channels_last(x).permute(0, 2, 3, 1),
-            w1.permute(2, 3, 1, 0),
-            w2.permute(2, 3, 1, 0),
-            affines,
-        )
+        w1, w2, affines = self.prepared_operands(dtype, x.device)
+        out = fused_residual_block(channels_last(x.to(dtype)).permute(0, 2, 3, 1),
+                                   w1, w2, affines)
         return out.permute(0, 3, 1, 2)
 
 

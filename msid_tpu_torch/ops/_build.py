@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds). The
 library goes to ``build/kernels/<name>-<hash>.so`` at the repository root,
-keyed by a hash of the source and the compiler flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is. Nothing here runs at
-import time.
+keyed by a hash of the source, the compiler flags and the ``-D`` defines,
+so an edited source is rebuilt and an unchanged one is loaded as it is. A
+source with many template instantiations is built once per define (K1:
+``MSID_C=<width>``), each build holding a part of them. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libraries: dict[str, ctypes.CDLL] = {}
+_libraries: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -39,20 +41,23 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` goes (hash of source + flags)."""
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Where the build of ``csrc/<name>.cu`` with ``-D`` ``defines`` goes
+    (hash of source + flags + defines)."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    tag = "".join(f"-{d.replace('=', '')}" for d in defines)
+    return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its build exists; returns the path.
+def build(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D<define>`` for each of
+    ``defines``) unless its build exists; returns the path.
 
     The compiler writes to a temporary file that is renamed into place, so
     processes that build at the same time never load a partial library.
     """
-    target = library_path(name)
+    target = library_path(name, defines)
     if target.exists():
         return target
     nvcc = nvcc_path()
@@ -62,7 +67,8 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -75,11 +81,11 @@ def build(name: str) -> Path:
     return target
 
 
-def load_library(name: str) -> ctypes.CDLL:
+def load_library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     with _lock:
-        lib = _libraries.get(name)
+        lib = _libraries.get((name, defines))
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _libraries[name] = lib
+            lib = ctypes.CDLL(str(build(name, defines)))
+            _libraries[(name, defines)] = lib
         return lib

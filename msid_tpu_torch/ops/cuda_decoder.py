@@ -27,6 +27,7 @@ Layouts follow the JAX package: x is NHWC, weights are HWIO.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -49,16 +50,42 @@ V2_DEFAULT_TILES = {48: (16, 32), 96: (16, 16), 192: (8, 16), 384: (8, 8)}
 V2_MAX_TILE = 252       # a tensor map's box extent is at most 256 = tile + 4
 
 # K4's launch geometry, as csrc/resblock_fp32.cu lays it out: clusters of
-# at most FP32_MAX_CLUSTER CTAs of 256 threads, each thread holding
-# FP32_SLOTS x FP32_TM pixels of the region, input channels staged FP32_KC
-# at a time, at most MAX_SMEM bytes of shared memory per CTA.
-FP32_THREADS = 256
-FP32_TM = 2
-FP32_SLOTS = 4
-FP32_KC = 8
+# at most FP32_MAX_CLUSTER CTAs of FP32_WARPS warps; a warp holds at most
+# FP32_MT m16 tiles of pixels by ``nt`` n8 tiles of channels; input channels
+# are staged FP32_KCS at a time through FP32_STAGES buffers; at most
+# MAX_SMEM bytes of shared memory per CTA.
+FP32_WARPS = 8
+FP32_MT = 4
+FP32_STAGES = 2
+FP32_KCS = (16, 8)
+FP32_UNITS = (1, 2, 4, 8)
 FP32_MAX_CLUSTER = 8
+# Cost model of fp32_candidates, in m16 tiles of one warp over all of K.
+FP32_MIN_STEP = 1.5
+FP32_PASS_COST = 0.5
+FP32_PIXEL_COST = 0.004
+FP32_WEIGHT_COST = 0.001      # per staged weight row of a CTA's channels
+# Clusters of g CTAs (256 threads, most of an SM's shared memory) that fit
+# an H100's 132 SMs at once (cudaOccupancyMaxActiveClusters, printed by
+# scripts/sweep_k4_tiles.py): a cluster lies within one GPC.
+FP32_ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
 MAX_SMEM = 232448
 H100_SMS = 132
+
+# K1's launch geometry, as csrc/resblock.cu is built: per (C, cluster size
+# g) the width ``nw`` of a warpgroup's wgmma, the m64 tiles ``mw`` a
+# warpgroup holds in one pass, and whether the two warpgroups split the
+# CTA's N = C / g channels (True) or the region's tiles (False).
+BF16_VARIANTS = {(48, 1): (48, 4, False), (96, 1): (96, 2, False),
+                 (192, 1): (96, 2, True), (192, 2): (96, 2, False),
+                 (384, 2): (96, 2, True), (384, 4): (48, 4, True)}
+BF16_BK = 64            # input channels of one staged weight tile (128 bytes)
+BF16_MAX_STAGES = 4
+BF16_MIN_STAGES = 2
+BF16_MAX_TILE = 252     # a tensor map's box extent is at most 256 = tile + 4
+# Cost model of bf16_candidates, in m64 x 96-channel wgmma steps over all of K.
+BF16_PASS_COST = 0.3
+BF16_WINDOW_COST = 0.5 / 100e3      # per byte of window a CTA waits for
 
 
 def fold_batchnorm(scale, bias, mean, var, eps: float = 1e-5):
@@ -91,60 +118,246 @@ def fused_residual_block_reference(x: torch.Tensor, w1: torch.Tensor,
     return _gelu(y + xf).to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
-def fp32_channel_block(c: int) -> tuple[int, int]:
-    """K4's ``(TN, CG)``: TN output channels per thread, CG threads across
-    a block of ``NB = TN * CG`` channels (64, 32 or 16, dividing C where
-    it can)."""
-    return (8, 8) if c % 64 == 0 else (4, 8) if c % 32 == 0 else (4, 4)
+def split_tf32(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's operand split, in plain PyTorch: ``big = tf32(v)`` (10 mantissa
+    bits, round to nearest with ties away from zero, by integer arithmetic
+    on the fp32 bits as the kernel does it) and ``small = tf32(v - big)``,
+    both fp32 tensors whose low 13 bits are clear. ``v - big`` is exact in
+    fp32, so ``v = big + small`` up to ~2^-22 |v|."""
+    def tf32(t: torch.Tensor) -> torch.Tensor:
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    big = tf32(v.float())
+    return big, tf32(v.float() - big)
 
 
-def fp32_cluster(c: int, nb: int) -> int:
-    """K4's cluster size G: the fewest CTAs per tile that still give each
-    the fewest output-channel blocks of ``nb`` (at most 8)."""
-    blocks = math.ceil(c / nb)
-    return math.ceil(blocks / math.ceil(blocks / FP32_MAX_CLUSTER))
+def conv3x3_split_tf32(x: torch.Tensor, w: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """The 3x3 'same' conv of NHWC x with HWIO w as K4's tensor cores see
+    it: the sum of ``small_x * big_w + big_x * small_w + big_x * big_w``
+    (``terms=3``), of ``big_x * big_w`` alone (``terms=1``, a single TF32
+    pass, which K4 does not use) or with ``small_x * small_w`` too
+    (``terms=4``). Products and sums are taken in float64, so the result
+    shows the error of the split alone. Returns NHWC float64."""
+    if terms not in (1, 3, 4):
+        raise ValueError(f"terms must be 1, 3 or 4, got {terms}")
+    (xb, xs), (wb, ws) = split_tf32(x), split_tf32(w)
+
+    def conv(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(u.double().permute(0, 3, 1, 2), k.double().permute(3, 2, 0, 1),
+                        padding=1).permute(0, 2, 3, 1)
+
+    pairs = {1: [(xb, wb)], 3: [(xs, wb), (xb, ws), (xb, wb)],
+             4: [(xs, ws), (xs, wb), (xb, ws), (xb, wb)]}[terms]
+    out = conv(*pairs[0])
+    for u, k in pairs[1:]:
+        out = out + conv(u, k)
+    return out
 
 
-def fp32_smem_bytes(c: int, tile: int, nb: int, g: int) -> int:
-    """Shared memory of one K4 CTA for a ``tile`` x ``tile`` output tile:
-    staged weights [9][KC][NB], its blocks of h over the tile plus its halo
-    (pitch: its channels plus one) and the staged chunk [(tile+4)^2][KC+1],
-    in fp32."""
-    pitch = math.ceil(math.ceil(c / nb) / g) * nb + 1
-    return 4 * (9 * FP32_KC * nb + (tile + 2) ** 2 * pitch
-                + (tile + 4) ** 2 * (FP32_KC + 1))
+def fp32_channel_block(c: int) -> int:
+    """K4's ``nt``: a warp's channel unit is ``8 * nt`` wide. 48 where it
+    divides C (every flagship width), else 32, else the least that holds a
+    narrow C."""
+    if c % 48 == 0:
+        return 6
+    if c % 32 == 0:
+        return 4
+    return min(4, math.ceil(c / 8))
 
 
+def fp32_cluster(c: int, nt: int) -> list[tuple[int, int]]:
+    """K4's ways to split C output channels: ``(g, nu)`` pairs, a cluster
+    of ``g`` CTAs (at most 8) that each own ``nu`` (1, 2, 4 or 8) units of
+    ``8 * nt`` channels, with no CTA left without a channel."""
+    units = math.ceil(c / (8 * nt))
+    pairs = []
+    for nu in FP32_UNITS:
+        g = math.ceil(units / nu)
+        if g <= FP32_MAX_CLUSTER and (g, nu) not in pairs and nu < 2 * units:
+            pairs.append((g, nu))
+    return pairs
+
+
+def fp32_smem_bytes(th: int, tw: int, nt: int, nu: int, kc: int) -> int:
+    """Shared memory of one K4 CTA for a ``th`` x ``tw`` output tile: its
+    ``nc = nu * 8 * nt`` channels of h over the tile plus its halo (pitch
+    nc + 4), and FP32_STAGES x (the staged chunk [(th+4)(tw+4)][kc+4] and the
+    weights [9][kc][nc rounded up to 8 mod 16]), in fp32."""
+    nc = nu * 8 * nt
+    wp = (nc + 7) // 16 * 16 + 8
+    stage = (th + 4) * (tw + 4) * (kc + 4) + 9 * kc * wp
+    return 4 * ((th + 2) * (tw + 2) * (nc + 4) + FP32_STAGES * stage)
+
+
+def fp32_steps(m: int, nu: int) -> tuple[int, int]:
+    """``(passes, per)``: how K4 deals the m16 tiles of an ``m``-pixel
+    region over passes and the ``8 / nu`` warps along the pixels; a warp
+    takes ``per`` (at most FP32_MT) tiles in each pass."""
+    wm = FP32_WARPS // nu
+    tiles = math.ceil(m / 16)
+    passes = math.ceil(tiles / (FP32_MT * wm))
+    return passes, math.ceil(tiles / (passes * wm))
+
+
+def fp32_candidates(c: int, h: int, w: int, b: int,
+                    sms: int = H100_SMS) -> list[tuple[float, tuple[int, ...]]]:
+    """Every K4 geometry ``(th, tw, nt, nu, g, kc)`` with an even tile that
+    fits shared memory, with its estimated cost, cheapest first. The
+    estimate: waves of clusters (FP32_ACTIVE_CLUSTERS of size g fit the
+    card at once) times, for conv1's halo region and conv2's tile, the m16
+    tiles a warp works through (at least FP32_MIN_STEP) plus
+    FP32_PIXEL_COST for every source pixel a pass stages (each CTA of a
+    cluster stages the whole window and all of h, whatever its share of the
+    channels), FP32_WEIGHT_COST for every weight row of its own channels and
+    FP32_PASS_COST a pass for pipeline fill and epilogue. The
+    constants are fitted to ``scripts/sweep_k4_tiles.py`` on an H100. Ties
+    go to the larger tile, then the deeper staging."""
+    nt = fp32_channel_block(c)
+    found = []
+    for g, nu in fp32_cluster(c, nt):
+        kcs = [kc for kc in FP32_KCS if (nu * 8 * nt) % kc == 0]
+        for th in range(2, min(h + 1, 32) + 1, 2):
+            for tw in range(2, min(w + 1, 48) + 1, 2):
+                kc = next((k for k in kcs if fp32_smem_bytes(th, tw, nt, nu, k) <= MAX_SMEM),
+                          None)
+                if kc is None:
+                    break                     # wider tiles need more still
+                m1 = (th + 2) * (tw + 2)
+                p1, per1 = fp32_steps(m1, nu)
+                p2, per2 = fp32_steps(th * tw, nu)
+                clusters = math.ceil(h / th) * math.ceil(w / tw) * b
+                waves = math.ceil(clusters / max(1, FP32_ACTIVE_CLUSTERS[g] * sms // H100_SMS))
+                weights = FP32_WEIGHT_COST * 9 * nu * 8 * nt
+                steps = (p1 * (max(per1, FP32_MIN_STEP) + FP32_PASS_COST + weights
+                               + FP32_PIXEL_COST * (th + 4) * (tw + 4))
+                         + p2 * (max(per2, FP32_MIN_STEP) + FP32_PASS_COST + weights
+                                 + FP32_PIXEL_COST * m1))
+                found.append(((waves * steps, -th * tw, -kc), (th, tw, nt, nu, g, kc)))
+    found.sort()
+    return [(key[0], geometry) for key, geometry in found]
+
+
+@functools.lru_cache(maxsize=None)
 def fp32_tiling(c: int, h: int, w: int, b: int,
-                sms: int = H100_SMS) -> tuple[int, int, int]:
-    """``(tile, nb, g)`` for K4: clusters of ``g`` CTAs share each square
-    output tile, and the tile is the one whose grid finishes in the fewest
-    slot passes on ``sms`` SMs (waves of CTAs times the channel blocks a
-    CTA owns times the slots of conv1's halo region and of conv2's tile),
-    among the tiles whose shared memory and region fit; ties go to the
-    larger tile."""
-    tn, cg = fp32_channel_block(c)
-    nb = tn * cg
-    g = fp32_cluster(c, nb)
-    owned = math.ceil(math.ceil(c / nb) / g)
-    slot = FP32_THREADS // cg * FP32_TM
-    # CTAs an SM holds by registers: the 64-channel variant takes ~160 per
-    # thread (one CTA of 256 threads), the others ~128 (two).
-    ctas_by_registers = 1 if nb == 64 else 2
-    best = None
-    tile = 1
-    while (tile + 2) ** 2 <= FP32_SLOTS * slot and fp32_smem_bytes(c, tile, nb, g) <= MAX_SMEM:
-        per_sm = max(1, min(ctas_by_registers,
-                            MAX_SMEM // (fp32_smem_bytes(c, tile, nb, g) + 1024)))
-        ctas = math.ceil(h / tile) * math.ceil(w / tile) * b * g
-        passes = math.ceil((tile + 2) ** 2 / slot) + math.ceil(tile * tile / slot)
-        cost = math.ceil(ctas / (sms * per_sm)) * per_sm * owned * passes
-        if best is None or cost <= best[0]:
-            best = (cost, tile)
-        tile += 1
-    if best is None:
+                sms: int = H100_SMS) -> tuple[int, int, int, int, int, int]:
+    """``(th, tw, nt, nu, g, kc)`` for K4: the cheapest of
+    ``fp32_candidates``: output tile, channel split and staging depth."""
+    found = fp32_candidates(c, h, w, b, sms)
+    if not found:
         raise ValueError(f"channel width {c} does not fit K4's shared memory")
-    return best[1], nb, g
+    return found[0][1]
+
+
+def fp32_check_tile(c: int, th: int, tw: int, nt: int, nu: int, g: int, kc: int) -> None:
+    """Raise ``ValueError`` for a K4 geometry the kernel does not take."""
+    nc = nu * 8 * nt
+    if (nt not in (1, 2, 3, 4, 6) or nu not in FP32_UNITS or kc not in FP32_KCS
+            or nc % kc or not 1 <= g <= FP32_MAX_CLUSTER or g * nc < c
+            or th < 1 or tw < 1):
+        raise ValueError(f"K4 takes no geometry tile ({th}, {tw}), nt={nt}, nu={nu}, "
+                         f"g={g}, kc={kc} at C={c}")
+    need = fp32_smem_bytes(th, tw, nt, nu, kc)
+    if need > MAX_SMEM:
+        raise ValueError(f"tile ({th}, {tw}) at C={c} (nt={nt}, nu={nu}, kc={kc}) needs "
+                         f"{need} bytes of shared memory, a CTA has {MAX_SMEM}")
+
+
+def prepare_bf16_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[3, 3, Cin, Cout]`` -> K1's K-major operand ``[9 * Cout, CP]``
+    (row ``tap * C + cout``, column ``cin``, ``CP`` = C rounded up to a
+    multiple of 64 with zeros past C): one TMA box of it is a wgmma B tile.
+    Made once per weight (``ResidualBlock`` keeps it), not per launch."""
+    c = w.shape[-1]
+    k = w.permute(0, 1, 3, 2).reshape(9 * c, c)
+    cp = -(-c // BF16_BK) * BF16_BK
+    if cp == c:
+        return k.contiguous()
+    out = torch.zeros(9 * c, cp, dtype=w.dtype, device=w.device)
+    out[:, :c] = k
+    return out
+
+
+def bf16_defines(c: int) -> tuple[str, ...]:
+    """The ``-D`` defines of K1's build for channel width ``c``: each width
+    has its own library (``csrc/resblock.cu`` holds many instantiations;
+    four builds side by side take a quarter of the time of one)."""
+    return (f"MSID_C={c}",)
+
+
+def bf16_smem_bytes(c: int, th: int, tw: int, g: int, stages: int) -> int:
+    """Shared memory of one K1 CTA for a ``th`` x ``tw`` output tile in a
+    cluster of ``g``: the bf16 x window with its 2-pixel halo in channel
+    chunks that each start on a 1024-byte boundary, ``stages`` weight tiles
+    of [C / g][64], its C / g channels of h over the tile plus 1 pixel at a
+    pitch of C / g + 8, the barriers, and the slack to align the base."""
+    ck = v2_chunk(c)
+    n = c // g
+    chunk = -(-((th + 4) * (tw + 4) * ck * 2) // 1024) * 1024
+    hbytes = -(-((th + 2) * (tw + 2) * (n + 8) * 2) // 16) * 16
+    return (c // ck * chunk + stages * n * 128 + hbytes
+            + 8 * (1 + 2 * BF16_MAX_STAGES) + 1024)
+
+
+def bf16_steps(m: int, mw: int, nsplit: bool) -> tuple[int, int]:
+    """``(passes, share)``: the m64 tiles of an ``m``-pixel region one K1
+    warpgroup works through (all of them when the warpgroups split N, half
+    otherwise) and the passes of at most ``mw`` tiles that takes."""
+    tiles = math.ceil(m / 64)
+    share = tiles if nsplit else math.ceil(tiles / 2)
+    return math.ceil(share / mw), share
+
+
+def bf16_candidates(c: int, h: int, w: int, b: int,
+                    sms: int = H100_SMS) -> list[tuple[float, tuple[int, ...]]]:
+    """Every K1 geometry ``(th, tw, g, stages)`` with an even tile that fits
+    shared memory (the deepest weight ring that fits, at least 2), with its
+    estimated cost, cheapest first: waves of clusters times the wgmma steps
+    of a warpgroup over both convs (scaled by its width), plus a cost per
+    pass and for the window a CTA waits for before conv1. Ties go to the
+    larger tile."""
+    found = []
+    for (width, g), (nw, mw, nsplit) in BF16_VARIANTS.items():
+        if width != c:
+            continue
+        for th in range(2, min(h + 1, 32) + 1, 2):
+            for tw in range(2, min(w + 1, 64) + 1, 2):
+                stages = next((s for s in range(BF16_MAX_STAGES, BF16_MIN_STAGES - 1, -1)
+                               if bf16_smem_bytes(c, th, tw, g, s) <= MAX_SMEM), None)
+                if stages is None:
+                    break                     # wider tiles need more still
+                p1, s1 = bf16_steps((th + 2) * (tw + 2), mw, nsplit)
+                p2, s2 = bf16_steps(th * tw, mw, nsplit)
+                clusters = math.ceil(h / th) * math.ceil(w / tw) * b
+                waves = math.ceil(clusters / max(1, FP32_ACTIVE_CLUSTERS[g] * sms // H100_SMS))
+                steps = ((s1 + s2) * nw / 96 + BF16_PASS_COST * (p1 + p2)
+                         + BF16_WINDOW_COST * (th + 4) * (tw + 4) * c * 2)
+                found.append(((waves * steps, -th * tw), (th, tw, g, stages)))
+    found.sort()
+    return [(key[0], geometry) for key, geometry in found]
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_tiling(c: int, h: int, w: int, b: int,
+                sms: int = H100_SMS) -> tuple[int, int, int, int]:
+    """``(th, tw, g, stages)`` for K1: the cheapest of ``bf16_candidates``."""
+    if c not in SUPPORTED_WIDTHS:
+        raise ValueError(f"channel width {c} not supported; the kernel is "
+                         f"built for {SUPPORTED_WIDTHS}")
+    return bf16_candidates(c, h, w, b, sms)[0][1]
+
+
+def bf16_check_tile(c: int, th: int, tw: int, g: int, stages: int) -> None:
+    """Raise ``ValueError`` for a K1 geometry the kernel does not take."""
+    if ((c, g) not in BF16_VARIANTS or not 1 <= th <= BF16_MAX_TILE
+            or not 1 <= tw <= BF16_MAX_TILE
+            or not BF16_MIN_STAGES <= stages <= BF16_MAX_STAGES):
+        raise ValueError(f"K1 takes no geometry tile ({th}, {tw}), g={g}, "
+                         f"stages={stages} at C={c}")
+    need = bf16_smem_bytes(c, th, tw, g, stages)
+    if need > MAX_SMEM:
+        raise ValueError(f"tile ({th}, {tw}) at C={c} (g={g}, stages={stages}) needs "
+                         f"{need} bytes of shared memory, a CTA has {MAX_SMEM}")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -170,9 +383,10 @@ def fused_residual_block(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     affines [4,C] fp32. Returns [B,H,W,C] in x.dtype.
 
     CPU tensors take the plain version. CUDA tensors launch K1 (bf16) or
-    K4 (fp32), or raise.
+    K4 (fp32), or raise. For bf16 x on a card, w1 and w2 may also be the
+    2-D K-major operands ``prepare_bf16_weights`` makes of them, which
+    saves that copy on every call (``ResidualBlock`` keeps them).
     """
-    global launches
     if x.device.type == "cpu":
         return fused_residual_block_reference(x, w1, w2, affines)
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -186,36 +400,63 @@ def fused_residual_block(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         raise ValueError(f"x must be NHWC [B,H,W,C], got shape {tuple(x.shape)}")
     if x.dtype == torch.float32:
         return _fused_residual_block_fp32(x, w1, w2, affines)
+    if w1.dim() == 2 and w2.dim() == 2:
+        return _fused_residual_block_bf16(x, w1, w2, affines)
+    c = x.shape[-1]
+    if c not in SUPPORTED_WIDTHS:
+        raise ValueError(f"channel width {c} not supported; the kernel is "
+                         f"built for {SUPPORTED_WIDTHS}")
+    _check_weights(w1, w2, c, torch.bfloat16, x.device)
+    return _fused_residual_block_bf16(x, prepare_bf16_weights(w1),
+                                      prepare_bf16_weights(w2), affines)
+
+
+def _fused_residual_block_bf16(x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tensor,
+                               affines: torch.Tensor,
+                               geometry: tuple[int, ...] | None = None) -> torch.Tensor:
+    """K1 on a CUDA bf16 x with weights already in the kernel's K-major
+    layout (``prepare_bf16_weights``). ``geometry`` overrides
+    ``bf16_tiling``'s ``(th, tw, g, stages)`` (the tile sweep uses it)."""
+    global launches
     b, h, w, c = x.shape
     if c not in SUPPORTED_WIDTHS:
         raise ValueError(f"channel width {c} not supported; the kernel is "
                          f"built for {SUPPORTED_WIDTHS}")
+    cp = -(-c // BF16_BK) * BF16_BK
     _check("x", x, (b, h, w, c), torch.bfloat16, x.device)
     _check("affines", affines, (4, c), torch.float32, x.device)
-    _check_weights(w1, w2, c, torch.bfloat16, x.device)
-    # [ky, kx, Cin, Cout] -> [tap, Cout, Cin]: a B fragment is one load.
-    w1t = w1.transpose(2, 3).contiguous()
-    w2t = w2.transpose(2, 3).contiguous()
-    out = torch.empty_like(x)
-
+    _check("w1", w1k, (9 * c, cp), torch.bfloat16, x.device)
+    _check("w2", w2k, (9 * c, cp), torch.bfloat16, x.device)
     from msid_tpu_torch.ops._build import load_library
 
-    fn = load_library("resblock").msid_resblock_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = load_library("resblock", bf16_defines(c)).msid_resblock_forward
+    out = torch.empty_like(x)
+    if geometry is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        geometry = bf16_tiling(c, h, w, b, sms)
+    th, tw, g, stages = geometry
+    bf16_check_tile(c, th, tw, g, stages)
+    for name, t in (("x", x), ("w1", w1k), ("w2", w2k)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
-                 affines.data_ptr(), out.data_ptr(), b, h, w, c, stream)
+        err = fn(x.data_ptr(), w1k.data_ptr(), w2k.data_ptr(), affines.data_ptr(),
+                 out.data_ptr(), b, h, w, c, th, tw, g, stages, stream)
     if err != 0:
-        raise RuntimeError(f"resblock kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"resblock kernel launch failed: error {err}")
     launches += 1
     return out
 
 
 def _fused_residual_block_fp32(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                               affines: torch.Tensor) -> torch.Tensor:
-    """K4 on a CUDA fp32 x: any channel width, HWIO weights as they are."""
+                               affines: torch.Tensor,
+                               geometry: tuple[int, ...] | None = None) -> torch.Tensor:
+    """K4 on a CUDA fp32 x: any channel width, HWIO weights as they are
+    (copied only if they are not contiguous). ``geometry`` overrides
+    ``fp32_tiling``'s ``(th, tw, nt, nu, g, kc)`` (the tile sweep uses it)."""
     global launches_fp32
     b, h, w, c = x.shape
     _check("x", x, (b, h, w, c), torch.float32, x.device)
@@ -226,14 +467,20 @@ def _fused_residual_block_fp32(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tens
     fn = load_library("resblock_fp32").msid_resblock_fp32_forward
     w1c, w2c = w1.contiguous(), w2.contiguous()
     out = torch.empty_like(x)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile, nb, g = fp32_tiling(c, h, w, b, sms)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    if geometry is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        geometry = fp32_tiling(c, h, w, b, sms)
+    th, tw, nt, nu, g, kc = geometry
+    fp32_check_tile(c, th, tw, nt, nu, g, kc)
+    for name, t in (("x", x), ("w1", w1c), ("w2", w2c), ("affines", affines)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), affines.data_ptr(),
-                 out.data_ptr(), b, h, w, c, tile, tile, nb, g, stream)
+                 out.data_ptr(), b, h, w, c, th, tw, nt, nu, g, kc, stream)
     if err != 0:
         raise RuntimeError(f"resblock_fp32 kernel launch failed: cudaError {err}")
     launches_fp32 += 1

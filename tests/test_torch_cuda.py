@@ -23,6 +23,7 @@ from msid_tpu_torch.ops.cuda_decoder import (
 )
 
 K4_MAX_ABS = 1e-4      # fp32 against fp32, sums in another order over K = 9C
+K4_MAX_REL_RMS = 1e-5
 K3_RTOL, K3_ATOL = 0.03, 0.02   # the TPU kernels' golden tolerance in bf16
 
 
@@ -46,16 +47,85 @@ def block_inputs(shape, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,s", [(48, 32), (384, 24), (12, 20), (8, 64)])
-def test_k4_matches_plain_on_the_card(c, s):
+@pytest.mark.parametrize("shape", [(2, 32, 32, 48), (2, 24, 24, 384), (2, 20, 20, 12),
+                                   (2, 64, 64, 8), (1, 20, 36, 24), (1, 9, 13, 10)])
+def test_k4_matches_plain_on_the_card(shape):
+    """Flagship and tiny widths, a ragged image, and a width (10) that is
+    no multiple of 4 (4-byte staging copies, channels padded to 16)."""
     need_card()
-    args = block_inputs((2, s, s, c), seed=c)
+    args = block_inputs(shape, seed=shape[-1])
     before = cuda_decoder.launches_fp32
     got = fused_residual_block(*args)
     want = fused_residual_block_reference(*args)
     torch.cuda.synchronize()
     assert cuda_decoder.launches_fp32 == before + 1
     assert float((got - want).abs().max()) <= K4_MAX_ABS
+    assert float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= K4_MAX_REL_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,geometries", [
+    (24, [(4, 8, 3, 1, 1, 8), (10, 6, 3, 2, 1, 8), (6, 6, 3, 4, 1, 8)]),
+    (96, [(8, 12, 6, 1, 2, 16), (8, 12, 6, 2, 1, 8), (5, 7, 6, 2, 1, 16)]),
+    (384, [(6, 12, 6, 4, 2, 8), (6, 12, 6, 1, 8, 16), (4, 6, 6, 2, 4, 16)]),
+])
+def test_k4_geometry_does_not_change_the_result_beyond_rounding(c, geometries):
+    """Tile, channel units per CTA, cluster size and staging depth only
+    change which CTA computes a value, and the order of its fp32 sums."""
+    need_card()
+    args = block_inputs((1, 20, 36, c), seed=c)
+    want = fused_residual_block_reference(*args)
+    for geometry in geometries:
+        got = cuda_decoder._fused_residual_block_fp32(*args, geometry=geometry)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= K4_MAX_ABS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,g", sorted(cuda_decoder.BF16_VARIANTS))
+def test_k1_matches_plain_on_the_card(c, g):
+    """Every (width, cluster size) K1 is built for, on a ragged image with
+    a tile that divides neither side, and with the picker's own choice."""
+    need_card()
+    args = [a if i == 3 else a.bfloat16()
+            for i, a in enumerate(block_inputs((2, 20, 36, c), seed=c + g))]
+    want = fused_residual_block_reference(*args).float()
+    prepared = [cuda_decoder.prepare_bf16_weights(w) for w in args[1:3]]
+    before = cuda_decoder.launches
+    outs = [cuda_decoder._fused_residual_block_bf16(args[0], *prepared, args[3],
+                                                    geometry=(6, 8, g, 2)),
+            fused_residual_block(args[0], *prepared, args[3]),
+            fused_residual_block(*args)]
+    torch.cuda.synchronize()
+    assert cuda_decoder.launches == before + 3
+    for got in outs:
+        assert bool(((got.float() - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all())
+    assert torch.equal(outs[1], outs[2])      # prepared operands or HWIO: the same launch
+
+
+@pytest.mark.cuda
+def test_bf16_eval_block_launches_k1_with_its_kept_operands_on_the_card():
+    need_card()
+    torch.manual_seed(0)
+    block = ResidualBlock(48).eval()
+    x = torch.randn(2, 48, 16, 16)
+    with torch.no_grad():
+        want = block(x)                            # fp32 plain version on the CPU
+        block.cuda()
+        before = cuda_decoder.launches
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = block(x.cuda())
+            kept = block.prepared_operands(torch.bfloat16, torch.device("cuda", 0))
+            again = block(x.cuda())
+            assert block.prepared_operands(torch.bfloat16, torch.device("cuda", 0)) is kept
+        assert kept[0].shape == (9 * 48, 64)       # K1's K-major operand
+        block.conv1.weight.mul_(2.0)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            changed = block(x.cuda())
+    assert cuda_decoder.launches == before + 3
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert not torch.equal(changed, got)
+    assert float((got.float().cpu() - want).abs().max()) <= 0.1
 
 
 @pytest.mark.cuda

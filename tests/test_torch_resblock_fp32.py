@@ -26,13 +26,15 @@ from msid_tpu_torch.models import blocks as port_blocks
 from msid_tpu_torch.models.blocks import ResidualBlock
 from msid_tpu_torch.ops import _build, cuda_decoder
 from msid_tpu_torch.ops.cuda_decoder import (
+    FP32_KCS,
     FP32_MAX_CLUSTER,
-    FP32_SLOTS,
-    FP32_THREADS,
-    FP32_TM,
+    FP32_MT,
+    FP32_UNITS,
     MAX_SMEM,
     fp32_channel_block,
+    fp32_cluster,
     fp32_smem_bytes,
+    fp32_steps,
     fp32_tiling,
     fused_residual_block,
     fused_residual_block_reference,
@@ -176,17 +178,20 @@ def test_config_widths_are_the_repos():
 
 @pytest.mark.parametrize("c", CONFIG_WIDTHS)
 def test_fp32_tiling_fits_every_config_width(c):
-    tn, cg = fp32_channel_block(c)
-    nb = tn * cg
-    assert nb in (16, 32, 64) and (c % nb == 0 or nb == 16)
-    region_max = FP32_SLOTS * FP32_THREADS // cg * FP32_TM
-    blocks = -(-c // nb)
+    nt = fp32_channel_block(c)
+    assert nt in (1, 2, 3, 4, 6)
+    units = -(-c // (8 * nt))
+    assert 8 * nt * units - c < 8 * nt              # no unit is all padding
     for size in (8, 24, 64, 192):
         for b in (1, 16, 64):
-            tile, got_nb, g = fp32_tiling(c, size, size, b)
-            assert got_nb == nb and tile >= 2
-            assert 1 <= g <= FP32_MAX_CLUSTER and g <= blocks
-            # every CTA of a cluster owns as few channel blocks as any split allows
-            assert -(-blocks // g) == -(-blocks // FP32_MAX_CLUSTER)
-            assert (tile + 2) ** 2 <= region_max
-            assert fp32_smem_bytes(c, tile, nb, g) <= MAX_SMEM
+            th, tw, got_nt, nu, g, kc = fp32_tiling(c, size, size, b)
+            assert got_nt == nt and th >= 2 and tw >= 2
+            assert (g, nu) in fp32_cluster(c, nt)
+            assert nu in FP32_UNITS and 1 <= g <= FP32_MAX_CLUSTER
+            # the cluster's CTAs cover C, and none is left without a channel
+            assert g * nu * 8 * nt >= c > (g - 1) * nu * 8 * nt
+            assert kc in FP32_KCS and (nu * 8 * nt) % kc == 0
+            for m in ((th + 2) * (tw + 2), th * tw):
+                passes, per = fp32_steps(m, nu)
+                assert 1 <= per <= FP32_MT and passes * per * (8 // nu) * 16 >= m
+            assert fp32_smem_bytes(th, tw, nt, nu, kc) <= MAX_SMEM
