@@ -2,15 +2,17 @@
 """Smoke run of the PyTorch port (``msid_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, the result lines
-    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also probe,
-                                               # hybrid), no result lines
+    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise,
+                                               # probe, hybrid), no result lines
 
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
 
-1. build: compile the five sources of ``msid_tpu_torch/csrc/`` (resblock,
-   noise, resblock_fp32, resblock_v2, any_dma) for sm_90a, one ``nvcc`` per
-   source (four for resblock, one per channel width), started together;
+1. build: compile the four sources of ``msid_tpu_torch/csrc/`` (resblock,
+   which holds K1 and K3 and includes ``hopper_common.cuh``; noise,
+   resblock_fp32, any_dma) for sm_90a, one ``nvcc`` per source (four for
+   resblock, one per channel width), started together, with each build's
+   seconds;
 2. kernel: the fused ResidualBlock kernel (K1, wgmma) against its plain
    PyTorch version at the flagship decoder's four shapes, B=1 and B=16
    (rtol 0.03 / atol 0.02), after one tiny launch synchronised on its
@@ -24,11 +26,15 @@ network. Phases, each of which must pass:
    three TF32 passes on the tensor cores and the bound at the fp32 FMA
    peak;
 4. noise: the fused corruption kernel (K2) against its plain version at
-   [64,192,192,13] and [4,192,192,13] fp32 and [16,192,192,13] bf16, with
-   striping off and on: dead-band masks and stripe gates exactly equal,
-   fp32 within 1e-6, bf16 within one ulp; the distribution checks of the
-   JAX package's TPU test; its time beside the plain version's and its
-   bytes bound;
+   [64,192,192,13] and [4,192,192,13] fp32 and [16,192,192,13] bf16, at
+   5 bands and at an unaligned n (the element-wise kernel), with striping
+   off and on: dead-band masks and stripe gates exactly
+   equal, fp32 within 1e-6, bf16 within one ulp (+1e-6); the
+   distribution checks of the JAX package's TPU test; its time in fp32
+   and bf16 beside the plain version, the bytes bound, the issue bound
+   (the SASS instructions of one pass of the element loop the run takes,
+   counted in the library this run built, per element, over the SMs'
+   issue rate) and the share of HBM peak;
 5. serve: the full-width bf16 flagship (``long_skip_fill.yaml``) with
    seeded random weights answers 4 requests at B=1 and 4 at B=16 through
    ``InferenceSession.predict``; exactly 8 K1 launches per forward;
@@ -41,8 +47,8 @@ network. Phases, each of which must pass:
    B=1, 64 K1 launches per forward;
 7. train: one bf16 train step of the flagship at B=2 on the card against
    the same step in fp32 on the CPU (every noise component off); then
-   ``setup_training_session(synthetic=True, epochs=1)`` and
-   ``Trainer.fit``: 6 train steps of 64 tiles and 2 padded validation
+   ``setup_training_session(synthetic=True, epochs=1)`` into a temporary
+   directory and ``Trainer.fit``: 6 train steps of 64 tiles and 2 padded validation
    batches, finite history, no skipped step, encoder blocks 0-5 unchanged,
    every other parameter moved, one K2 launch per train step and per
    validation batch and 8 K1 launches per validation batch; then step
@@ -63,7 +69,10 @@ network. Phases, each of which must pass:
    ``x * 2`` and its bytes bound; the nine-tap fused ResidualBlock (K3)
    against its plain version and against K1's output at the four flagship
    shapes, B=1 and B=16, and at the probe's [64,192,192,48] (rtol 0.03 /
-   atol 0.02), timed beside K1, a cuDNN bf16 composition and the bound;
+   atol 0.02), also at a caller tile of 5 x 7 that leaves ragged edges;
+   with its tile, cluster and ring, timed with its prepared weights and
+   through the functional entry, beside K1, a cuDNN bf16 composition and
+   the bound;
    then ``msid_tpu_torch.benchmarks.kernel_probe.main`` for every variant,
    each kernel's launch counter moving by that variant's calls and no
    other counter moving;
@@ -79,9 +88,12 @@ network. Phases, each of which must pass:
    and ``--forward hybrid`` refused with
    ``ValueError`` on the flagship (it has the input fill stage).
 
-The last lines are the kernels JSON line (K1 to K5, with their
-launches on each path), the card's ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``. Any failed check exits
+The fp32 phases run with torch's TF32 flags as they are: the port turns
+TF32 off around its own fp32 forwards and steps, and this script around
+the fp32 plain versions and library yardsticks it computes itself. The
+last lines are the kernels JSON line (K1 to K5, with their launches on
+each path), the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that last line; so does a machine with no card, or a
 directory without the package. Everything written goes to temporary
 directories that are removed at the end.
@@ -113,10 +125,9 @@ BATCHES = (1, 16)
 REQUESTS = 4
 RTOL, ATOL = 0.03, 0.02          # the TPU kernel v3's golden tolerance
 MAX_REL_RMS = 2e-2               # bf16 GPU forward vs fp32 CPU forward
-# csrc/<name>.cu with its -D defines, built in parallel (K1 once per width)
-KERNELS = (("resblock", ("MSID_C=384",)), ("resblock", ("MSID_C=192",)),
-           ("resblock", ("MSID_C=96",)), ("resblock", ("MSID_C=48",)), ("noise", ()),
-           ("resblock_fp32", ()), ("resblock_v2", ()), ("any_dma", ()))
+# csrc/<name>.cu with its -D defines, built in parallel (K1 and K3 once per width)
+KERNELS = tuple(("resblock", (f"MSID_C={c}",)) for c in (384, 192, 96, 48)) + (
+    ("noise", ()), ("resblock_fp32", ()), ("any_dma", ()))
 # K4 against its plain version (cuDNN fp32, TF32 off): both fp32, sums in
 # another order over K = 9C.
 FP32_SHAPES = SHAPES + ((8, 64), (24, 16))
@@ -129,7 +140,11 @@ EVAL_SEED = 1234                  # the trainer's and evaluate's eval_seed
 # words; logf/sincospif against torch's log/cos differ by an ulp or two.
 NOISE_ATOL = 1e-6
 NOISE_CASES = (((64, 192, 192, 13), "float32"), ((4, 192, 192, 13), "float32"),
-               ((16, 192, 192, 13), "bfloat16"))
+               ((16, 192, 192, 13), "bfloat16"),
+               ((3, 64, 64, 5), "float32"),          # another band count
+               ((3, 37, 29, 13), "bfloat16"))        # n % 4 != 0: element-wise loads
+SM_ISSUE_PER_CLOCK = 4 * 32   # thread-instructions per SM per clock: 4 schedulers
+K3_RAGGED_TILE = (5, 7)       # divides none of the flagship's sides
 # One train step, bf16 autocast on the card against fp32 on the CPU: bf16
 # keeps ~3 digits through 12 ViT blocks, the decoder and the backward; the
 # gradient norm sums squares of ~10^8 bf16-rounded terms, hence the looser bound.
@@ -282,7 +297,12 @@ def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
     and tiny widths, with times beside a cuDNN fp32 composition's, the
     bound of its route (three TF32 passes on the tensor cores) and the
     bound at the fp32 FMA peak."""
+    from msid_tpu_torch.models.restoration import exact_fp32
     from msid_tpu_torch.ops import cuda_decoder
+
+    def exact(fn, *args):          # the fp32 yardsticks in fp32: TF32 off
+        with exact_fp32(torch.float32):
+            return fn(*args)
 
     lib = library_block(torch, F)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -292,7 +312,7 @@ def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
             x, w1, w2, aff = random_block_inputs(torch, c, s, b, seed=c + b,
                                                  dtype=torch.float32)
             got = cuda_decoder.fused_residual_block(x, w1, w2, aff)
-            want = cuda_decoder.fused_residual_block_reference(x, w1, w2, aff)
+            want = exact(cuda_decoder.fused_residual_block_reference, x, w1, w2, aff)
             torch.cuda.synchronize()
             diff = got - want
             max_err = float(diff.abs().max())
@@ -310,9 +330,9 @@ def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
                 "geometry": {"nt": nt, "nu": nu, "kc": kc},
                 "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
                     x, w1, w2, aff), iters=10),
-                "plain_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_reference(
-                    x, w1, w2, aff), iters=10),
-                "library_ms": time_ms(torch, lambda: lib(x, k1, k2, aff), iters=10),
+                "plain_ms": time_ms(torch, lambda: exact(
+                    cuda_decoder.fused_residual_block_reference, x, w1, w2, aff), iters=10),
+                "library_ms": time_ms(torch, lambda: exact(lib, x, k1, k2, aff), iters=10),
                 "library": "cuDNN fp32 conv2d composition (channels-last, TF32 off)",
                 "bound_ms": bound_ms, "bound_by": bound_by, "bound_ffma_ms": ffma_ms,
                 "flops": flops, "bytes": nbytes,
@@ -580,6 +600,38 @@ def noise_bound_ms(b: int, n: int, itemsize: int) -> float:
     return 2 * b * n * itemsize / PEAK_HBM_BYTES * 1e3
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def noise_loop_instructions(dtype_name: str) -> dict:
+    """SASS instructions of one pass of the element loops (gated and plain
+    sample) of K2's vector kernel in ``dtype_name``, in the library this
+    run built (``cuobjdump -sass``), and the elements a pass covers."""
+    from msid_tpu_torch.benchmarks import sass_count
+    from msid_tpu_torch.ops import _build
+
+    ctype = {"float32": "float", "bfloat16": "__nv_bfloat16"}[dtype_name]
+    found = sass_count.loops(sass_count.sass_of(_build.build("noise")))
+    name = next(k for k in found if f"noise_group_kernel<{ctype}, true>(" in k)
+    loops = sass_count.element_loops(found[name])
+    return {"kernel": name, "elements_per_pass": 4,
+            **{k: v["instructions"] for k, v in loops.items()}}
+
+
+def noise_issue_bound_ms(torch, loop: dict, n: int, gates: list, clock_hz: float) -> float:
+    """Least time to issue the element loops' instructions for samples of
+    ``n`` elements, gated as ``gates`` says, on every SM at ``clock_hz``
+    (set-up and the rarely taken slow paths not counted)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_pass = sum(loop["gated" if g else "plain"] for g in gates)
+    return n * per_pass / loop["elements_per_pass"] / (sms * SM_ISSUE_PER_CLOCK * clock_hz) * 1e3
+
+
 def phase_noise(torch, failures: list) -> dict:
     """K2 against its plain version (masks and gates exactly, fp32 to
     NOISE_ATOL, bf16 to one ulp), the distribution checks, and times."""
@@ -639,15 +691,31 @@ def phase_noise(torch, failures: list) -> dict:
         failures.append(f"noise statistics: {stats}")
 
     b, h, w, c = NOISE_CASES[0][0]
-    x = torch.rand(b, h, w, c, device="cuda") * 4 - 2
+    n = h * w * c
     cfg = NoiseConfig()
+    clock_hz = sm_clock_hz()
     timing = {"check": "noise_time", "shape": [b, h, w, c], "dtype": "float32",
-              "kernel_ms": time_ms(torch, lambda: kernel(11, x, cfg)),
-              "plain_ms": time_ms(torch, lambda: plain(11, x, cfg), iters=5, warmup=1),
-              "jnp_impl_ms": time_ms(torch, lambda: apply_sensor_noise(11, x, cfg)),
-              "bound_ms": noise_bound_ms(b, h * w * c, 4), "bound_by": "bytes",
-              "max_abs_err": max_err}
-    timing["hbm_share_of_peak"] = timing["bound_ms"] / timing["kernel_ms"]
+              "max_abs_err": max_err, "sm_clock_mhz": clock_hz / 1e6}
+    for dtype_name, itemsize in (("float32", 4), ("bfloat16", 2)):
+        x = (torch.rand(b, h, w, c, device="cuda") * 4 - 2).to(getattr(torch, dtype_name))
+        gates = [bool(v) for v in kernel(11, x, cfg, return_masks=True)[1][:, -1].tolist()]
+        loop = noise_loop_instructions(dtype_name)
+        row = timing[dtype_name] = {
+            "kernel_ms": time_ms(torch, lambda: kernel(11, x, cfg)),
+            "bound_ms": noise_bound_ms(b, n, itemsize), "bound_by": "bytes",
+            "loop_instructions": loop, "gated_samples": sum(gates),
+            "instructions_per_element": sum(loop["gated" if g else "plain"] for g in gates)
+            / (b * loop["elements_per_pass"]),
+            "issue_bound_ms": noise_issue_bound_ms(torch, loop, n, gates, clock_hz),
+        }
+        if dtype_name == "float32":
+            row["plain_ms"] = time_ms(torch, lambda: plain(11, x, cfg), iters=5, warmup=1)
+            row["jnp_impl_ms"] = time_ms(torch, lambda: apply_sensor_noise(11, x, cfg))
+        row["hbm_share_of_peak"] = row["bound_ms"] / row["kernel_ms"]
+        row["issue_share"] = row["issue_bound_ms"] / row["kernel_ms"]
+    timing.update({k: timing["float32"][k] for k in (
+        "kernel_ms", "plain_ms", "bound_ms", "bound_by", "issue_bound_ms",
+        "instructions_per_element", "hbm_share_of_peak")})
     emit(timing)
     return timing
 
@@ -706,7 +774,9 @@ def phase_train(torch, failures: list, card: str) -> dict:
     result["parity_seconds"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    session = setup_training_session(cfg, synthetic=True, epochs=1, seed=0)
+    run_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    session = setup_training_session(cfg, output_dir=run_dir.name, synthetic=True, epochs=1,
+                                     seed=0)
     trainer, model = session["trainer"], session["model"]
     result["setup_seconds"] = time.perf_counter() - t0
     result["accum_steps"] = trainer.accum_steps
@@ -774,10 +844,12 @@ def phase_train(torch, failures: list, card: str) -> dict:
                                   "steps": len(pairs)}
     result["step_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     prof = device_profile(torch, lambda: steps_by_impl["pallas"](trainer.state, batch, 7),
-                          iters=2, tags={"noise_ms": "noise_kernel"})
+                          iters=2, tags={"noise_ms": "noise_"})
     prof["noise_share_of_busy"] = prof["noise_ms"] / prof["device_busy_ms"]
     prof["device_idle_share"] = 1 - prof["device_busy_ms"] / result["step_pallas"]["host_p50_ms"]
     result["profile"] = prof
+    session["checkpoint_manager"].wait_until_finished()
+    run_dir.cleanup()
     emit(result)
     return result
 
@@ -972,26 +1044,34 @@ def phase_probe(torch, F, failures: list) -> dict:
                   cuda_decoder.fused_residual_block_v2_reference(*tiny)):
         failures.append("resblock_v2 [1,8,8,48]: disagrees with its plain version")
     torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(c, s, b, random_block_inputs(torch, c, s, b, seed=c + b), 20)
              for c, s in SHAPES for b in BATCHES]
     pb, ph, pw, pc = PROBE_SHAPE
     cases.append((pc, ph, pb, kernel_probe.make_inputs(PROBE_SHAPE, torch.device("cuda")), 5))
     for c, s, b, (x, w1, w2, aff), iters in cases:
         got = cuda_decoder.fused_residual_block_v2(x, w1, w2, aff)
+        ragged = cuda_decoder.fused_residual_block_v2(x, w1, w2, aff, *K3_RAGGED_TILE)
         want = cuda_decoder.fused_residual_block_v2_reference(x, w1, w2, aff)
         k1 = cuda_decoder.fused_residual_block(x, w1, w2, aff)
         torch.cuda.synchronize()
         ok_plain, ok_k1 = within(torch, got, want), within(torch, got, k1)
+        ok_ragged = within(torch, ragged, want)
         kw1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         kw2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         bound_ms, bound_by, flops, nbytes = block_bound(c, s, b)
+        geometry = cuda_decoder.v2_tile(c, s, s, b, sms=sms)
+        w1k, w2k = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
         row = {
             "check": "resblock_v2", "C": c, "H": s, "W": s, "B": b,
-            "tile": list(cuda_decoder.v2_tile(c, None, None)),
+            "tile": list(geometry[:2]), "cluster": geometry[2], "stages": geometry[3],
+            "k1_geometry": list(cuda_decoder.bf16_tiling(c, s, s, b, sms)),
             "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_v2(
+                x, w1k, w2k, aff), iters=iters),
+            "functional_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_v2(
                 x, w1, w2, aff), iters=iters),
             "k1_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
-                x, w1, w2, aff), iters=iters),
+                x, w1k, w2k, aff), iters=iters),
             "plain_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_v2_reference(
                 x, w1, w2, aff), iters=min(iters, 10), warmup=1),
             "library_ms": time_ms(torch, lambda: lib(x, kw1, kw2, aff), iters=iters),
@@ -999,14 +1079,18 @@ def phase_probe(torch, F, failures: list) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "max_abs_vs_k1": float((got.float() - k1.float()).abs().max()),
-            "ok": ok_plain and ok_k1,
+            "ragged_tile": list(K3_RAGGED_TILE),
+            "ragged_max_abs_err": float((ragged.float() - want.float()).abs().max()),
+            "ok": ok_plain and ok_k1 and ok_ragged,
         }
         row["tflops"] = flops / row["kernel_ms"] / 1e9
+        row["share_of_bound"] = bound_ms / row["kernel_ms"]
         emit(row)
         result["k3"].append(row)
         if not row["ok"]:
             failures.append(f"resblock_v2 C={c} H={s} B={b}: vs plain {row['max_abs_err']} "
-                            f"({ok_plain}), vs K1 {row['max_abs_vs_k1']} ({ok_k1})")
+                            f"({ok_plain}), vs K1 {row['max_abs_vs_k1']} ({ok_k1}), tile "
+                            f"{K3_RAGGED_TILE} vs plain {row['ragged_max_abs_err']} ({ok_ragged})")
     del cases
 
     # The entry point, one variant per call as a user runs it. Each variant
@@ -1255,10 +1339,6 @@ def main() -> int:
 
     from msid_tpu_torch.ops._build import build, load_library, nvcc_path
 
-    # The plain versions are the yardstick: full fp32, no TF32.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
     card = card_line()
     print(card, flush=True)
     failures: list[str] = []
@@ -1284,6 +1364,7 @@ def main() -> int:
         # Named phases alone, while working on one: no result lines.
         partial = {"kernel": lambda: phase_kernel(torch, F, failures),
                    "kernel_fp32": lambda: phase_kernel_fp32(torch, F, failures),
+                   "noise": lambda: phase_noise(torch, failures),
                    "probe": lambda: phase_probe(torch, F, failures),
                    "hybrid": lambda: phase_hybrid(torch, failures, card)}
         for name in only:
@@ -1384,6 +1465,13 @@ def main() -> int:
         "library": "none: no single PyTorch call draws and composes the five "
                    "noise components",
         "per": "one launch on a [64,192,192,13] fp32 batch (one train step)",
+        "issue_bound_ms": noise["issue_bound_ms"],
+        "instructions_per_element": noise["instructions_per_element"],
+        "loop_instructions": noise["float32"]["loop_instructions"],
+        "hbm_share_of_peak": noise["hbm_share_of_peak"],
+        "bf16": {k: noise["bfloat16"][k] for k in (
+            "kernel_ms", "bound_ms", "issue_bound_ms", "instructions_per_element",
+            "hbm_share_of_peak")},
     }, {
         "name": "fused_residual_block_fp32",
         "route": "cuda",
@@ -1407,7 +1495,7 @@ def main() -> int:
     }, {
         "name": "fused_residual_block_v2",
         "route": "cuda",
-        "source": "msid_tpu_torch/csrc/resblock_v2.cu",
+        "source": "msid_tpu_torch/csrc/resblock.cu",
         "replaces": "msid_tpu/ops/pallas_decoder.py:220",
         "launches": sum(v2_by_path.values()),
         "launches_by_path": v2_by_path,
@@ -1418,7 +1506,9 @@ def main() -> int:
         "bound_by": k3_probe["bound_by"],
         "library_ms": k3_probe["library_ms"],
         "library": "cuDNN bf16 conv2d composition of the same block",
+        "functional_ms": k3_probe["functional_ms"],
         "k1_ms": k3_probe["k1_ms"],
+        "tile": k3_probe["tile"], "cluster": k3_probe["cluster"],
         "per": f"one launch at the probe's {list(PROBE_SHAPE)} (its main path)",
         "flagship_forward": dict(
             k3, k1_ms=2 * sum(r["k1_ms"] for r in probe["k3"][:-1] if r["B"] == max(BATCHES)),

@@ -26,10 +26,13 @@ What differs from the JAX probe, and why:
     them to fp32 inside. K4 takes fp32, so x and the weights are cast to
     fp32 before the timed loop and the timed call is K4 plus the cast of
     its output back to bf16.
-  * ``v3`` has no options: K1's tiles are fixed per channel width.
-  * ``v2:<row_block>:<col_block>`` names the CTA's output tile; with no
-    suffix the wrapper picks the default for the width (the TPU default
-    of 16 x 96 does not fit a CTA's shared memory and raises).
+  * ``v3`` has no options: K1's cost model picks its tile and cluster.
+  * ``v2:<row_block>:<col_block>`` names the output tile of a cluster
+    (``v2_tile`` picks the cluster and weight ring for it); with no suffix
+    the wrapper takes the cost model's tile (the TPU default of 16 x 96
+    does not fit a CTA's shared memory and raises). As for ``v3``, the
+    weights are prepared once into the kernel's layout before the timed
+    loop.
   * ``any_dma`` lets a failure raise instead of reporting "still blocked".
 """
 
@@ -179,15 +182,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
         def fn():
             return cuda_decoder.fused_residual_block(xf, w1f, w2f, aff).to(x.dtype)
-    elif which == "v3":
+    elif which == "v3" or (parts[0] == "v2" and len(parts) <= 3):
         k1, k2 = w1, w2
-        if x.device.type == "cuda":          # K1's K-major operands, made once
+        if x.device.type == "cuda":          # the kernels' K-major operands, made once
             k1, k2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
-        fn = functools.partial(cuda_decoder.fused_residual_block, x, k1, k2, aff)
-    elif parts[0] == "v2" and len(parts) <= 3:
-        tile = [int(v) for v in parts[1:]] + [None] * (3 - len(parts))
-        fn = functools.partial(cuda_decoder.fused_residual_block_v2, x, w1, w2, aff,
-                               row_block=tile[0], col_block=tile[1])
+        if which == "v3":
+            fn = functools.partial(cuda_decoder.fused_residual_block, x, k1, k2, aff)
+        else:
+            tile = [int(v) for v in parts[1:]] + [None] * (3 - len(parts))
+            fn = functools.partial(cuda_decoder.fused_residual_block_v2, x, k1, k2, aff,
+                                   row_block=tile[0], col_block=tile[1])
     else:
         raise SystemExit(f"unknown probe {which}")
 

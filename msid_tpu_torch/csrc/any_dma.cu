@@ -15,7 +15,7 @@
 //     the array's edge is filled with zeros by the copy engine;
 //   * all threads wait on the barrier's phase, then scale from shared
 //     memory and store 16 bytes a thread, masked at the ragged edge.
-// It is the toolchain gate for the halo window load of resblock_v2.cu,
+// It is the toolchain gate for the halo window load of resblock.cu (K3),
 // as the TPU probe was for the halo-window-by-DMA design: tensor map
 // from cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint,
 // nothing links libcuda), __grid_constant__ descriptor, mbarrier wait.

@@ -4,8 +4,8 @@ The host stops at raw HWC tiles (64x64x13); preprocessing and corruption
 run on the device. ``SyntheticEuroSAT`` is the procedural stand-in the
 JAX package trains on when no data is on disk, tile for tile identical to
 it; ``_reference_split`` is the reference's seeded 80/20 split. The
-EuroSAT TIFF reader is not ported yet: a ``data.root_dir`` that exists
-raises.
+EuroSAT TIFF reader is not ported yet: a ``data.root_dir`` that holds
+tiles raises; one that is missing or empty falls back to synthetic tiles.
 """
 
 from __future__ import annotations
@@ -121,14 +121,19 @@ class SyntheticEuroSAT:
         return img.astype(np.float32)
 
 
+TILE_PATTERNS = ("*.tif", "*.jpg", "*.png")
+
+
 def build_dataset(config: dict, split: str):
-    """The config's dataset: synthetic tiles when ``data.root_dir`` does not
-    exist and ``data.synthetic_fallback`` allows it (the default)."""
+    """The config's dataset: synthetic tiles when ``data.root_dir`` holds no
+    tile (it does not exist, or nothing under it matches
+    ``TILE_PATTERNS``) and ``data.synthetic_fallback`` allows it (the
+    default), as the reference falls back."""
     data_cfg = config.get("data", {})
     root = Path(data_cfg.get("root_dir", "./data/EuroSAT_MS"))
-    if root.exists():
+    if root.is_dir() and any(next(root.rglob(p), None) for p in TILE_PATTERNS):
         raise NotImplementedError(
-            f"data.root_dir {root} exists, but the EuroSAT TIFF reader "
+            f"data.root_dir {root} holds image tiles, but the EuroSAT TIFF reader "
             "(msid_tpu/data/tiff.py, EuroSATMultiSpectral) is not ported yet; "
             "train on synthetic tiles (synthetic=True)")
     if not data_cfg.get("synthetic_fallback", True):

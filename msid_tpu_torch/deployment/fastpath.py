@@ -54,6 +54,7 @@ from torch.func import functional_call
 from msid_tpu_torch.models.blocks import BN_EPS, gelu
 from msid_tpu_torch.models.decoder import same_pad
 from msid_tpu_torch.models.encoder import LN_EPS
+from msid_tpu_torch.models.restoration import exact_fp32
 
 Tensors = Mapping[str, torch.Tensor]
 
@@ -308,8 +309,16 @@ def fast_forward(fast_params: dict, x: torch.Tensor, *, patch_size: int = 16,
                  residual: bool = False) -> torch.Tensor:
     """Optimized inference forward: NHWC noisy batch -> restored fp32 NHWC
     batch, over the tree of :func:`optimize_for_inference`; it computes in
-    the tree's dtype. ``matmul_upsample`` picks the upsample form (the tree
-    must carry it); ``residual`` adds the un-cast input at the end."""
+    the tree's dtype (fp32 with TF32 off). ``matmul_upsample`` picks the
+    upsample form (the tree must carry it); ``residual`` adds the un-cast
+    input at the end."""
+    with exact_fp32(fast_params["patch_w"].dtype):
+        return _fast_forward(fast_params, x, patch_size, num_heads, matmul_upsample,
+                             residual)
+
+
+def _fast_forward(fast_params: dict, x: torch.Tensor, patch_size: int, num_heads: int,
+                  matmul_upsample: bool, residual: bool) -> torch.Tensor:
     p, heads = patch_size, num_heads
     d = fast_params["patch_w"].shape[-1]
     hd = d // heads
@@ -362,7 +371,14 @@ def make_fast_inference_fn(model: nn.Module, matmul_upsample: bool = True) -> Ca
 def _hybrid(model: nn.Module, enc: Optional[Tensors], dec: dict,
             x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The module's encoder (with ``enc`` as its weights, None: its own)
-    and the folded conv-transpose decoder ``dec`` on an NHWC batch."""
+    and the folded conv-transpose decoder ``dec`` on an NHWC batch, in
+    ``dtype`` (fp32 with TF32 off)."""
+    with exact_fp32(dtype):
+        return _hybrid_graph(model, enc, dec, x, dtype)
+
+
+def _hybrid_graph(model: nn.Module, enc: Optional[Tensors], dec: dict,
+                  x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     b = x.shape[0]
     x_in = x
     xc = x.to(dtype).contiguous().permute(0, 3, 1, 2)

@@ -11,7 +11,8 @@ graphs run library convs and launch no fused-block kernel. ``tta`` > 1
 averages each prediction over that many dihedral views of the input
 (``ops/tta.py``), around whichever graph was chosen, checked when the
 session is built. ``benchmark`` times the forward with CUDA events after
-warmup.
+warmup and returns the reference's result. An fp32 session computes in
+fp32 on the card: each graph turns TF32 off around itself (``exact_fp32``).
 """
 
 from __future__ import annotations
@@ -118,10 +119,14 @@ class InferenceSession:
         return self._forward(xt).cpu().numpy()
 
     def benchmark(self, warmup_runs: int = 10, benchmark_iterations: int = 100,
-                  seed: int = 0) -> dict:
-        """Device time of one forward on a device-resident batch: CUDA events
-        around each call after ``warmup_runs`` calls. A CPU session raises:
-        it has no device time to report."""
+                  seed: int = 0, pipelined: bool = False) -> dict:
+        """Device time of one forward on a device-resident batch, after
+        ``warmup_runs`` calls: CUDA events around each call, or with
+        ``pipelined`` around all of them, one trailing sync, so the calls
+        queue back to back. The reference's result: ``mean_ms``, ``fps``
+        and ``images_per_sec`` from the mean; a pipelined run is one
+        aggregate sample, so its ``std/min/max/p50/p99_ms`` are None. A CPU
+        session raises: it has no device time to report."""
         if self.device.type != "cuda":
             raise RuntimeError("benchmark times the GPU with CUDA events; "
                                f"this session runs on {self.device}")
@@ -129,25 +134,47 @@ class InferenceSession:
             -2.0, 2.0, self.input_shape).astype(np.float32)).to(self.device)
         for _ in range(warmup_runs):
             self._forward(x)
-        pairs = [(torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-                 for _ in range(benchmark_iterations)]
-        for start, end in pairs:
-            start.record()
-            self._forward(x)
-            end.record()
+        return benchmark_summary(self._timed_ms(x, benchmark_iterations, pipelined),
+                                 self.batch_size, benchmark_iterations, pipelined,
+                                 torch.cuda.get_device_name(self.device))
+
+    def _timed_ms(self, x: torch.Tensor, iterations: int, pipelined: bool) -> np.ndarray:
+        """ms per forward by CUDA events: one per call, or one aggregate."""
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(1 if pipelined else iterations)]
+        if pipelined:
+            pairs[0][0].record()
+            for _ in range(iterations):
+                self._forward(x)
+            pairs[0][1].record()
+        else:
+            for start, end in pairs:
+                start.record()
+                self._forward(x)
+                end.record()
         torch.cuda.synchronize(self.device)
-        times_ms = np.asarray([s.elapsed_time(e) for s, e in pairs])
-        mean_ms = float(times_ms.mean())
-        return {
-            "mean_ms": mean_ms,
-            "std_ms": float(times_ms.std()),
-            "min_ms": float(times_ms.min()),
-            "max_ms": float(times_ms.max()),
-            "p50_ms": float(np.percentile(times_ms, 50)),
-            "p99_ms": float(np.percentile(times_ms, 99)),
-            "images_per_sec": self.batch_size * 1e3 / float(np.percentile(times_ms, 50)),
-            "batch_size": self.batch_size,
-            "iterations": benchmark_iterations,
-            "device": torch.cuda.get_device_name(self.device),
-        }
+        times_ms = np.asarray([start.elapsed_time(end) for start, end in pairs])
+        return times_ms / iterations if pipelined else times_ms
+
+
+def benchmark_summary(times_ms: np.ndarray, batch_size: int, iterations: int,
+                      pipelined: bool, device: str) -> dict:
+    """``InferenceSession.benchmark``'s result from its per-call times (one
+    aggregate time when ``pipelined``), in the reference's keys."""
+    mean_ms = float(np.mean(times_ms))
+    result = {
+        "mean_ms": mean_ms,
+        "fps": 1e3 / mean_ms,
+        "images_per_sec": batch_size * 1e3 / mean_ms,
+        "batch_size": batch_size,
+        "iterations": iterations,
+        "device": device,
+    }
+    if pipelined:
+        result.update(std_ms=None, min_ms=None, max_ms=None, p50_ms=None, p99_ms=None)
+    else:
+        result.update(std_ms=float(np.std(times_ms)), min_ms=float(np.min(times_ms)),
+                      max_ms=float(np.max(times_ms)),
+                      p50_ms=float(np.percentile(times_ms, 50)),
+                      p99_ms=float(np.percentile(times_ms, 99)))
+    return result

@@ -18,6 +18,7 @@ with autocast off, as ``mask_cond`` is an fp32 layer in the JAX model.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -42,6 +43,28 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "no CUDA device is available; the port runs on the GPU unless "
             "device='cpu' is passed")
     return device
+
+
+@contextlib.contextmanager
+def exact_fp32(dtype: torch.dtype):
+    """Inside the block an fp32 computation is fp32 on the card too: cuDNN
+    convolutions and cuBLAS matrix products run without TF32 (torch's
+    default leaves TF32 on for convolutions). The caller's flags are back
+    afterwards. Any other compute dtype leaves the flags alone. The flags
+    are process-wide, so this is not thread-safe: fp32 forwards that
+    overlap on two threads may restore TF32 under each other."""
+    if dtype != torch.float32:
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 class SatMAERestoration(nn.Module):
@@ -117,6 +140,11 @@ class SatMAERestoration(nn.Module):
         if c != self.in_channels:
             raise ValueError(f"expected {self.in_channels} bands, got {c}")
         dtype = self.compute_dtype(x.device.type)
+        with exact_fp32(dtype):
+            return self._forward(x, dtype)
+
+    def _forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        b, _, _, c = x.shape
         cond = None
         if self.input_fill:
             with torch.autocast(x.device.type, enabled=False):

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds). The
 library goes to ``build/kernels/<name>-<hash>.so`` at the repository root,
-keyed by a hash of the source, the compiler flags and the ``-D`` defines,
-so an edited source is rebuilt and an unchanged one is loaded as it is. A
+keyed by a hash of the source, every local header it includes
+(``#include "..."``, found beside it, recursively), the compiler flags and
+the ``-D`` defines, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. A
 source with many template instantiations is built once per define (K1:
 ``MSID_C=<width>``), each build holding a part of them. Nothing here runs
 at import time.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _libraries: dict[tuple, ctypes.CDLL] = {}
@@ -41,10 +46,26 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, directly or
+    through another header, each once, in the order first included."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc for inc in _LOCAL_INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     """Where the build of ``csrc/<name>.cu`` with ``-D`` ``defines`` goes
-    (hash of source + flags + defines)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    (hash of the source and its local headers + flags + defines)."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     tag = "".join(f"-{d.replace('=', '')}" for d in defines)
     return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:16]}.so"

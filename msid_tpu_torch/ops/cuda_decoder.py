@@ -14,12 +14,13 @@ the port of ``fused_residual_block``, v1). A CPU tensor takes the plain
 PyTorch version ``fused_residual_block_reference``. There is no other
 route: a CUDA tensor neither kernel takes raises.
 
-``fused_residual_block_v2`` is K3 (``csrc/resblock_v2.cu``, the port of
-``fused_residual_block_v2``): the same bf16 block as nine shifted tap GEMMs
-over one halo window that TMA loads with zero fill. As in the JAX package
-it is not wired into the model; the kernel probe
-(``benchmarks/kernel_probe.py``) runs it. Its plain version is
-``fused_residual_block_v2_reference``.
+``fused_residual_block_v2`` is K3 (``csrc/resblock.cu`` beside K1, the port
+of ``fused_residual_block_v2``): the same bf16 block as nine shifted tap
+GEMMs over one halo window that TMA loads with zero fill, on K1's wgmma and
+TMA weight ring (the device code both share is ``csrc/hopper_common.cuh``),
+over an output tile the caller may name. As in the JAX package it is not
+wired into the model; the kernel probe (``benchmarks/kernel_probe.py``)
+runs it. Its plain version is ``fused_residual_block_v2_reference``.
 
 Layouts follow the JAX package: x is NHWC, weights are HWIO.
 """
@@ -33,6 +34,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 # Channel widths K1 is instantiated for (the flagship decoder's). K4 takes
 # any width.
@@ -44,10 +46,14 @@ launches = 0
 launches_fp32 = 0
 launches_v2 = 0
 
-# K3's output tile (rows, cols) per channel width when the caller names
-# none: the largest of K1's tiles, which also fit K3's window and h tile.
-V2_DEFAULT_TILES = {48: (16, 32), 96: (16, 16), 192: (8, 16), 384: (8, 8)}
+# K3's output tile (rows, cols) for a side the caller leaves out, and the
+# tile a refusal names: K1's cost model's choice at B=16 of the flagship's
+# stage of that width (and its cluster).
+V2_DEFAULT_TILES = {48: (24, 32), 96: (16, 24), 192: (12, 16), 384: (6, 12)}
 V2_MAX_TILE = 252       # a tensor map's box extent is at most 256 = tile + 4
+# The K-major weights K3's functional entry has made, per HWIO weight
+# tensor, for as long as that tensor lives: (data_ptr, _version, prepared).
+_v2_weights = WeakIdKeyDictionary()
 
 # K4's launch geometry, as csrc/resblock_fp32.cu lays it out: clusters of
 # at most FP32_MAX_CLUSTER CTAs of FP32_WARPS warps; a warp holds at most
@@ -72,10 +78,10 @@ FP32_ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
 MAX_SMEM = 232448
 H100_SMS = 132
 
-# K1's launch geometry, as csrc/resblock.cu is built: per (C, cluster size
-# g) the width ``nw`` of a warpgroup's wgmma, the m64 tiles ``mw`` a
-# warpgroup holds in one pass, and whether the two warpgroups split the
-# CTA's N = C / g channels (True) or the region's tiles (False).
+# K1's and K3's launch geometry, as csrc/resblock.cu is built: per (C,
+# cluster size g) the width ``nw`` of a warpgroup's wgmma, the m64 tiles
+# ``mw`` a warpgroup holds in one pass, and whether the two warpgroups split
+# the CTA's N = C / g channels (True) or the region's tiles (False).
 BF16_VARIANTS = {(48, 1): (48, 4, False), (96, 1): (96, 2, False),
                  (192, 1): (96, 2, True), (192, 2): (96, 2, False),
                  (384, 2): (96, 2, True), (384, 4): (48, 4, True)}
@@ -403,12 +409,16 @@ def fused_residual_block(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     if w1.dim() == 2 and w2.dim() == 2:
         return _fused_residual_block_bf16(x, w1, w2, affines)
     c = x.shape[-1]
-    if c not in SUPPORTED_WIDTHS:
-        raise ValueError(f"channel width {c} not supported; the kernel is "
-                         f"built for {SUPPORTED_WIDTHS}")
+    _check_width(c)
     _check_weights(w1, w2, c, torch.bfloat16, x.device)
     return _fused_residual_block_bf16(x, prepare_bf16_weights(w1),
                                       prepare_bf16_weights(w2), affines)
+
+
+def _check_width(c: int) -> None:
+    if c not in SUPPORTED_WIDTHS:
+        raise ValueError(f"channel width {c} not supported; the kernel is "
+                         f"built for {SUPPORTED_WIDTHS}")
 
 
 def _fused_residual_block_bf16(x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tensor,
@@ -419,35 +429,43 @@ def _fused_residual_block_bf16(x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Te
     ``bf16_tiling``'s ``(th, tw, g, stages)`` (the tile sweep uses it)."""
     global launches
     b, h, w, c = x.shape
-    if c not in SUPPORTED_WIDTHS:
-        raise ValueError(f"channel width {c} not supported; the kernel is "
-                         f"built for {SUPPORTED_WIDTHS}")
+    _check_width(c)
+    if geometry is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        geometry = bf16_tiling(c, h, w, b, sms)
+    out = _launch_bf16("msid_resblock_forward", x, w1k, w2k, affines, geometry)
+    launches += 1
+    return out
+
+
+def _launch_bf16(entry: str, x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tensor,
+                 affines: torch.Tensor, geometry: tuple[int, ...]) -> torch.Tensor:
+    """Launch K1 (``entry`` ``msid_resblock_forward``) or K3
+    (``msid_resblock_v2_forward``) of ``csrc/resblock.cu`` on a CUDA bf16 x
+    with K-major weights, at ``(th, tw, g, stages)``."""
+    b, h, w, c = x.shape
     cp = -(-c // BF16_BK) * BF16_BK
     _check("x", x, (b, h, w, c), torch.bfloat16, x.device)
     _check("affines", affines, (4, c), torch.float32, x.device)
     _check("w1", w1k, (9 * c, cp), torch.bfloat16, x.device)
     _check("w2", w2k, (9 * c, cp), torch.bfloat16, x.device)
-    from msid_tpu_torch.ops._build import load_library
-
-    fn = load_library("resblock", bf16_defines(c)).msid_resblock_forward
-    out = torch.empty_like(x)
-    if geometry is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        geometry = bf16_tiling(c, h, w, b, sms)
     th, tw, g, stages = geometry
     bf16_check_tile(c, th, tw, g, stages)
     for name, t in (("x", x), ("w1", w1k), ("w2", w2k)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    from msid_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library("resblock", bf16_defines(c)), entry)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w1k.data_ptr(), w2k.data_ptr(), affines.data_ptr(),
                  out.data_ptr(), b, h, w, c, th, tw, g, stages, stream)
     if err != 0:
-        raise RuntimeError(f"resblock kernel launch failed: error {err}")
-    launches += 1
+        raise RuntimeError(f"resblock kernel launch failed ({entry}): error {err}")
     return out
 
 
@@ -493,34 +511,45 @@ def v2_chunk(c: int) -> int:
     return next((k for k in (64, 32, 16) if c % k == 0), c)
 
 
-def v2_smem_bytes(c: int, row_block: int, col_block: int) -> int:
-    """Shared memory of one K3 CTA for a ``row_block`` x ``col_block``
-    output tile, as csrc/resblock_v2.cu lays it out: the bf16 x window with
-    its 2-pixel halo in channel chunks that each start on a 1024-byte
-    boundary, h over the tile plus 1 pixel at a pitch of C + 8, the
-    barrier, and the slack to align the base."""
-    ck = v2_chunk(c)
-    chunk = -(-((row_block + 4) * (col_block + 4) * ck * 2) // 1024) * 1024
-    return (c // ck * chunk + (row_block + 2) * (col_block + 2) * (c + 8) * 2
-            + 8 + 1024)
-
-
-def v2_tile(c: int, row_block: int | None, col_block: int | None) -> tuple[int, int]:
-    """K3's output tile: the caller's, checked against the CTA's shared
-    memory, or the default for the width. Raises ``ValueError`` for a tile
-    that does not fit, naming one that does."""
+def v2_tile(c: int, h: int, w: int, b: int, row_block: int | None = None,
+            col_block: int | None = None,
+            sms: int = H100_SMS) -> tuple[int, int, int, int]:
+    """K3's launch geometry ``(th, tw, g, stages)`` for a ``[b, h, w, c]``
+    block. With no tile named, K1's (``bf16_tiling``). Otherwise the
+    caller's tile (a side left out from ``V2_DEFAULT_TILES``) with the
+    smallest cluster at this width whose CTA holds it with a weight ring of
+    at least BF16_MIN_STAGES stages, and the deepest ring that fits (at a
+    width the kernels are not built for, where only the plain version runs,
+    one CTA). The layout is K1's (``bf16_smem_bytes``). Raises
+    ``ValueError`` for a tile that does not fit, naming one that does."""
+    if row_block is None and col_block is None and c in SUPPORTED_WIDTHS:
+        return bf16_tiling(c, h, w, b, sms)
     default = V2_DEFAULT_TILES.get(c, (8, 8))
     rb = default[0] if row_block is None else int(row_block)
     cb = default[1] if col_block is None else int(col_block)
     if not (1 <= rb <= V2_MAX_TILE and 1 <= cb <= V2_MAX_TILE):
         raise ValueError(f"tile ({rb}, {cb}) must lie in 1..{V2_MAX_TILE}")
-    need = v2_smem_bytes(c, rb, cb)
-    if need > MAX_SMEM:
-        raise ValueError(
-            f"tile ({rb}, {cb}) at C={c} needs {need} bytes of shared memory, a CTA "
-            f"has {MAX_SMEM}; ({default[0]}, {default[1]}) fits "
-            f"({v2_smem_bytes(c, *default)} bytes)")
-    return rb, cb
+    clusters = sorted(g for width, g in BF16_VARIANTS if width == c) or [1]
+    for g in clusters:
+        for stages in range(BF16_MAX_STAGES, BF16_MIN_STAGES - 1, -1):
+            if bf16_smem_bytes(c, rb, cb, g, stages) <= MAX_SMEM:
+                return rb, cb, g, stages
+    raise ValueError(
+        f"tile ({rb}, {cb}) at C={c} needs {bf16_smem_bytes(c, rb, cb, clusters[-1], 2)} "
+        f"bytes of shared memory (cluster of {clusters[-1]}), a CTA has {MAX_SMEM}; "
+        f"({default[0]}, {default[1]}) fits")
+
+
+def v2_prepared_weights(w: torch.Tensor) -> torch.Tensor:
+    """K3's K-major operand of HWIO ``w`` (``prepare_bf16_weights``), made
+    once per weight tensor and kept while that tensor lives; made again
+    after an in-place write (``_version``) or a change of storage."""
+    kept = _v2_weights.get(w)
+    if kept is not None and kept[:2] == (w.data_ptr(), w._version):
+        return kept[2]
+    prepared = prepare_bf16_weights(w.detach())
+    _v2_weights[w] = (w.data_ptr(), w._version, prepared)
+    return prepared
 
 
 def fused_residual_block_v2_reference(x: torch.Tensor, w1: torch.Tensor,
@@ -554,47 +583,37 @@ def fused_residual_block_v2(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     """Eval-mode ResidualBlock, fused, K3. x [B,H,W,C]; w1, w2 [3,3,C,C]
     HWIO; affines [4,C] fp32. Returns [B,H,W,C] in x.dtype.
 
-    ``(row_block, col_block)`` is the CTA's output tile (None: the default
-    for the width). It need not divide H and W, and the result does not
-    depend on it; a tile whose window and h do not fit a CTA's shared
-    memory raises ``ValueError``. A CPU tensor takes the plain version; a
-    CUDA tensor (bf16, C in ``SUPPORTED_WIDTHS``) launches K3 or raises.
+    ``(row_block, col_block)`` is the output tile of one cluster (None: see
+    ``v2_tile``). It need not divide H and W, and the result does not
+    depend on it; a tile whose window, weight ring and h do not fit a CTA's
+    shared memory raises ``ValueError``. A CPU tensor takes the plain
+    version; a CUDA tensor (bf16, C in ``SUPPORTED_WIDTHS``) launches K3 or
+    raises. On a card, w1 and w2 may also be the K-major operands
+    ``prepare_bf16_weights`` makes of them (the kernel probe's case); HWIO
+    weights are prepared once per tensor (``v2_prepared_weights``).
     """
     global launches_v2
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC [B,H,W,C], got shape {tuple(x.shape)}")
     b, h, w, c = x.shape
-    rb, cb = v2_tile(c, row_block, col_block)
+    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+           if x.device.type == "cuda" else H100_SMS)
+    geometry = v2_tile(c, h, w, b, row_block, col_block, sms)
     if x.device.type == "cpu":
         return fused_residual_block_v2_reference(x, w1, w2, affines)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the fused ResidualBlock kernel v2 takes bf16, got {x.dtype}")
-    if c not in SUPPORTED_WIDTHS:
-        raise ValueError(f"channel width {c} not supported; the kernel is "
-                         f"built for {SUPPORTED_WIDTHS}")
+    _check_width(c)
     _check("x", x, (b, h, w, c), torch.bfloat16, x.device)
     _check("affines", affines, (4, c), torch.float32, x.device)
-    _check_weights(w1, w2, c, torch.bfloat16, x.device)
+    prepared = w1.dim() == 2 and w2.dim() == 2
+    if not prepared:
+        _check_weights(w1, w2, c, torch.bfloat16, x.device)
     if x.device.type != "cuda":
         raise ValueError(f"the fused ResidualBlock kernel needs a CUDA tensor, "
                          f"got one on {x.device}")
-    if x.data_ptr() % 16 != 0:
-        raise ValueError("x must be 16-byte aligned")
-    # [ky, kx, Cin, Cout] -> [tap, Cout, Cin]: a B fragment is one load.
-    w1t = w1.transpose(2, 3).contiguous()
-    w2t = w2.transpose(2, 3).contiguous()
-    out = torch.empty_like(x)
-
-    from msid_tpu_torch.ops._build import load_library
-
-    fn = load_library("resblock_v2").msid_resblock_v2_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), affines.data_ptr(),
-                 out.data_ptr(), b, h, w, c, rb, cb, stream)
-    if err != 0:
-        raise RuntimeError(f"resblock_v2 kernel launch failed: error {err}")
+    if not prepared:
+        w1, w2 = v2_prepared_weights(w1), v2_prepared_weights(w2)
+    out = _launch_bf16("msid_resblock_v2_forward", x, w1, w2, affines, geometry)
     launches_v2 += 1
     return out

@@ -151,11 +151,20 @@ def apply_sensor_noise_kernel_reference(seed: int, x: torch.Tensor,
 
 
 def launch_shape(batch: int, n: int) -> tuple[int, int]:
-    """(chunks per sample, groups of 4 elements per CTA): about
-    ``_TARGET_CTAS`` CTAs in all, and at least one group per thread."""
-    groups = (n + 3) // 4
+    """``(chunks, per_cta)`` of a launch on ``batch`` samples of ``n``
+    elements: CTA x of a sample takes the groups of 4 elements ``[x *
+    per_cta, (x + 1) * per_cta)``: about ``_TARGET_CTAS`` CTAs in all, but
+    no more than gives each thread about one group, and none idle."""
+    groups = -(-n // 4)
     chunks = max(1, min(-(-_TARGET_CTAS // batch), -(-groups // _THREADS)))
-    return chunks, -(-groups // chunks)
+    per_cta = -(-groups // chunks)
+    return -(-groups // per_cta), per_cta
+
+
+def smem_bytes(channels: int, wc: int) -> int:
+    """Shared memory of one CTA: alive and sd per band, the gate, the
+    ``wc`` stripes."""
+    return (2 * channels + 1 + wc) * 4
 
 
 def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
@@ -180,7 +189,7 @@ def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
         raise ValueError(f"x must be NHWC [B,H,W,C], got shape {tuple(x.shape)}")
     bsz, h, w, c = x.shape
     n = h * w * c
-    if (c + 1 + w * c) * 4 > _SMEM_LIMIT:
+    if smem_bytes(c, w * c) > _SMEM_LIMIT:
         raise ValueError(f"W*C = {w * c} stripes do not fit in shared memory")
     if bsz * n >= 2 ** 31 or bsz >= 2 ** 16:
         raise ValueError(f"batch {tuple(x.shape)} too large for one launch")
@@ -190,7 +199,7 @@ def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
     masks = torch.empty(bsz, c + 1, device=x.device) if return_masks else None
     align = 16 if x.dtype == torch.float32 else 8
     vec = n % 4 == 0 and x.data_ptr() % align == 0 and out.data_ptr() % align == 0
-    chunks, groups_per_cta = launch_shape(bsz, n)
+    chunks, per_cta = launch_shape(bsz, n)
 
     from msid_tpu_torch.ops._build import load_library
 
@@ -203,7 +212,7 @@ def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
         err = fn(x.data_ptr(), out.data_ptr(),
                  masks.data_ptr() if masks is not None else None,
                  0 if x.dtype == torch.float32 else 1, int(vec), bsz, n, w * c, c,
-                 chunks, groups_per_cta, k0, k1,
+                 chunks, per_cta, k0, k1,
                  cfg.dead_band_prob, cfg.speckle_sigma, cfg.gaussian_sigma ** 2,
                  cfg.thermal_scale ** 2, stripe_probability(cfg), cfg.stripe_sigma,
                  stream)

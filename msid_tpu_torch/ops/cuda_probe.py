@@ -4,7 +4,7 @@ Counterpart of the ``any_dma`` variant of ``benchmarks/pallas_probe.py``:
 copy a ``[rows, W, C]`` fp32 array into on-chip memory with an explicit
 asynchronous copy and its completion barrier, then write ``x * 2``. On the
 TPU it gated the halo-window-by-DMA design of the fused ResidualBlock; here
-it gates the TMA window load of K3 (``csrc/resblock_v2.cu``): a tensor map
+it gates the TMA window load of K3 (``csrc/resblock.cu``): a tensor map
 from ``cuTensorMapEncodeTiled``, ``cp.async.bulk.tensor`` and an
 ``mbarrier`` (``csrc/any_dma.cu``).
 

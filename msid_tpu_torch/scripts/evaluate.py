@@ -9,8 +9,8 @@ trainer's fixed seeds and its ``noise.impl``, so a checkpoint's metrics
 reproduce the trainer's last validation line. The best checkpoint (by
 ``val_psnr``, else the latest) is scored with its EMA shadow when it kept
 one (``--raw-weights``: the live parameters), in bf16 under
-``training.mixed_precision`` and in fp32 otherwise (with TF32 off on the
-card). ``--ensemble`` scores the mean restoration of several checkpoints
+``training.mixed_precision`` and in fp32 otherwise (the eval step turns
+TF32 off around its forward). ``--ensemble`` scores the mean restoration of several checkpoints
 and ``--tta N`` averages N dihedral views; both compose. ``--forward
 hybrid`` scores through the module's encoder and the folded-BN decoder
 (``deployment/fastpath.py``); it raises ``ValueError`` for models with an
@@ -64,8 +64,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s: %(message)s")
     logger = logging.getLogger("evaluate")
 
-    import torch
-
     from msid_tpu_torch.data.pipeline import get_dataloaders
     from msid_tpu_torch.models.restoration import resolve_device
     from msid_tpu_torch.ops.noise import NoiseConfig
@@ -87,10 +85,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         config.setdefault("data", {})["root_dir"] = "/nonexistent-forces-synthetic"
     device = resolve_device(args.device)
     compute_dtype = compute_dtype_from_config(config)
-    if device.type == "cuda" and compute_dtype == torch.float32:
-        # fp32 evaluation means fp32: no TF32 in the library convs and GEMMs.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     model, _ = create_model_from_config(config, int(config.get("seed", 42)), device)
 
     variables = None

@@ -11,11 +11,15 @@ JAX package) is not ported yet: it needs weights from a user file.
 from __future__ import annotations
 
 import dataclasses
+import logging
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from msid_tpu_torch.ops.ssim import DEFAULT_DATA_RANGE, ssim, ssim_per_sample
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +39,28 @@ class LossConfig:
             perceptual_weight=float(loss.get("perceptual_weight", 0.0)),
             sam_weight=float(loss.get("sam_weight", 0.0)),
         )
+
+
+def resolve_perceptual(loss_config: dict) -> str:
+    """The perceptual loss a ``training.loss`` section asks for, as the
+    reference's ``resolve_perceptual`` decides it: ``"edge"`` (the Sobel
+    stand-in) unless ``perceptual_impl: vgg``; ``vgg`` without a weights file
+    warns and falls back to ``"edge"``; an unknown name raises
+    ``ValueError``. VGG with a weights file raises ``NotImplementedError``:
+    the VGG16 loss (training/perceptual.py) is not ported yet."""
+    impl = str(loss_config.get("perceptual_impl", "edge")).lower()
+    if impl not in ("vgg", "edge"):
+        raise ValueError(f"unknown perceptual_impl {impl!r}")
+    if impl == "edge":
+        return "edge"
+    path = loss_config.get("perceptual_weights_path")
+    if path and Path(path).exists():
+        raise NotImplementedError(
+            f"perceptual_impl: vgg with weights {path}: the VGG16 perceptual loss "
+            "(training/perceptual.py) is not ported yet")
+    logger.warning("perceptual_impl=vgg but no weights at %r — falling back to the "
+                   "Sobel edge stand-in", path)
+    return "edge"
 
 
 def refuse_vgg(vgg_params) -> None:

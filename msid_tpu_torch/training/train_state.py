@@ -9,7 +9,8 @@ grouped AdamW (``training/optim.py``), and the EMA.
 
 The parameters live in the module (fp32); the compute dtype is separate:
 bf16 runs the forward under ``torch.autocast`` with no GradScaler (bf16
-keeps fp32's exponent range). BatchNorm running statistics update in place
+keeps fp32's exponent range), fp32 runs with TF32 off (``exact_fp32``)
+around the whole step and the eval forward. BatchNorm running statistics update in place
 during the forward and thread through the micro-batches in order, while
 the parameters stay those of the step's start, as in the JAX step.
 
@@ -36,6 +37,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from msid_tpu_torch.models.restoration import exact_fp32
 from msid_tpu_torch.ops.metrics import batch_metric_sums
 from msid_tpu_torch.ops.noise import NoiseConfig, corrupt, fold_in
 from msid_tpu_torch.ops.preprocess import preprocess_tiles, random_band_permutation
@@ -158,6 +160,10 @@ def make_train_step(
     buffers = [b for b in model.buffers() if b.is_floating_point()]
 
     def train_step(state: TrainState, batch, seed: int):
+        with exact_fp32(compute_dtype):
+            return _train_step(state, batch, seed)
+
+    def _train_step(state: TrainState, batch, seed: int):
         optimizer = state.optimizer
         model.train()
         with torch.no_grad():
@@ -286,7 +292,7 @@ def make_eval_step(
             return sum(outs[1:], outs[0]) / float(ensemble_size)
 
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), exact_fp32(compute_dtype):
             clean = _clean_batch(_to_device(batch, device), image_size, preprocess_on_device)
             noisy = corrupt(seed, clean, noise_cfg, impl=noise_impl)
             out = dihedral_ensemble(forward, noisy, tta).float()

@@ -23,7 +23,7 @@ import torch
 from msid_tpu_torch.models.restoration import resolve_device
 from msid_tpu_torch.ops.noise import IMPLS, NoiseConfig, fold_in
 from msid_tpu_torch.training.eval import run_eval_loop
-from msid_tpu_torch.training.losses import LossConfig
+from msid_tpu_torch.training.losses import LossConfig, resolve_perceptual
 from msid_tpu_torch.training.train_state import TrainState, make_eval_step, make_train_step
 
 logger = logging.getLogger(__name__)
@@ -86,12 +86,8 @@ class Trainer:
             logger.info("EMA of params enabled (decay %.5g); validation uses the "
                         "shadow weights", self.ema_decay)
 
-        loss_section = training.get("loss", {})
-        if self.loss_cfg.perceptual_weight > 0 and \
-                str(loss_section.get("perceptual_impl", "edge")).lower() == "vgg":
-            raise NotImplementedError(
-                "perceptual_impl: vgg needs training/perceptual.py, not ported "
-                "yet; use the Sobel edge stand-in (perceptual_impl: edge)")
+        if self.loss_cfg.perceptual_weight > 0:
+            resolve_perceptual(training.get("loss", {}))     # the edge stand-in, or raises
 
         augment = training.get("augment", {})
         self.train_step = train_step or make_train_step(

@@ -5,8 +5,9 @@
 ``setup_training_session`` returns everything ``Trainer.fit`` needs on one
 device, the GPU unless ``device="cpu"`` is passed. It fits the dead-band
 fill's Gram matrix over the train split when the model has ``input_fill``,
-and, given an ``output_dir``, builds the checkpoint manager under
-``output_dir/checkpoints`` from the ``checkpoint:`` section. The SatMAE
+and builds the checkpoint manager under ``output_dir/checkpoints``
+(``outputs`` by default, as in the reference) from the ``checkpoint:``
+section. The SatMAE
 weight converter is a later slice: an existing ``pretrained_path`` raises.
 """
 
@@ -118,15 +119,15 @@ def build_checkpoint_manager(config: dict, directory: str | Path):
 
 
 def setup_training_session(config_path: str | Path | dict,
-                           output_dir: Optional[str | Path] = None,
+                           output_dir: str | Path = "outputs",
                            seed: Optional[int] = None,
                            epochs: Optional[int] = None, synthetic: bool = False,
                            device: str | torch.device = "cuda") -> dict:
     """Everything ``Trainer.fit`` needs, in one call: a dict with
     ``config``, ``model``, ``state``, ``trainer``, ``train_loader``,
     ``val_loader``, ``checkpoint_manager`` and ``param_counts``. The
-    manager writes under ``output_dir/checkpoints``; with no
-    ``output_dir`` there is none and nothing is written.
+    manager writes under ``output_dir/checkpoints`` (``outputs`` by
+    default, as in the reference).
 
     ``config_path`` may be a loaded config dict (deep-copied). ``epochs``
     overrides ``training.epochs``; ``synthetic`` forces the synthetic
@@ -167,8 +168,7 @@ def setup_training_session(config_path: str | Path | dict,
     optimizer, schedule, _, _ = create_training_components(
         config, model, steps_per_epoch=max(1, len(train_loader)))
     state = TrainState.create(model, optimizer)
-    manager = (build_checkpoint_manager(config, Path(output_dir) / "checkpoints")
-               if output_dir is not None else None)
+    manager = build_checkpoint_manager(config, Path(output_dir) / "checkpoints")
     trainer = Trainer(model, state, config=config, checkpoint_manager=manager,
                       lr_schedule=schedule, seed=seed, device=device)
     return {

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from msid_tpu_torch.models.blocks import ResidualBlock
+from msid_tpu_torch.models.restoration import exact_fp32
 from msid_tpu_torch.ops import cuda_decoder, cuda_probe
 from msid_tpu_torch.ops.cuda_decoder import (
     fold_batchnorm,
@@ -30,7 +31,6 @@ K3_RTOL, K3_ATOL = 0.03, 0.02   # the TPU kernels' golden tolerance in bf16
 def need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the kernels are CUDA C++ with no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def block_inputs(shape, seed):
@@ -56,7 +56,8 @@ def test_k4_matches_plain_on_the_card(shape):
     args = block_inputs(shape, seed=shape[-1])
     before = cuda_decoder.launches_fp32
     got = fused_residual_block(*args)
-    want = fused_residual_block_reference(*args)
+    with exact_fp32(torch.float32):                  # the plain version's cuDNN convs
+        want = fused_residual_block_reference(*args)
     torch.cuda.synchronize()
     assert cuda_decoder.launches_fp32 == before + 1
     assert float((got - want).abs().max()) <= K4_MAX_ABS
@@ -74,7 +75,8 @@ def test_k4_geometry_does_not_change_the_result_beyond_rounding(c, geometries):
     change which CTA computes a value, and the order of its fp32 sums."""
     need_card()
     args = block_inputs((1, 20, 36, c), seed=c)
-    want = fused_residual_block_reference(*args)
+    with exact_fp32(torch.float32):
+        want = fused_residual_block_reference(*args)
     for geometry in geometries:
         got = cuda_decoder._fused_residual_block_fp32(*args, geometry=geometry)
         torch.cuda.synchronize()
@@ -189,13 +191,13 @@ def test_k3_matches_plain_and_k1_on_the_card(shape, tiles):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["unet_light", "unet_skip"])
 def test_folded_graphs_match_apply_and_launch_no_block_kernel_on_the_card(arch):
-    """fp32, TF32 off: the fastpath and hybrid graphs against the module's
-    forward (which launches K4), with every fused-block counter still."""
+    """fp32 (each graph turns TF32 off itself): the fastpath and hybrid
+    graphs against the module's forward (which launches K4), with every
+    fused-block counter still."""
     need_card()
     from msid_tpu_torch.deployment import fastpath
     from msid_tpu_torch.models.restoration import SatMAERestoration
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(0)
     model = SatMAERestoration(image_size=32, patch_size=16, embed_dim=64, depth=2,
                               num_heads=4, decoder_channels=(16, 16, 8, 8),
@@ -218,3 +220,23 @@ def test_folded_graphs_match_apply_and_launch_no_block_kernel_on_the_card(arch):
                       cuda_decoder.launches_v2)
     for got in outs:
         assert float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fp32_session_is_fp32_with_the_flags_at_torch_defaults_on_the_card():
+    """An fp32 InferenceSession turns TF32 off around its forward: with
+    cuDNN's TF32 left on (torch's default) it still agrees with the CPU."""
+    need_card()
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+
+    torch.manual_seed(0)
+    model = SatMAERestoration(image_size=32, patch_size=16, embed_dim=64, depth=2,
+                              num_heads=4, decoder_channels=(16, 16, 8, 8)).eval()
+    x = np.random.default_rng(0).normal(0, 1, (2, 32, 32, 13)).astype(np.float32)
+    with torch.no_grad():
+        want = model(torch.from_numpy(x)).numpy()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        got = InferenceSession(model.cuda(), batch_size=2, image_size=32).predict(x)
+        assert torch.backends.cudnn.allow_tf32
+    assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 1e-4

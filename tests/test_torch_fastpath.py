@@ -289,7 +289,8 @@ def test_trainer_validates_through_the_hybrid_graph(tmp_path):
     from test_torch_evaluate import TINY_CONFIG
 
     config = load_config(TINY_CONFIG)
-    session = setup_training_session(config, synthetic=True, device="cpu", seed=0)
+    session = setup_training_session(config, synthetic=True, device="cpu", seed=0,
+                                     output_dir=tmp_path)
     out = {}
     for impl in ("apply", "hybrid"):
         trainer = Trainer(session["model"], session["state"],

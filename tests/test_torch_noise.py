@@ -234,3 +234,27 @@ def test_fold_in():
     assert fold_in(42, 3) == fold_in(42, 3)
     seeds = {fold_in(s, v) for s in range(4) for v in range(50)}
     assert len(seeds) == 200 and all(0 <= s < 2 ** 64 for s in seeds)
+
+
+@pytest.mark.parametrize("shape", [
+    (64, 192, 192, 13),       # the flagship's batch
+    (3, 8, 8, 13),            # fewer groups than threads
+    (2, 64, 64, 1),           # one band
+    (3, 37, 29, 13),          # n % 4 != 0: a last group that is not whole
+    (5, 6, 10, 5),
+])
+def test_launch_shape_covers_every_element_of_a_sample_once(shape):
+    """K2's grid split: CTA x of a sample takes the groups of 4 elements
+    [x * per_cta, (x + 1) * per_cta) of it (the last group cut at n): every
+    element once, no CTA idle, about the target grid."""
+    b, h, w, c = shape
+    n = h * w * c
+    chunks, per_cta = cuda_noise.launch_shape(b, n)
+    groups = -(-n // 4)
+    covered = np.zeros(n, np.int64)
+    for x in range(chunks):
+        first, last = x * per_cta, min(groups, (x + 1) * per_cta)
+        assert first < last                              # no CTA is idle
+        covered[first * 4:min(n, last * 4)] += 1
+    assert (covered == 1).all()
+    assert chunks * b < cuda_noise._TARGET_CTAS + b      # about the target grid

@@ -9,6 +9,8 @@ numpy inputs given to both sides, and the probe's entry point runs every
 variant at a small shape.
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
+from torch.utils.weak import WeakIdKeyDictionary
 
 from msid_tpu.ops.pallas_decoder import fused_residual_block_v2 as jax_v2
 from msid_tpu_torch.benchmarks import kernel_probe
@@ -237,26 +240,39 @@ def test_v2_wrapper_refuses_and_never_takes_the_plain_version_off_the_cpu(
 @pytest.mark.parametrize("c,tile", [(48, (16, 96)), (384, (16, 16)), (96, (300, 8)), (48, (0, 8))])
 def test_v2_tile_that_does_not_fit_raises_and_names_one_that_does(c, tile):
     """The TPU default (16, 96) at C=48 needs more shared memory than a CTA
-    has; the refusal comes before any device dispatch, on the CPU too."""
+    has, even with K3's smallest weight ring; the refusal comes before any
+    device dispatch, on the CPU too, and the tile it names fits."""
     x, w1, w2, aff = block_inputs((1, 8, 8, c), seed=1)
     with pytest.raises(ValueError, match="tile") as err:
         fused_residual_block_v2(*port_args(x, w1, w2, aff), row_block=tile[0], col_block=tile[1])
     if 1 <= tile[0] <= cuda_decoder.V2_MAX_TILE:
         default = cuda_decoder.V2_DEFAULT_TILES[c]
         assert f"({default[0]}, {default[1]}) fits" in str(err.value)
+        th, tw, g, stages = cuda_decoder.v2_tile(c, 8, 8, 1, *default)
+        assert cuda_decoder.bf16_smem_bytes(c, th, tw, g, stages) <= cuda_decoder.MAX_SMEM
 
 
 @pytest.mark.parametrize("c", cuda_decoder.SUPPORTED_WIDTHS)
 def test_v2_default_tiles_fit_a_cta(c):
-    rb, cb = cuda_decoder.v2_tile(c, None, None)
-    assert cuda_decoder.v2_smem_bytes(c, rb, cb) <= cuda_decoder.MAX_SMEM
-    # the layout the kernel computes: chunks of the widest swizzle span that
-    # divides C, each rounded up to 1024 bytes, then h at a pitch of C + 8
+    """Each width's default tile, in the smallest cluster at that width
+    whose CTA holds it, with the deepest weight ring that fits: K1's layout (the
+    swizzled window chunks, the ring of [C/g][64] weight tiles, h at a pitch
+    of C/g + 8, the barriers)."""
+    rb, cb = cuda_decoder.V2_DEFAULT_TILES[c]
+    th, tw, g, stages = cuda_decoder.v2_tile(c, 24, 24, 1, rb, cb)
+    assert (th, tw) == (rb, cb)
+    assert g == min(k for width, k in cuda_decoder.BF16_VARIANTS if width == c
+                    and cuda_decoder.bf16_smem_bytes(c, rb, cb, k, cuda_decoder.BF16_MIN_STAGES)
+                    <= cuda_decoder.MAX_SMEM)
+    need = cuda_decoder.bf16_smem_bytes(c, th, tw, g, stages)
+    assert need <= cuda_decoder.MAX_SMEM
+    assert stages == cuda_decoder.BF16_MAX_STAGES or cuda_decoder.bf16_smem_bytes(
+        c, th, tw, g, stages + 1) > cuda_decoder.MAX_SMEM
     ck = cuda_decoder.v2_chunk(c)
     assert c % ck == 0 and ck in (16, 32, 64)
-    chunk = ((rb + 4) * (cb + 4) * ck * 2 + 1023) // 1024 * 1024
-    assert cuda_decoder.v2_smem_bytes(c, rb, cb) == (
-        c // ck * chunk + (rb + 2) * (cb + 2) * (c + 8) * 2 + 8 + 1024)
+    chunk = ((th + 4) * (tw + 4) * ck * 2 + 1023) // 1024 * 1024
+    h = ((th + 2) * (tw + 2) * (c // g + 8) * 2 + 15) // 16 * 16
+    assert need == c // ck * chunk + stages * (c // g) * 128 + h + 8 * 9 + 1024
 
 
 @pytest.mark.parametrize("case,match", [
@@ -291,3 +307,65 @@ def test_probe_refuses_unknown_variant_and_bad_shape():
         kernel_probe.main(["v9", "--device", "cpu", "--shape", "1,8,8,8"])
     with pytest.raises(SystemExit, match="B,H,W,C"):
         kernel_probe.main(["xla", "--device", "cpu", "--shape", "8,8,8"])
+
+
+RAGGED = (23, 37)        # divides by no even tile
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("c", cuda_decoder.SUPPORTED_WIDTHS)
+def test_v2_picker_fits_a_cta_and_covers_a_ragged_image(c, b):
+    """K3's geometry, picked (no tile named: K1's) or around a caller's
+    tile, for the flagship's stage of each width and a ragged image: a
+    build of csrc/resblock.cu (clusters over the output channels at C >= 192
+    only), a CTA's shared memory, a ring of 2..4 stages, and tiles that
+    cover the image."""
+    flagship = 192 * 48 // c
+    for (h, w), tile in (((flagship, flagship), (None, None)), (RAGGED, (None, None)),
+                         (RAGGED, (5, 7)), ((flagship, flagship), (5, 7))):
+        th, tw, g, stages = cuda_decoder.v2_tile(c, h, w, b, *tile)
+        assert (c, g) in cuda_decoder.BF16_VARIANTS and (g == 1 or c >= 192)
+        if tile[0] is None:
+            assert (th, tw, g, stages) == cuda_decoder.bf16_tiling(c, h, w, b)
+        assert cuda_decoder.BF16_MIN_STAGES <= stages <= cuda_decoder.BF16_MAX_STAGES
+        assert cuda_decoder.bf16_smem_bytes(c, th, tw, g, stages) <= cuda_decoder.MAX_SMEM
+        if tile[0] is not None:
+            assert (th, tw) == tile
+        rows, cols = -(-h // th), -(-w // tw)
+        assert rows * th >= h > (rows - 1) * th and cols * tw >= w > (cols - 1) * tw
+        nw, mw, nsplit = cuda_decoder.BF16_VARIANTS[(c, g)]
+        assert nw * (2 if nsplit else 1) == c // g       # the warpgroups cover the CTA's N
+
+
+def test_v2_prepared_weights_are_made_once_and_follow_the_tensor(monkeypatch):
+    """The functional entry's K-major copies: one per weight tensor, made
+    again after an in-place write or for another dtype or device, never
+    handed to another tensor at a reused address, and let go with the
+    tensor they were made of."""
+    made = []
+    prepare = cuda_decoder.prepare_bf16_weights
+    monkeypatch.setattr(cuda_decoder, "prepare_bf16_weights",
+                        lambda w: made.append(w.dtype) or prepare(w))
+    monkeypatch.setattr(cuda_decoder, "_v2_weights", WeakIdKeyDictionary())
+    w = torch.from_numpy(block_inputs((1, 4, 4, 48), seed=3)[1]).bfloat16()
+    first = cuda_decoder.v2_prepared_weights(w)
+    assert cuda_decoder.v2_prepared_weights(w) is first and len(made) == 1
+    assert torch.equal(first, prepare(w))
+    w.mul_(2)                                            # in place: a new _version
+    second = cuda_decoder.v2_prepared_weights(w)
+    assert len(made) == 2 and torch.equal(second, prepare(w))
+    assert cuda_decoder.v2_prepared_weights(w) is second
+    assert cuda_decoder.v2_prepared_weights(w.float()).dtype == torch.float32
+    assert cuda_decoder.v2_prepared_weights(w.to("meta")).device.type == "meta"
+    assert len(made) == 4
+    # the same address, shape and version in another tensor is not a hit
+    alias = w.detach()
+    assert alias.data_ptr() == w.data_ptr() and alias._version == w._version
+    cuda_decoder.v2_prepared_weights(alias)
+    assert len(made) == 5
+    trained = torch.zeros(3, 3, 16, 16, dtype=torch.bfloat16, requires_grad=True)
+    cuda_decoder.v2_prepared_weights(trained)
+    kept = len(cuda_decoder._v2_weights)
+    del alias, trained                       # their copies go with them
+    gc.collect()
+    assert len(cuda_decoder._v2_weights) == kept - 2

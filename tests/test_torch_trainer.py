@@ -91,10 +91,11 @@ def test_estimate_memory_matches_jax():
     assert estimate_memory(config, 123_456_789) == jax_estimate_memory(config, 123_456_789)
 
 
-def test_tiny_recipe_trains_on_the_cpu():
-    session = setup_training_session(TINY, synthetic=True, device="cpu")
+def test_tiny_recipe_trains_on_the_cpu(tmp_path):
+    session = setup_training_session(TINY, synthetic=True, device="cpu", output_dir=tmp_path)
     trainer = session["trainer"]
-    assert session["checkpoint_manager"] is None and trainer.accum_steps == 1
+    assert session["checkpoint_manager"].directory == tmp_path / "checkpoints"
+    assert trainer.accum_steps == 1
     assert trainer.compute_dtype == torch.float32          # mixed_precision: false
     history = trainer.fit(session["train_loader"], session["val_loader"], epochs=2)
     assert len(history["val_psnr"]) == 2 and len(history["train_loss"]) == 2
@@ -102,33 +103,39 @@ def test_tiny_recipe_trains_on_the_cpu():
         assert np.isfinite(values).all(), key
     assert trainer.state.step == 2 * len(session["train_loader"])
     assert trainer.state.nan_skips == 0
+    session["checkpoint_manager"].wait_until_finished()
+    assert any(d.name.isdigit() for d in (tmp_path / "checkpoints").iterdir())
 
 
-def test_default_device_is_the_card():
+def test_default_device_is_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device works here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        setup_training_session(TINY, synthetic=True)
+        setup_training_session(TINY, synthetic=True, output_dir=tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(torch.nn.Linear(1, 1), state=None)
 
 
-def test_accumulation_collapses_when_it_fits(caplog):
+def test_accumulation_collapses_when_it_fits(tmp_path, caplog):
     config = tiny_config()
     config["training"].update(micro_batch_size=2, gradient_accumulation_steps=4)
     with caplog.at_level(logging.INFO):
-        session = setup_training_session(config, synthetic=True, device="cpu")
+        session = setup_training_session(config, synthetic=True, device="cpu",
+                                         output_dir=tmp_path)
     assert session["trainer"].accum_steps == 1
     assert "collapsing gradient accumulation 4x -> 1" in caplog.text
     config["training"]["auto_accum"] = False
-    session = setup_training_session(config, synthetic=True, device="cpu")
+    session = setup_training_session(config, synthetic=True, device="cpu", output_dir=tmp_path)
     assert session["trainer"].accum_steps == 4
 
 
 def test_what_is_not_ported_raises(tmp_path, caplog):
     config = tiny_config()
+    tiles = tmp_path / "tiles"
+    (tiles / "River").mkdir(parents=True)
+    (tiles / "River" / "River_1.tif").write_bytes(b"II*\x00")
     with pytest.raises(NotImplementedError, match="TIFF reader"):
-        build_dataset(dict(config, data=dict(config["data"], root_dir=str(tmp_path))), "train")
+        build_dataset(dict(config, data=dict(config["data"], root_dir=str(tiles))), "train")
     with pytest.raises(FileNotFoundError):
         build_dataset(dict(config, data=dict(config["data"], synthetic_fallback=False)), "train")
     with caplog.at_level(logging.INFO):
@@ -137,7 +144,7 @@ def test_what_is_not_ported_raises(tmp_path, caplog):
     # the folded graphs have no fill prologue: a hybrid validation pass on a
     # model with the input stage raises as the JAX package's does
     fill = dict(config, model=dict(config["model"], input_fill={"enabled": True}))
-    session = setup_training_session(fill, synthetic=True, device="cpu")
+    session = setup_training_session(fill, synthetic=True, device="cpu", output_dir=tmp_path)
     with pytest.raises(ValueError, match="forward_impl='hybrid'"):
         Trainer(session["model"], session["state"],
                 dict(fill, training=dict(fill["training"], eval_forward="hybrid")),
@@ -145,11 +152,11 @@ def test_what_is_not_ported_raises(tmp_path, caplog):
     pretrained = dict(config, model=dict(config["model"], encoder=dict(
         config["model"]["encoder"], pretrained_path=str(TINY))))
     with pytest.raises(NotImplementedError, match="convert.py"):
-        setup_training_session(pretrained, synthetic=True, device="cpu")
+        setup_training_session(pretrained, synthetic=True, device="cpu", output_dir=tmp_path)
 
 
-def test_too_many_skipped_steps_abort_the_epoch():
-    session = setup_training_session(TINY, synthetic=True, device="cpu")
+def test_too_many_skipped_steps_abort_the_epoch(tmp_path):
+    session = setup_training_session(TINY, synthetic=True, device="cpu", output_dir=tmp_path)
     state = session["state"]
 
     def skipping_step(state, batch, seed):
