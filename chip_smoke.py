@@ -37,14 +37,21 @@ network. Phases, each of which must pass:
    issue rate) and the share of HBM peak;
 5. serve: the full-width bf16 flagship (``long_skip_fill.yaml``) with
    seeded random weights answers 4 requests at B=1 and 4 at B=16 through
-   ``InferenceSession.predict``; exactly 8 K1 launches per forward;
-   the B=1 output is held against the same weights in fp32 on the CPU;
-   latency by host clock (predict) and CUDA events (device), and device
-   time by kernel from ``torch.profiler``;
-6. serve_fp32: the same weights served in fp32 at B=1 and B=16, exactly 8
-   K4 launches (and no K1) per forward, the B=1 output within relative
-   RMS 1e-4 of the CPU's; then one bf16 ``InferenceSession(tta=8)`` at
-   B=1, 64 K1 launches per forward;
+   ``InferenceSession.predict``, each session compiled on the card (its
+   forward captured into a CUDA graph, every request a replay): 8 K1
+   launches captured per forward and 8 K1 kernels per replay and per eager
+   forward counted by ``torch.profiler`` on the device; the B=1 output
+   held against the same weights in fp32 on the CPU; the graph against
+   the session's eager forward (outputs bit-equal, their relative RMS
+   printed beside; in turns device p50 by CUDA
+   events, predict p50 by the host clock, busy time, idle share and
+   device launches from the profiler); the tensor maps K1's libraries
+   encoded;
+6. serve_fp32: the same weights served in fp32 at B=1 and B=16, 8 K4
+   launches (and no K1) captured per forward and run per replay, the B=1
+   output within relative RMS 1e-4 of the CPU's, graph against eager;
+   then one bf16 ``InferenceSession(tta=8)`` at B=1, 64 K1 launches
+   captured per forward, graph against eager;
 7. train: one bf16 train step of the flagship at B=2 on the card against
    the same step in fp32 on the CPU (every noise component off); then
    ``setup_training_session(synthetic=True, epochs=1)`` into a temporary
@@ -65,8 +72,12 @@ network. Phases, each of which must pass:
    single score within 1e-5); the checkpoint's size and save time and
    each evaluation's time are printed;
 9. probe: the async-copy probe kernel (K5) against ``x * 2`` at
-   [8,192,48] and [3072,192,48] fp32 (exactly equal), timed beside
-   ``x * 2`` and its bytes bound; the nine-tap fused ResidualBlock (K3)
+   [8,192,48], [3072,192,48] and a ragged [1000,193,12] fp32 (exactly
+   equal), the tensor map it encodes on a tensor's first call and on six
+   more, and its device time
+   (per launch in a CUDA graph of 100, and from the profiler) and call
+   time (CUDA events around one call) beside ``x * 2``'s and its bytes
+   bound; the nine-tap fused ResidualBlock (K3)
    against its plain version and against K1's output at the four flagship
    shapes, B=1 and B=16, and at the probe's [64,192,192,48] (rtol 0.03 /
    atol 0.02), also at a caller tile of 5 x 7 that leaves ragged edges;
@@ -80,13 +91,22 @@ network. Phases, each of which must pass:
    fill) in bf16: ``InferenceSession(optimize="auto")`` serves the module's
    forward at B=1 and the hybrid graph at B=16, ``optimize=True`` the
    fastpath; each folded graph within relative RMS 2e-2 of the module's
-   forward in bf16 and 1e-4 in fp32, launching no fused-block kernel (the
-   module's forward launches 8); device p50 of the three graphs at B=1, 16
-   and 128; then ``long_skip.yaml`` trained one epoch and scored by
+   forward in bf16 and 1e-4 in fp32, capturing and launching no
+   fused-block kernel (the module's forward captures 8); device p50 of the
+   three graphs at B=1, 16 and 128, each eager and captured, in turns,
+   each replay bit-equal to its eager forward; then
+   ``long_skip.yaml`` trained one epoch and scored by
    ``scripts.evaluate --forward apply`` and ``--forward hybrid`` in fp32
    (metrics within 1e-4 relative) and under bf16 autocast (within 2e-2),
    and ``--forward hybrid`` refused with
    ``ValueError`` on the flagship (it has the input fill stage).
+
+A launch count in the kernels line is a count of device launches. A
+wrapper counts its launch when it runs eagerly and when a graph is
+captured; a replay runs the captured launches without passing through a
+wrapper. So a path served by a compiled session counts the wrappers'
+launches over the run, less the capture's, plus the capture's for every
+replay.
 
 The fp32 phases run with torch's TF32 flags as they are: the port turns
 TF32 off around its own fp32 forwards and steps, and this script around
@@ -101,6 +121,7 @@ directories that are removed at the end.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -154,7 +175,10 @@ PARITY_GNORM_RTOL = 5e-2
 TIMED_STEPS = 4
 PROBE_SHAPE = (64, 192, 192, 48)  # the kernel probe's default block
 PROBE_ITERS = 20
-ANY_DMA_SHAPES = ((8, 192, 48), (3072, 192, 48))   # the probe's slice; a 113 MB array
+# K5: the probe's slice; a 113 MB array; a ragged one (1000 rows, no
+# multiple of a box's 32; n = 2316, no multiple of 256 columns)
+ANY_DMA_SHAPES = ((8, 192, 48), (3072, 192, 48), (1000, 193, 12))
+GRAPH_LAUNCHES = 100              # K5's device time: one CUDA graph of 100 launches
 SKIP_CONFIG = ROOT / "configs" / "experiments" / "long_skip.yaml"   # full width, no fill
 HYBRID_BATCHES = (1, 16, 128)
 HYBRID_FP32_REL_RMS = 1e-4        # folded graphs vs the module's forward, fp32, TF32 off
@@ -193,6 +217,40 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def graph_ms(torch, fn, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
+    """Device time per call of ``fn()``: ``launches`` calls captured into one
+    CUDA graph, the median of ``replays`` replays timed with CUDA events,
+    over ``launches``. No host cost is in it, only the device's own time
+    and the gaps between back-to-back kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(replays)]
+    for start, end in pairs:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    del graph
+    return float(np.median([s.elapsed_time(e) for s, e in pairs])) / launches
+
+
+def resblock_encodes() -> int:
+    """Tensor maps K1's and K3's libraries (one per width) have encoded."""
+    from msid_tpu_torch.ops import _build
+
+    return sum(_build.tensor_map_encodes(name, defines)
+               for name, defines in KERNELS if name == "resblock")
 
 
 def block_bound(c: int, s: int, b: int, itemsize: int = 2,
@@ -257,13 +315,20 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
         for b in BATCHES:
             x, w1, w2, aff = random_block_inputs(torch, c, s, b, seed=c + b)
             p1, p2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
+            encodes = [resblock_encodes()]
             got = cuda_decoder.fused_residual_block(x, p1, p2, aff)
+            encodes.append(resblock_encodes())
+            kernel_ms = time_ms(torch, lambda: cuda_decoder.fused_residual_block(
+                x, p1, p2, aff))
+            encodes.append(resblock_encodes())
             functional = cuda_decoder.fused_residual_block(x, w1, w2, aff)
             want = cuda_decoder.fused_residual_block_reference(x, w1, w2, aff)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             max_err = float(diff.max())
-            ok = bool(within(torch, got, want) and torch.equal(got, functional))
+            # x's map and the two weight maps, then none for 23 more launches
+            encodes_ok = encodes[1] - encodes[0] <= 3 and encodes[2] == encodes[1]
+            ok = bool(within(torch, got, want) and torch.equal(got, functional) and encodes_ok)
             k1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             bound_ms, bound_by, flops, nbytes = block_bound(c, s, b)
@@ -271,8 +336,9 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
             row = {
                 "check": "resblock", "C": c, "H": s, "W": s, "B": b,
                 "tile": [th, tw], "cluster": g, "stages": stages,
-                "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
-                    x, p1, p2, aff)),
+                "encodes_first_call": encodes[1] - encodes[0],
+                "encodes_23_more_calls": encodes[2] - encodes[1],
+                "kernel_ms": kernel_ms,
                 "functional_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
                     x, w1, w2, aff)),
                 "plain_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_reference(
@@ -288,7 +354,8 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
             emit(row)
             rows.append(row)
             if not ok:
-                failures.append(f"resblock C={c} H={s} B={b}: max_abs_err {max_err}")
+                failures.append(f"resblock C={c} H={s} B={b}: max_abs_err {max_err}, "
+                                f"tensor map encodes {encodes}")
     return rows
 
 
@@ -423,19 +490,95 @@ def device_profile(torch, fn, iters: int = 3, tags: dict | None = None) -> dict:
            "top_ms": [[k[:80], v] for k, v in top]}
     for key, tag in (tags or {}).items():
         out[key] = sum(v for k, v in per_kernel.items() if tag in k)
+        out[f"{key}_launches"] = sum(1 for e in prof.events() if e.device_type ==
+                                     DeviceType.CUDA and tag in e.name) / iters
     return out
 
 
-def profile_forward(torch, model, x: np.ndarray, iters: int = 3) -> dict:
-    """Device profile of one forward; ``resblock_ms`` sums the block kernel
-    of the model's dtype (K1 ``resblock_kernel``, K4 ``resblock_fp32_kernel``)."""
-    xd = torch.from_numpy(x).to("cuda", model.dtype)
-    tag = "resblock_fp32_kernel" if model.dtype == torch.float32 else "resblock_kernel"
-    with torch.inference_mode():
-        return device_profile(torch, lambda: model(xd), iters, {"resblock_ms": tag})
+def session_turns(torch, session, requests: list, tag: str, iters: int) -> dict:
+    """One session's captured forward against its eager forward: their
+    outputs on the first request, then in turns (graph, eager, eager,
+    graph) device p50 by CUDA events (the graph through ``benchmark``, the
+    eager forward on the same device batch) and predict p50 by the host
+    clock (the graph through ``predict``, the eager forward with the same
+    upload and download), and a profiler breakdown of one call of each.
+    ``tag`` names the block kernel of the session's dtype."""
+    dev = session.device
+    xd = torch.from_numpy(requests[0]).to(dev)
+    graph_out, eager_out = session.forward(xd), session.forward_eager(xd)
+    torch.cuda.synchronize()
+
+    def predict_eager(r):
+        return session.forward_eager(torch.from_numpy(r).to(dev)).cpu().numpy()
+
+    def host_p50(predict):
+        times = []
+        for r in requests * max(1, iters // len(requests)):
+            t0 = time.perf_counter()
+            predict(r)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.percentile(times, 50))
+
+    turns: dict = {"graph": [], "eager": []}
+    for form in ("graph", "eager", "eager", "graph"):
+        if form == "graph":
+            device = session.benchmark(warmup_runs=3, benchmark_iterations=iters)["p50_ms"]
+            host = host_p50(session.predict)
+        else:
+            device = time_ms(torch, lambda: session.forward_eager(xd), iters)
+            host = host_p50(predict_eager)
+        turns[form].append({"device_p50_ms": device, "predict_p50_ms": host})
+    row = {"compiled": session.compiled, "captured_launches": session.captured_launches,
+           "graph_equals_eager": bool(torch.equal(graph_out, eager_out)),
+           "graph_vs_eager_max_abs": float((graph_out - eager_out).abs().max()),
+           "graph_vs_eager_rel_rms": rel_rms(graph_out.cpu().numpy(), eager_out.cpu().numpy())}
+    for form, fn in (("graph", lambda: session.forward(xd)),
+                     ("eager", lambda: session.forward_eager(xd))):
+        prof = device_profile(torch, fn, tags={"block_ms": tag})
+        device = float(np.mean([t["device_p50_ms"] for t in turns[form]]))
+        row[form] = {
+            "turns": turns[form], "device_p50_ms": device,
+            "predict_p50_ms": float(np.mean([t["predict_p50_ms"] for t in turns[form]])),
+            "device_tiles_per_s": session.batch_size * 1e3 / device,
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": 1 - prof["device_busy_ms"] / device,
+            "device_launches": prof["device_launches"],
+            "block_kernels": prof["block_ms_launches"], "block_ms": prof["block_ms"],
+            "top_ms": prof["top_ms"][:5]}
+    return row
+
+
+def device_launches(counted: int, session) -> int:
+    """Device launches of a hand-written kernel over a run that built
+    ``session`` and served from it, from its wrapper's count over the run
+    (``counted``: the warmup's and the eager forwards' launches, which ran,
+    and the capture's, which only recorded): the capture's out, each
+    replay's in."""
+    return counted + (session.replays - 1) * session.captured_launches
+
+
+def check_session(failures: list, name: str, row: dict, expect: int) -> None:
+    """A compiled session: captured, ``expect`` block-kernel launches
+    captured and run by every replay and every eager forward (profiler),
+    graph and eager bit-equal (the same kernels on the same operands in the
+    same order; their relative RMS is only printed)."""
+    if row["compiled"] != "cuda_graph" or row["captured_launches"] != expect:
+        failures.append(f"{name}: compiled {row['compiled']!r}, "
+                        f"{row['captured_launches']} launches captured, expected {expect}")
+    for form in ("graph", "eager"):
+        if row[form]["block_kernels"] != expect or not row[form]["device_busy_ms"] > 0:
+            failures.append(f"{name}: the profiler saw {row[form]['block_kernels']} block "
+                            f"kernels per {form} forward, expected {expect}")
+    if not row["graph_equals_eager"]:
+        failures.append(f"{name}: graph and eager differ, max abs "
+                        f"{row['graph_vs_eager_max_abs']}, rel RMS "
+                        f"{row['graph_vs_eager_rel_rms']}")
 
 
 def phase_serve(torch, failures: list, card: str) -> tuple[dict, tuple]:
+    """The bf16 flagship served by compiled sessions at B=1 and B=16: the
+    requests through ``predict`` (a replay each), the B=1 output against
+    fp32 on the CPU, the graph against the eager forward in turns."""
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.models.restoration import SatMAERestoration
     from msid_tpu_torch.ops import cuda_decoder, cuda_noise
@@ -451,45 +594,28 @@ def phase_serve(torch, failures: list, card: str) -> tuple[dict, tuple]:
               "dtype": "bfloat16", "card": card}
     launches_total = noise_launches = 0
     for b in BATCHES:
+        cuda_decoder.launches = cuda_noise.launches = 0
+        encodes = resblock_encodes()
         session = InferenceSession(model, batch_size=b, image_size=size,
                                    num_bands=bands)
         requests = [noisy_tiles(b, size, bands, seed=100 * b + i)
                     for i in range(REQUESTS)]
-        session.predict(requests[0])                    # warmup
-        cuda_decoder.launches = cuda_noise.launches = 0
         outs = [session.predict(r) for r in requests]
-        launches = cuda_decoder.launches
-        launches_total += launches
-        noise_launches += cuda_noise.launches
         for out in outs:
             if out.shape != (b, size, size, bands) or not np.isfinite(out).all():
                 failures.append(f"serve B={b}: bad output {out.shape}, "
                                 f"finite={bool(np.isfinite(out).all())}")
-        if launches != 8 * REQUESTS:
-            failures.append(f"serve B={b}: {launches} kernel launches for "
-                            f"{REQUESTS} forwards, expected {8 * REQUESTS}")
-        host_ms = []
-        for r in requests * 5:
-            t0 = time.perf_counter()
-            session.predict(r)
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        bench = session.benchmark(warmup_runs=5, benchmark_iterations=30)
-        p50 = float(np.percentile(host_ms, 50))
-        prof = profile_forward(torch, model, requests[0])
-        if not prof["device_busy_ms"] > 0 or not prof["resblock_ms"] > 0:
-            failures.append(f"serve B={b}: the profiler saw no device time "
-                            f"(or none in the resblock kernel): {prof}")
-        if b == 1 and not prof["device_launches"] < BF16_B1_LAUNCHES_BEFORE:
-            failures.append(f"serve B=1: {prof['device_launches']} device launches per "
-                            f"forward, not fewer than {BF16_B1_LAUNCHES_BEFORE}")
-        result[f"b{b}"] = {
-            "launches": launches, "forwards": REQUESTS,
-            "predict_p50_ms": p50, "predict_tiles_per_s": b * 1e3 / p50,
-            "device_p50_ms": bench["p50_ms"],
-            "device_tiles_per_s": bench["images_per_sec"],
-            "device_idle_share": 1 - prof["device_busy_ms"] / bench["p50_ms"],
-            "profile": prof,
-        }
+        row = session_turns(torch, session, requests, "resblock_kernel", 20)
+        check_session(failures, f"serve B={b}", row, 8)
+        if b == 1 and not row["eager"]["device_launches"] < BF16_B1_LAUNCHES_BEFORE:
+            failures.append(f"serve B=1: {row['eager']['device_launches']} device launches "
+                            f"per eager forward, not fewer than {BF16_B1_LAUNCHES_BEFORE}")
+        launches = device_launches(cuda_decoder.launches, session)
+        row.update(k1_device_launches=launches, replays=session.replays,
+                   tensor_map_encodes=resblock_encodes() - encodes)
+        launches_total += launches
+        noise_launches += cuda_noise.launches
+        result[f"b{b}"] = row
         if b == 1:
             torch.set_num_threads(8)
             with torch.no_grad():
@@ -501,6 +627,8 @@ def phase_serve(torch, failures: list, card: str) -> tuple[dict, tuple]:
             if not result["rel_rms_vs_cpu_fp32"] <= MAX_REL_RMS:
                 failures.append(f"serve: rel RMS {result['rel_rms_vs_cpu_fp32']} "
                                 f"vs fp32 CPU > {MAX_REL_RMS}")
+        del session                      # its graph's memory pool with it
+        torch.cuda.empty_cache()
     result["launches"] = launches_total
     result["noise_launches"] = noise_launches
     emit(result)
@@ -509,7 +637,8 @@ def phase_serve(torch, failures: list, card: str) -> tuple[dict, tuple]:
 
 def phase_serve_fp32(torch, failures: list, card: str, reference: tuple) -> dict:
     """The serve phase's weights in fp32 through K4 at B=1 and B=16, held to
-    the same fp32 forward on the CPU; then one bf16 session with tta=8."""
+    the same fp32 forward on the CPU; then one bf16 session with tta=8;
+    each compiled, against its eager forward."""
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.models.restoration import SatMAERestoration
     from msid_tpu_torch.ops import cuda_decoder
@@ -523,68 +652,49 @@ def phase_serve_fp32(torch, failures: list, card: str, reference: tuple) -> dict
               "dtype": "float32", "card": card}
     k4_total = 0
     for b in BATCHES:
+        cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
         session = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
         requests = [x0] if b == 1 else [noisy_tiles(b, size, bands, seed=200 + i)
                                          for i in range(REQUESTS)]
-        session.predict(requests[0])                    # warmup
-        cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
         outs = [session.predict(r) for r in requests]
-        k4, k1 = cuda_decoder.launches_fp32, cuda_decoder.launches
-        k4_total += k4
-        if k4 != 8 * len(requests) or k1 != 0:
-            failures.append(f"serve_fp32 B={b}: {k4} K4 and {k1} K1 launches for "
-                            f"{len(requests)} forwards, expected {8 * len(requests)} and 0")
         for out in outs:
             if out.shape != (b, size, size, bands) or not np.isfinite(out).all():
                 failures.append(f"serve_fp32 B={b}: bad output {out.shape}")
-        host_ms = []
-        for r in requests * (20 // len(requests)):
-            t0 = time.perf_counter()
-            session.predict(r)
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        bench = session.benchmark(warmup_runs=3, benchmark_iterations=20)
-        prof = profile_forward(torch, model, requests[0])
-        if not prof["resblock_ms"] > 0:
-            failures.append(f"serve_fp32 B={b}: the profiler saw no K4 time: {prof}")
-        result[f"b{b}"] = {
-            "k4_launches": k4, "k1_launches": k1, "forwards": len(requests),
-            "predict_p50_ms": float(np.percentile(host_ms, 50)),
-            "device_p50_ms": bench["p50_ms"],
-            "device_tiles_per_s": bench["images_per_sec"],
-            "device_busy_ms": prof["device_busy_ms"], "k4_ms": prof["resblock_ms"],
-            "k4_share_of_busy": prof["resblock_ms"] / prof["device_busy_ms"],
-            "device_idle_share": 1 - prof["device_busy_ms"] / bench["p50_ms"],
-            "top_ms": prof["top_ms"][:5],
-        }
+        row = session_turns(torch, session, requests, "resblock_fp32_kernel", 20 if b == 1 else 10)
+        check_session(failures, f"serve_fp32 B={b}", row, 8)
+        k4 = device_launches(cuda_decoder.launches_fp32, session)
+        row.update(k4_device_launches=k4, k1_launches=cuda_decoder.launches,
+                   replays=session.replays)
+        if cuda_decoder.launches != 0:
+            failures.append(f"serve_fp32 B={b}: {cuda_decoder.launches} K1 launches")
+        k4_total += k4
+        result[f"b{b}"] = row
         if b == 1:
             result["rel_rms_vs_cpu_fp32"] = rel_rms(outs[0], ref)
             result["rel_rms_residual_part"] = rel_rms(outs[0] - x0, ref - x0)
             if not result["rel_rms_vs_cpu_fp32"] <= FP32_FORWARD_REL_RMS:
                 failures.append(f"serve_fp32: rel RMS {result['rel_rms_vs_cpu_fp32']} "
                                 f"vs fp32 CPU > {FP32_FORWARD_REL_RMS}")
+        del session
+        torch.cuda.empty_cache()
     result["k4_launches"] = k4_total
 
     bf16 = SatMAERestoration.from_config(cfg, dtype=torch.bfloat16)
     bf16.load_state_dict(cpu_model.state_dict())
-    session = InferenceSession(bf16, batch_size=1, image_size=size, num_bands=bands, tta=8)
-    session.predict(x0)                                  # warmup
     cuda_decoder.launches = 0
-    host_ms = []
-    for _ in range(REQUESTS):
-        t0 = time.perf_counter()
-        out = session.predict(x0)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    tta_launches = cuda_decoder.launches
-    result["tta8_bf16_b1"] = {
-        "k1_launches": tta_launches, "forwards": REQUESTS,
-        "predict_p50_ms": float(np.percentile(host_ms, 50)),
-        "device_p50_ms": session.benchmark(warmup_runs=2, benchmark_iterations=10)["p50_ms"],
-        "rel_rms_vs_cpu_fp32_single_view": rel_rms(out, ref),
-    }
+    session = InferenceSession(bf16, batch_size=1, image_size=size, num_bands=bands, tta=8)
+    out = session.predict(x0)
+    row = session_turns(torch, session, [x0], "resblock_kernel", 10)
+    check_session(failures, "serve tta=8", row, 64)
+    tta_launches = device_launches(cuda_decoder.launches, session)
+    row.update(k1_device_launches=tta_launches, replays=session.replays,
+               rel_rms_vs_cpu_fp32_single_view=rel_rms(out, ref))
+    result["tta8_bf16_b1"] = row
     result["k1_launches"] = tta_launches
-    if tta_launches != 64 * REQUESTS or not np.isfinite(out).all():
-        failures.append(f"serve tta=8: {tta_launches} K1 launches for {REQUESTS} "
-                        f"forwards, expected {64 * REQUESTS}")
+    if not np.isfinite(out).all():
+        failures.append("serve tta=8: output not finite")
+    del session
+    torch.cuda.empty_cache()
     emit(result)
     return result
 
@@ -1012,29 +1122,53 @@ def phase_probe(torch, F, failures: list) -> dict:
     """K5 and K3 against their plain versions (K3 against K1 too), with
     times, then the kernel probe's entry point for every variant."""
     from msid_tpu_torch.benchmarks import kernel_probe
-    from msid_tpu_torch.ops import cuda_decoder, cuda_probe
+    from msid_tpu_torch.ops import _build, cuda_decoder, cuda_probe
 
     result: dict = {"k5": [], "k3": []}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for shape in ANY_DMA_SHAPES:                       # the small one first
         g = torch.Generator(device="cuda").manual_seed(shape[0])
         x = torch.randn(shape, device="cuda", generator=g)
+        encodes = [_build.tensor_map_encodes("any_dma")]
         got = cuda_probe.any_dma_scale(x)
         want = cuda_probe.any_dma_scale_reference(x)
         torch.cuda.synchronize()
+        encodes.append(_build.tensor_map_encodes("any_dma"))
+        cuda_probe.any_dma_scale(x)                    # the same x: its map is kept
+        encodes.append(_build.tensor_map_encodes("any_dma"))
+        for _ in range(5):                             # the same x, out freed each time
+            cuda_probe.any_dma_scale(x)
+        torch.cuda.synchronize()
+        encodes.append(_build.tensor_map_encodes("any_dma"))
         row = {"check": "any_dma", "shape": list(shape),
                "max_abs_err": float((got - want).abs().max()),
                "ok": torch.equal(got, want),
-               "kernel_ms": time_ms(torch, lambda: cuda_probe.any_dma_scale(x)),
-               "plain_ms": time_ms(torch, lambda: cuda_probe.any_dma_scale_reference(x)),
-               "library_ms": time_ms(torch, lambda: x * 2),
+               "encodes_first_call": encodes[1] - encodes[0],
+               "encodes_second_call": encodes[2] - encodes[1],
+               "encodes_5_more_calls": encodes[3] - encodes[2],
+               "device_ms": graph_ms(torch, lambda: cuda_probe.any_dma_scale(x)),
+               "call_ms": time_ms(torch, lambda: cuda_probe.any_dma_scale(x)),
+               "plain_device_ms": graph_ms(
+                   torch, lambda: cuda_probe.any_dma_scale_reference(x)),
+               "plain_call_ms": time_ms(torch, lambda: cuda_probe.any_dma_scale_reference(x)),
+               "library_device_ms": graph_ms(torch, lambda: x * 2),
+               "library_call_ms": time_ms(torch, lambda: x * 2),
                "library": "x * 2 (one elementwise kernel)",
                "bytes": 2 * x.numel() * 4,
                "bound_ms": 2 * x.numel() * 4 / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes"}
-        row["hbm_share_of_peak"] = row["bound_ms"] / row["kernel_ms"]
+        for name, fn in (("kernel", lambda: cuda_probe.any_dma_scale(x)),
+                         ("library", lambda: x * 2)):
+            row[f"{name}_profiled_ms"] = device_profile(torch, fn, iters=20)["device_busy_ms"]
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        row["device_vs_library"] = row["device_ms"] / row["library_device_ms"]
+        row["call_vs_library"] = row["call_ms"] / row["library_call_ms"]
         emit(row)
         result["k5"].append(row)
-        if not row["ok"]:
-            failures.append(f"any_dma {shape}: not equal to x * 2 ({row['max_abs_err']})")
+        if not (row["ok"] and row["encodes_first_call"] <= 1
+                and row["encodes_second_call"] == 0 and row["encodes_5_more_calls"] == 0):
+            failures.append(f"any_dma {shape}: equal to x * 2: {row['ok']} "
+                            f"({row['max_abs_err']}), encodes {encodes}")
+        del x, got, want
 
     lib = library_block(torch, F)
     # A wrong byte count on the barrier would hang: the first launch is a
@@ -1044,7 +1178,6 @@ def phase_probe(torch, F, failures: list) -> dict:
                   cuda_decoder.fused_residual_block_v2_reference(*tiny)):
         failures.append("resblock_v2 [1,8,8,48]: disagrees with its plain version")
     torch.cuda.synchronize()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(c, s, b, random_block_inputs(torch, c, s, b, seed=c + b), 20)
              for c, s in SHAPES for b in BATCHES]
     pb, ph, pw, pc = PROBE_SHAPE
@@ -1137,7 +1270,11 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
     choice, agreement with the module's forward, launch counts, device
     times; then ``--forward hybrid`` through the evaluate CLI."""
     from msid_tpu_torch.deployment import fastpath
-    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.deployment.inference import (
+        CAPTURE_WARMUP,
+        CapturedForward,
+        InferenceSession,
+    )
     from msid_tpu_torch.models.restoration import SatMAERestoration
     from msid_tpu_torch.ops import cuda_decoder
     from msid_tpu_torch.scripts import evaluate as evaluate_cli
@@ -1171,25 +1308,36 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
         failures.append(f"hybrid: the session chose {chosen}")
 
     # Agreement and launch counts: bf16 at B=16 through the sessions a user
-    # builds, fp32 at B=2 with the graphs called directly (auto would serve
-    # the module's forward at B=2).
+    # builds (each captured: its warmup and capture move the counters, its
+    # replays do not), fp32 at B=2 with the graphs called directly (auto
+    # would serve the module's forward at B=2).
     x16 = noisy_tiles(16, size, bands, seed=300)
     cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
-    ref = session(16, False).predict(x16)
+    apply16 = session(16, False)
+    ref = apply16.predict(x16)
     after_apply = block_counts()
-    outs = {"hybrid": session(16, "auto").predict(x16),
-            "fastpath": session(16, True).predict(x16)}
+    folded = {"hybrid": session(16, "auto"), "fastpath": session(16, True)}
+    outs = {k: v.predict(x16) for k, v in folded.items()}
     after_folded = block_counts()
-    launches["resblock"] += after_folded[0]
-    result["bf16_b16"] = {"apply_launches": list(after_apply),
+    launches["resblock"] += device_launches(after_folded[0], apply16)
+    captured = {"apply": apply16.captured_launches,
+                **{k: v.captured_launches for k, v in folded.items()}}
+    result["bf16_b16"] = {"captured_launches": captured,
+                          "apply_launches": list(after_apply),
                           "folded_launches": [a - b for a, b in zip(after_folded, after_apply)],
                           "rel_rms_vs_apply": {k: rel_rms(v, ref) for k, v in outs.items()}}
-    if after_apply != (8, 0, 0) or after_folded != after_apply:
-        failures.append(f"hybrid bf16: block-kernel counters {after_apply} after the module's "
-                        f"forward, {after_folded} after the folded graphs")
+    # warmup and capture of the module's forward: 3 x 8 K1 launches counted
+    expect_apply = (8 * (CAPTURE_WARMUP + 1), 0, 0)
+    if (captured != {"apply": 8, "hybrid": 0, "fastpath": 0} or after_apply != expect_apply
+            or after_folded != after_apply):
+        failures.append(f"hybrid bf16: captured {captured}; block-kernel counters "
+                        f"{after_apply} after the module's forward, {after_folded} after the "
+                        f"folded graphs")
     for k, v in result["bf16_b16"]["rel_rms_vs_apply"].items():
         if not (v <= MAX_REL_RMS and np.isfinite(outs[k]).all()):
             failures.append(f"hybrid bf16 {k}: rel RMS {v} vs the module's forward")
+    del apply16, folded
+    torch.cuda.empty_cache()
 
     m32 = models["float32"]
     x2 = torch.from_numpy(noisy_tiles(2, size, bands, seed=301)).cuda()
@@ -1220,7 +1368,8 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
     del tree, outs32, ref32, m32, models["float32"]
     torch.cuda.empty_cache()
 
-    # Device p50 of the three graphs, in turns (there and back), each called
+    # Device p50 of the three graphs, each eager and captured as a session
+    # captures it (CapturedForward), in turns (there and back), each called
     # as the session calls it ("auto" itself serves the module's forward
     # below 8, so a session cannot be asked for the hybrid graph at B=1).
     before = cuda_decoder.launches
@@ -1234,32 +1383,47 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
         with torch.inference_mode():
             hybrid_w = fastpath.optimize_for_hybrid(model)
             fast_w = fastpath.optimize_for_inference(model, upsample="matmul")
+        forwards = {"apply": lambda x: model(x.to(model.dtype)).float(),
+                    "hybrid": lambda x: hybrid_fn(hybrid_w, x).float(),
+                    "fastpath": lambda x: fast_fn(fast_w, x).float()}
 
-        def run_apply():
-            with torch.inference_mode():
-                return model(xb.to(model.dtype)).float()
+        def inference(fn):
+            def run(x):
+                with torch.inference_mode():
+                    return fn(x)
+            return run
 
-        def run_hybrid():
-            with torch.inference_mode():
-                return hybrid_fn(hybrid_w, xb).float()
-
-        def run_fast():
-            with torch.inference_mode():
-                return fast_fn(fast_w, xb).float()
-
-        graphs = {"apply": run_apply, "hybrid": run_hybrid, "fastpath": run_fast}
-        turns: dict = {k: [] for k in graphs}
+        captured = {k: CapturedForward(inference(fn), xb) for k, fn in forwards.items()}
+        turns: dict = {k: {"eager": [], "graph": []} for k in forwards}
         for name in ("apply", "hybrid", "fastpath", "fastpath", "hybrid", "apply"):
-            turns[name].append(time_ms(torch, graphs[name], iters, warmup))
-        profiles = {k: device_profile(torch, fn, iters=2) for k, fn in graphs.items()}
-        times[f"b{b}"] = {
-            k: {"device_p50_ms_turns": v, "device_p50_ms": float(np.mean(v)),
-                "tiles_per_s": b * 1e3 / float(np.mean(v)),
-                "device_busy_ms": profiles[k]["device_busy_ms"],
-                "device_launches": profiles[k]["device_launches"],
-                "device_idle_share": 1 - profiles[k]["device_busy_ms"] / float(np.mean(v))}
-            for k, v in turns.items()}
-        del xb, hybrid_w, fast_w
+            turns[name]["eager"].append(
+                time_ms(torch, functools.partial(inference(forwards[name]), xb), iters, warmup))
+            turns[name]["graph"].append(time_ms(torch, captured[name], iters, warmup))
+        times[f"b{b}"] = {}
+        for name in forwards:
+            row = times[f"b{b}"][name] = {"captured_launches": captured[name].launches}
+            for form, fn in (("eager", functools.partial(inference(forwards[name]), xb)),
+                             ("graph", captured[name])):
+                p50 = float(np.mean(turns[name][form]))
+                prof = device_profile(torch, fn, iters=2)
+                row[form] = {"device_p50_ms_turns": turns[name][form], "device_p50_ms": p50,
+                             "tiles_per_s": b * 1e3 / p50,
+                             "device_busy_ms": prof["device_busy_ms"],
+                             "device_launches": prof["device_launches"],
+                             "device_idle_share": 1 - prof["device_busy_ms"] / p50}
+            if captured[name].launches != (8 if name == "apply" else 0):
+                failures.append(f"hybrid B={b} {name}: {captured[name].launches} block "
+                                f"kernel launches captured")
+            graph_out = captured[name]().clone()
+            eager_out = inference(forwards[name])(xb)
+            row["graph_equals_eager"] = bool(torch.equal(graph_out, eager_out))
+            if not row["graph_equals_eager"]:
+                failures.append(f"hybrid B={b} {name}: graph and eager differ, max abs "
+                                f"{float((graph_out - eager_out).abs().max())}")
+            del graph_out, eager_out
+        apply_graph = captured["apply"]
+        launches["resblock"] += (apply_graph.replays - 1) * apply_graph.launches
+        del xb, hybrid_w, fast_w, captured, apply_graph
         torch.cuda.empty_cache()
     launches["resblock"] += cuda_decoder.launches - before
     result["device_times"] = times
@@ -1423,7 +1587,7 @@ def main() -> int:
     any_dma_by_path = {"probe": probe["launches"]["any_dma"]}
     k3 = per_forward(probe["k3"])
     k3_probe = probe["k3"][-1]              # one launch at the probe's shape
-    k5_small, k5_large = probe["k5"]
+    k5_small, k5_large, k5_ragged = probe["k5"]
     # Serving corrupts nothing: K2 runs on the training and evaluate paths.
     for name, by_path, paths in (
             ("fused_residual_block", resblock_by_path, resblock_by_path),
@@ -1521,15 +1685,22 @@ def main() -> int:
         "launches": sum(any_dma_by_path.values()),
         "launches_by_path": any_dma_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in probe["k5"]),
-        "ms": k5_small["kernel_ms"],
-        "plain_ms": k5_small["plain_ms"],
+        "ms": k5_small["device_ms"],
+        "plain_ms": k5_small["plain_device_ms"],
         "bound_ms": k5_small["bound_ms"],
         "bound_by": k5_small["bound_by"],
-        "library_ms": k5_small["library_ms"],
+        "library_ms": k5_small["library_device_ms"],
         "library": "x * 2 (one elementwise kernel; also the plain version)",
+        "timing": f"ms, plain_ms, library_ms: device time per launch in a CUDA graph of "
+                  f"{GRAPH_LAUNCHES}; call_ms: CUDA events around one call (host included)",
+        "call_ms": k5_small["call_ms"], "library_call_ms": k5_small["library_call_ms"],
         "per": f"one launch on {k5_small['shape']} fp32 (the probe's slice)",
-        "large": {k: k5_large[k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by", "hbm_share_of_peak")},
+        "large": {k: k5_large[k] for k in (
+            "shape", "device_ms", "call_ms", "plain_device_ms",
+            "library_device_ms", "library_call_ms", "bound_ms", "bound_by",
+            "share_of_bound")},
+        "ragged": {k: k5_ragged[k] for k in ("shape", "device_ms",
+                                              "library_device_ms", "ok")},
     }]})
     if failures:
         for f in failures:

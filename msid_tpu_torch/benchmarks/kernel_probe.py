@@ -166,7 +166,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         xs = x[0, :ANY_DMA_ROWS].float().contiguous()            # [rows, W, C]
         got = cuda_probe.any_dma_scale(xs)
         ok = bool(torch.allclose(got, xs * 2.0, atol=1e-6))
-        how = ("an asynchronous bulk copy into shared memory under an mbarrier"
+        how = ("asynchronous bulk copies into shared memory and back under mbarriers"
                if device.type == "cuda" else "the plain version, no copy engine")
         print(f"any_dma: RAN, correct={ok} (torch {torch.__version__}, {where}): {how}")
         result.update(correct=ok, calls=1)

@@ -1,19 +1,25 @@
-"""Two source trees' kernels in turns on one card: K2 and K3 timed, and K1,
-K2 and K3's outputs compared between the trees.
+"""Two source trees' kernels in turns on one card: K1, K2, K3 and K5 timed,
+and K1, K2, K3 and K4's outputs compared between the trees.
 
     python -m msid_tpu_torch.benchmarks.kernel_turns --other DIR
 
 ``DIR`` holds another checkout of the repository (for example the parent
 commit, unpacked by ``git archive``). Each turn is a child process started
 in one tree with only that tree on its path: it builds the kernels there
-(the builds its ``chip_smoke.py`` lists, all started together), times each with
-CUDA events (median of ``ITERS`` calls after warmup) on seeded inputs, and
-saves a few outputs. The turns run other, this, this, other, so that a
-drift of the card's clock shows. The child calls only entry points that
-both trees have: ``apply_sensor_noise_kernel(seed, x, cfg)``,
+(the builds its ``chip_smoke.py`` lists, all started together), times each
+with CUDA events (median of ``ITERS`` calls after warmup) on seeded
+inputs, and saves a few outputs; K5 and ``x * 2`` also per call in a CUDA
+graph of 100 (device time) beside their call time. Both timings are this
+tree's ``chip_smoke.time_ms`` and ``chip_smoke.graph_ms``, loaded by path
+in every turn, so that both trees are timed alike. The turns run other,
+this, this, other, so that a drift of the card's clock shows. The child
+calls only entry points that both trees have:
+``apply_sensor_noise_kernel(seed, x, cfg)``,
 ``fused_residual_block_v2(x, w1, w2, aff)`` with HWIO weights (as the
-kernel probe calls it) and ``fused_residual_block(x, w1k, w2k, aff)`` with
-``prepare_bf16_weights`` operands (as the model calls K1).
+kernel probe calls it), ``fused_residual_block(x, w1k, w2k, aff)`` with
+``prepare_bf16_weights`` operands (as the model calls K1),
+``fused_residual_block`` on fp32 x with HWIO weights (K4) and
+``any_dma_scale(x)`` (K5).
 
 Prints one JSON line: the card, each turn's times, each tree's mean, and
 per kernel whether the trees' outputs are equal (and their largest
@@ -35,35 +41,34 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[2]
 ITERS = 20
 
-# The child's code: run as ``python -c`` in a tree, with argv [out_file].
+# The child's code: run as ``python -c`` in a tree, with argv [out_file,
+# iterations, the timing helpers' file].
 CHILD = r'''
-import json, sys, time
+import importlib.util, json, sys, time
 from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import chip_smoke
-from msid_tpu_torch.ops import _build, cuda_decoder, cuda_noise
+from msid_tpu_torch.ops import _build, cuda_decoder, cuda_noise, cuda_probe
 from msid_tpu_torch.ops.noise import NoiseConfig
 
 SHAPES = ((384, 24), (192, 48), (96, 96), (48, 192))
 ITERS = int(sys.argv[2])
+spec = importlib.util.spec_from_file_location("turn_timing", sys.argv[3])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
 t0 = time.perf_counter()
 with ThreadPoolExecutor(len(chip_smoke.KERNELS)) as pool:   # the tree's own builds
     list(pool.map(lambda k: _build.build(*k), chip_smoke.KERNELS))
 build_seconds = time.perf_counter() - t0
 
 
-def time_ms(fn, warmup=3):
-    for _ in range(warmup):
-        fn()
-    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-             for _ in range(ITERS)]
-    for start, end in pairs:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+def time_ms(fn):
+    return timing.time_ms(torch, fn, ITERS)
+
+
+def graph_ms(fn):
+    return timing.graph_ms(torch, fn)
 
 
 def block(c, s, b, seed):
@@ -89,6 +94,13 @@ outputs["k2_fp32_striped"] = kernel(
     12, x, NoiseConfig(enable_striping=True, stripe_prob=0.5)).cpu()
 outputs["k2_bf16"] = kernel(13, x.bfloat16(), cfg).cpu()
 
+for rows in (8, 3072):                            # K5 and x * 2: device and call time
+    x = torch.randn(rows, 192, 48, device="cuda", generator=g)
+    for name, fn in (("k5", lambda: cuda_probe.any_dma_scale(x)), ("x2", lambda: x * 2)):
+        times[f"{name}_device_{rows}x192x48"] = graph_ms(fn)
+        times[f"{name}_call_{rows}x192x48"] = time_ms(fn)
+    del x
+
 args = block(48, 192, 64, seed=0)                 # the kernel probe's block
 times["k3_64x192x192x48"] = time_ms(lambda: cuda_decoder.fused_residual_block_v2(*args))
 del args
@@ -106,6 +118,8 @@ for c, s in SHAPES:
                 x, w1, w2, aff).cpu()
             outputs[f"k1_1x{s}x{s}x{c}"] = cuda_decoder.fused_residual_block(
                 x, p1, p2, aff).cpu()
+            outputs[f"k4_1x{s}x{s}x{c}"] = cuda_decoder.fused_residual_block(
+                x.float(), w1.float(), w2.float(), aff).cpu()
 torch.cuda.synchronize()
 torch.save(outputs, sys.argv[1])
 print(json.dumps({"build_seconds": build_seconds, "times": times}))
@@ -114,8 +128,9 @@ print(json.dumps({"build_seconds": build_seconds, "times": times}))
 
 def run_turn(tree: Path, out: Path) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree))
-    proc = subprocess.run([sys.executable, "-c", CHILD, str(out), str(ITERS)], cwd=tree,
-                          env=env, capture_output=True, text=True, timeout=1200)
+    proc = subprocess.run([sys.executable, "-c", CHILD, str(out), str(ITERS),
+                           str(ROOT / "chip_smoke.py")], cwd=tree, env=env,
+                          capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"turn in {tree} failed (rc={proc.returncode}):\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")

@@ -22,11 +22,17 @@
 //
 // Bound on an H100 SXM (3.35 TB/s HBM): bytes, one read and one write of
 // the array: 2 * rows * n * 4 bytes. Several 32 KB CTAs share an SM, so
-// one CTA's load overlaps another's stores; there is no pipeline inside a
-// CTA (first version).
+// one CTA's load overlaps another's stores, and the card's scheduler
+// spreads the boxes; there is no pipeline inside a CTA. Persistent CTAs
+// walking a ring of boxes, stored back by TMA, were measured slower on an
+// H100 at every shape (PERF.md), so one box a CTA stays.
+// The host side (launch.cuh): x's map comes from a bounded table keyed by
+// every argument of its encoding, so a repeated call encodes nothing.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -34,26 +40,6 @@ constexpr int kThreads = 256;
 constexpr int kBoxCols = 256;   // a tensor map's box extent is at most 256
 constexpr int kBoxRows = 32;
 constexpr uint32_t kMaxSpins = 1u << 22;   // a lost copy traps instead of hanging
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -136,12 +122,11 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // x, out: [rows, n] fp32 contiguous, 16-byte aligned, n a multiple of 4.
-// Returns 0, the cudaError_t of the launch, -1 when libcuda exports no
-// cuTensorMapEncodeTiled, or 100000 + the CUresult of the encoding.
+// Returns 0, the cudaError_t of the launch, or 100000 + the CUresult of
+// the encoding (CUDA_ERROR_NOT_FOUND when libcuda exports no
+// cuTensorMapEncodeTiled).
 extern "C" int msid_any_dma_scale(const void* x, void* out, int rows, int n,
                                   void* stream) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return -1;
   const int box_cols = n < kBoxCols ? n : kBoxCols;
   const int box_rows = rows < kBoxRows ? rows : kBoxRows;
   const long long grid_y = ((long long)rows + box_rows - 1) / box_rows;
@@ -152,13 +137,12 @@ extern "C" int msid_any_dma_scale(const void* x, void* out, int rows, int n,
   const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(
-      &map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(x), dims, strides,
-      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = cached_map(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, x, dims, strides,
+                                  box, CU_TENSOR_MAP_SWIZZLE_NONE,
+                                  CU_TENSOR_MAP_L2_PROMOTION_NONE);
   if (res != CUDA_SUCCESS) return 100000 + (int)res;
 
+  // At most 32 KB + 136 bytes: within the 48 KB a launch may take unasked.
   const size_t smem = (size_t)box_rows * box_cols * sizeof(float) + 8 + 128;
   const dim3 grid((n + box_cols - 1) / box_cols, (unsigned)grid_y);
   any_dma_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

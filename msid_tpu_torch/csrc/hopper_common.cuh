@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -37,26 +39,6 @@ constexpr int kMaxSmem = 232448;
 constexpr uint32_t kMaxSpins = 1u << 24;    // a lost copy traps instead of hanging
 
 typedef __nv_bfloat16 bf16;
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // Channel chunk of the window: the widest swizzle span that divides C.
 template <int C>
@@ -636,17 +618,15 @@ __device__ __forceinline__ void resblock_cta(const CUtensorMap* xmap, const CUte
 }
 // The tensor map of K-major weights [9 * C rows (tap, output channel)]
 // [CP columns (input channel, padded to a multiple of 64)], in boxes of
-// [N rows][64 columns] under the 128-byte swizzle.
-CUresult weight_map(EncodeTiledFn encode, CUtensorMap* map, const void* w, int C, int CP,
-                    int N) {
+// [N rows][64 columns] under the 128-byte swizzle. Encoded once per
+// prepared operand and cluster size by the caller, who keeps it
+// (msid_resblock_weight_map).
+CUresult weight_map(CUtensorMap* map, const void* w, int C, int CP, int N) {
   const cuuint64_t dims[2] = {(cuuint64_t)CP, (cuuint64_t)9 * C};
   const cuuint64_t strides[1] = {(cuuint64_t)CP * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)N};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 // The __global__ function of one instantiation, as each kernel library
@@ -654,42 +634,39 @@ CUresult weight_map(EncodeTiledFn encode, CUtensorMap* map, const void* w, int C
 typedef void (*ResblockKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
                                const float*, bf16*, int, int, int, int, int);
 
-// Encode the three tensor maps and launch `kernel` (an instantiation
-// <C, NW, MW, NSPLIT> of resblock_cta) on clusters of G = C / N CTAs.
+// Launch `kernel` (an instantiation <C, NW, MW, NSPLIT> of resblock_cta) on
+// clusters of G = C / N CTAs. w1map and w2map are the weight maps the
+// caller keeps (host memory, any alignment); x's map comes from the
+// bounded table (cached_map), the shared-memory limit is set once.
 template <int C, int NW, int MW, bool NSPLIT>
-int launch_resblock(ResblockKernel kernel, EncodeTiledFn encode, const void* x,
-                    const void* w1k, const void* w2k, const void* aff, void* out, int B,
-                    int H, int W, int TH, int TW, int stages, cudaStream_t stream) {
+int launch_resblock(ResblockKernel kernel, const void* x, const void* w1map,
+                    const void* w2map, const void* aff, void* out, int B, int H, int W,
+                    int TH, int TW, int stages, cudaStream_t stream) {
   using K = Chunk<C>;
   constexpr int N = NSPLIT ? 2 * NW : NW;
   constexpr int G = C / N;
   constexpr int NQ = C / K::CK;
-  constexpr int CP = (C + kBK - 1) / kBK * kBK;
   const size_t smem = (size_t)NQ * chunk_bytes(TH, TW, K::CK) + (size_t)stages * N * 128 +
                       h_bytes(TH, TW, N) + 8 * (1 + 2 * kMaxStages) + 1024;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
 
-  CUtensorMap xmap, w1map, w2map;
+  CUtensorMap xmap, w1, w2;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
                                  (cuuint64_t)H * W * C * 2};
   const cuuint32_t box[4] = {(cuuint32_t)K::CK, (cuuint32_t)(TW + 4),
                              (cuuint32_t)(TH + 4), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = K::CK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : K::CK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
-  CUresult res = encode(
-      &xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (res == CUDA_SUCCESS) res = weight_map(encode, &w1map, w1k, C, CP, N);
-  if (res == CUDA_SUCCESS) res = weight_map(encode, &w2map, w2k, C, CP, N);
+  const CUresult res = cached_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims,
+                                  strides, box, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
   if (res != CUDA_SUCCESS) return 100000 + (int)res;
+  memcpy(&w1, w1map, sizeof(CUtensorMap));
+  memcpy(&w2, w2map, sizeof(CUtensorMap));
 
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((W + TW - 1) / TW * G, (H + TH - 1) / TH, B);
@@ -703,9 +680,8 @@ int launch_resblock(ResblockKernel kernel, EncodeTiledFn encode, const void* x,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, xmap, w1map, w2map,
-                           static_cast<const float*>(aff), static_cast<bf16*>(out), H, W,
-                           TH, TW, stages);
+  err = cudaLaunchKernelEx(&cfg, kernel, xmap, w1, w2, static_cast<const float*>(aff),
+                           static_cast<bf16*>(out), H, W, TH, TW, stages);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr uint32_t kM0 = 0xD2511F53u;
@@ -334,11 +336,8 @@ template <typename T>
 int launch(void (*kernel)(const T*, T*, float*, Params), const void* x, void* out,
            float* masks, const Params& p, int b, int chunks, cudaStream_t stream) {
   const size_t smem = table_bytes(p.c, p.wc);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(chunks, b), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), masks, p);
   return static_cast<int>(cudaGetLastError());

@@ -71,6 +71,13 @@
 // verified; only 3 k16 steps run, so no tensor-core work is wasted; the cost
 // is 16 zero columns of every staged weight tile (6 KB a tap instead of 4.5,
 // read from L2), which a 32-byte-swizzle descriptor would save.
+//
+// The host side (launch.cuh) costs a launch little, and every launch can
+// be captured into a CUDA graph: the two weight maps are encoded once per
+// prepared operand and cluster size and kept by the caller beside the
+// operand (msid_resblock_weight_map), x's map comes from a bounded table
+// keyed by every argument of its encoding, and the shared-memory limit of
+// each kernel is set once.
 #include "hopper_common.cuh"
 
 namespace {
@@ -97,19 +104,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // K1 (V2 false) or K3 (V2 true) of one instantiation.
 template <bool V2, int C, int NW, int MW, bool NSPLIT>
-int launch(EncodeTiledFn encode, const void* x, const void* w1k, const void* w2k,
-           const void* aff, void* out, int B, int H, int W, int TH, int TW, int stages,
-           cudaStream_t stream) {
+int launch(const void* x, const void* w1map, const void* w2map, const void* aff, void* out,
+           int B, int H, int W, int TH, int TW, int stages, cudaStream_t stream) {
   return launch_resblock<C, NW, MW, NSPLIT>(
       V2 ? &resblock_v2_kernel<C, NW, MW, NSPLIT> : &resblock_kernel<C, NW, MW, NSPLIT>,
-      encode, x, w1k, w2k, aff, out, B, H, W, TH, TW, stages, stream);
+      x, w1map, w2map, aff, out, B, H, W, TH, TW, stages, stream);
 }
 
 template <bool V2>
-int forward(const void* x, const void* w1k, const void* w2k, const void* aff, void* out,
+int forward(const void* x, const void* w1map, const void* w2map, const void* aff, void* out,
             int B, int H, int W, int C, int TH, int TW, int G, int stages, void* stream) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return -1;
   if (TH < 1 || TW < 1 || TH > 252 || TW > 252 || B < 1 || B > 65535 || stages < 2 ||
       stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
@@ -117,28 +121,28 @@ int forward(const void* x, const void* w1k, const void* w2k, const void* aff, vo
   switch (C * 10 + G) {
 #if !defined(MSID_C) || MSID_C == 48
     case 481:
-      return launch<V2, 48, 48, 4, false>(encode, x, w1k, w2k, aff, out, B, H, W, TH, TW,
+      return launch<V2, 48, 48, 4, false>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
                                           stages, s);
 #endif
 #if !defined(MSID_C) || MSID_C == 96
     case 961:
-      return launch<V2, 96, 96, 2, false>(encode, x, w1k, w2k, aff, out, B, H, W, TH, TW,
+      return launch<V2, 96, 96, 2, false>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
                                           stages, s);
 #endif
 #if !defined(MSID_C) || MSID_C == 192
     case 1921:
-      return launch<V2, 192, 96, 2, true>(encode, x, w1k, w2k, aff, out, B, H, W, TH, TW,
+      return launch<V2, 192, 96, 2, true>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
                                           stages, s);
     case 1922:
-      return launch<V2, 192, 96, 2, false>(encode, x, w1k, w2k, aff, out, B, H, W, TH, TW,
+      return launch<V2, 192, 96, 2, false>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
                                            stages, s);
 #endif
 #if !defined(MSID_C) || MSID_C == 384
     case 3842:
-      return launch<V2, 384, 96, 2, true>(encode, x, w1k, w2k, aff, out, B, H, W, TH, TW,
+      return launch<V2, 384, 96, 2, true>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
                                           stages, s);
     case 3844:
-      return launch<V2, 384, 48, 4, true>(encode, x, w1k, w2k, aff, out, B, H, W, TH, TW,
+      return launch<V2, 384, 48, 4, true>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
                                           stages, s);
 #endif
     default:
@@ -148,31 +152,46 @@ int forward(const void* x, const void* w1k, const void* w2k, const void* aff, vo
 
 }  // namespace
 
-// x, out: [B,H,W,C] bf16 contiguous, 16-byte aligned; w1k, w2k: K-major
-// weights [9 * C][CP] bf16, row tap * C + output channel, column input
-// channel, CP = C rounded up to a multiple of 64 with zeros past C (the
-// caller prepares them once: ops/cuda_decoder.py: prepare_bf16_weights);
-// aff: [4][C] fp32. (TH, TW) is the output tile of one cluster of G CTAs
-// (each at most 252), `stages` (2..4) the depth of the weight ring; the
-// caller chooses them (K1: bf16_tiling; K3: v2_tile, around the caller's
-// tile). Supported (C, G): (48, 1), (96, 1), (192, 1), (192, 2), (384, 2),
-// (384, 4); a build with -DMSID_C=<width> holds that width's kernels only
-// (one library per width compiles in a quarter of the time, and the four
-// compile side by side). Returns 0, the cudaError_t of the launch
-// (cudaErrorInvalidValue for a geometry the kernel is not built for or that
-// does not fit shared memory), -1 when libcuda exports no
-// cuTensorMapEncodeTiled, or 100000 + the CUresult of an encoding.
-extern "C" int msid_resblock_forward(const void* x, const void* w1k, const void* w2k,
+// The tensor map K1 and K3 read the K-major weights wk ([9 * C][CP] bf16,
+// row tap * C + output channel, column input channel, CP = C rounded up
+// to a multiple of 64 with zeros past C; ops/cuda_decoder.py:
+// prepare_bf16_weights) through, for clusters of G CTAs (boxes of C / G
+// rows): written to `map` (CUtensorMap's 128 bytes, any alignment). The
+// caller encodes it once per operand and cluster size and keeps it.
+// Returns 0 or 100000 + the CUresult of the encoding.
+extern "C" int msid_resblock_weight_map(const void* wk, int C, int G, void* map) {
+  if (C < 1 || G < 1 || C % G != 0 || C / G > 256 || C % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap encoded;
+  const CUresult res = weight_map(&encoded, wk, C, (C + kBK - 1) / kBK * kBK, C / G);
+  if (res != CUDA_SUCCESS) return 100000 + (int)res;
+  memcpy(map, &encoded, sizeof(CUtensorMap));
+  return 0;
+}
+
+// x, out: [B,H,W,C] bf16 contiguous, 16-byte aligned; w1map, w2map: the
+// weight maps msid_resblock_weight_map wrote for this C and G; aff: [4][C]
+// fp32. (TH, TW) is the output tile of one cluster of G CTAs (each at most
+// 252), `stages` (2..4) the depth of the weight ring; the caller chooses
+// them (K1: bf16_tiling; K3: v2_tile, around the caller's tile). Supported
+// (C, G): (48, 1), (96, 1), (192, 1), (192, 2), (384, 2), (384, 4); a build
+// with -DMSID_C=<width> holds that width's kernels only (one library per
+// width compiles in a quarter of the time, and the four compile side by
+// side). Returns 0, the cudaError_t of the launch (cudaErrorInvalidValue
+// for a geometry the kernel is not built for or that does not fit shared
+// memory), or 100000 + the CUresult of x's encoding (CUDA_ERROR_NOT_FOUND
+// when libcuda exports no cuTensorMapEncodeTiled).
+extern "C" int msid_resblock_forward(const void* x, const void* w1map, const void* w2map,
                                      const void* aff, void* out, int B, int H, int W,
                                      int C, int TH, int TW, int G, int stages,
                                      void* stream) {
-  return forward<false>(x, w1k, w2k, aff, out, B, H, W, C, TH, TW, G, stages, stream);
+  return forward<false>(x, w1map, w2map, aff, out, B, H, W, C, TH, TW, G, stages, stream);
 }
 
 // K3: the same arguments and geometries.
-extern "C" int msid_resblock_v2_forward(const void* x, const void* w1k, const void* w2k,
+extern "C" int msid_resblock_v2_forward(const void* x, const void* w1map, const void* w2map,
                                         const void* aff, void* out, int B, int H, int W,
                                         int C, int TH, int TW, int G, int stages,
                                         void* stream) {
-  return forward<true>(x, w1k, w2k, aff, out, B, H, W, C, TH, TW, G, stages, stream);
+  return forward<true>(x, w1map, w2map, aff, out, B, H, W, C, TH, TW, G, stages, stream);
 }

@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -514,8 +516,7 @@ cudaError_t launch(const float* x, const float* w1, const float* w2,
   const size_t smem = Geometry(TH, TW, NC, KC).smem_floats() * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = resblock_fp32_kernel<NT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((W + TW - 1) / TW * G, (H + TH - 1) / TH, B);
@@ -537,9 +538,7 @@ cudaError_t launch(const float* x, const float* w1, const float* w2,
 template <int NT>
 int active_clusters(int G, int smem) {
   auto kernel = resblock_fp32_kernel<NT>;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-      cudaSuccess)
-    return 0;
+  if (smem_limit_once(reinterpret_cast<const void*>(kernel), smem) != cudaSuccess) return 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(G * 64, 1, 1);
   cfg.blockDim = dim3(kThreads);

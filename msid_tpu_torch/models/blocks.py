@@ -107,6 +107,16 @@ class ResidualBlock(nn.Module):
             self._prepared = None               # training rewrites every source
         return super().train(mode)
 
+    def __getstate__(self) -> dict:
+        # A copy (copy.deepcopy, pickling) prepares its own operands.
+        return {**super().__getstate__(), "_prepared": None}
+
+    @property
+    def kept_operands(self) -> tuple | None:
+        """The ``(w1, w2, affines)`` that ``prepared_operands`` last made and
+        keeps, or None."""
+        return None if self._prepared is None else self._prepared[1]
+
     def prepared_operands(self, dtype: torch.dtype, device: torch.device) -> tuple:
         """``(w1, w2, affines)`` as ``fused_residual_block`` takes them for an
         x of ``dtype`` on ``device``: the fp32 ``[4, C]`` affine of the two

@@ -10,11 +10,18 @@ unchanged one is loaded as it is. A
 source with many template instantiations is built once per define (K1:
 ``MSID_C=<width>``), each build holding a part of them. Nothing here runs
 at import time.
+
+Every wrapper launches through the same path: ``bind`` looks an entry
+point up once per library and sets its ``argtypes`` and ``restype`` then,
+and ``call`` passes the current stream, entering the tensor's device only
+when it is not the current one, and counts the launch in ``launches``.
+After the first call neither takes a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -23,6 +30,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -35,6 +44,10 @@ _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _libraries: dict[tuple, ctypes.CDLL] = {}
+_bound: dict[tuple, ctypes._CFuncPtr] = {}
+# Launches that ``call`` made in this process, of every kernel together:
+# what a CUDA graph's capture recorded (each wrapper also counts its own).
+launches = 0
 
 
 def nvcc_path() -> str:
@@ -103,10 +116,66 @@ def build(name: str, defines: tuple[str, ...] = ()) -> Path:
 
 
 def load_library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process (a
+    loaded library is returned without taking the lock)."""
+    lib = _libraries.get((name, defines))
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libraries.get((name, defines))
         if lib is None:
             lib = ctypes.CDLL(str(build(name, defines)))
             _libraries[(name, defines)] = lib
         return lib
+
+
+def bind(name: str, entry: str, argtypes: list, restype=ctypes.c_int,
+         defines: tuple[str, ...] = ()) -> ctypes._CFuncPtr:
+    """The C function ``entry`` of ``csrc/<name>.cu``'s build with
+    ``defines``, its ``argtypes`` and ``restype`` set when it is first
+    looked up and never again; later calls are one dictionary lookup."""
+    key = (name, defines, entry)
+    fn = _bound.get(key)
+    if fn is not None:
+        return fn
+    lib = load_library(name, defines)
+    with _lock:
+        fn = _bound.get(key)
+        if fn is None:
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            _bound[key] = fn
+        return fn
+
+
+def call(fn: ctypes._CFuncPtr, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with the current CUDA stream of ``device``, the
+    last argument of every launching entry point; ``device`` is entered
+    only when it is not the current device. Returns what ``fn`` returns,
+    and counts a launch in ``launches`` when that is 0 (success).
+    The device and the stream come from torch's raw getters (what its own
+    generated launchers call): one C call each, where
+    ``torch.cuda.current_stream`` builds a ``Stream`` object per call."""
+    global launches
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err == 0:
+        launches += 1
+    return err
+
+
+@functools.lru_cache(maxsize=None)
+def multiprocessors(device: torch.device) -> int:
+    """The SM count of a CUDA device, asked of CUDA once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tensor_map_encodes(name: str, defines: tuple[str, ...] = ()) -> int:
+    """Tensor maps the build of ``csrc/<name>.cu`` with ``defines`` has
+    encoded in this process (its ``msid_tensor_map_encodes``)."""
+    return bind(name, "msid_tensor_map_encodes", [], ctypes.c_longlong, defines)()

@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
+from msid_tpu_torch.ops import _build
+
 # Channel widths K1 is instantiated for (the flagship decoder's). K4 takes
 # any width.
 SUPPORTED_WIDTHS = (48, 96, 192, 384)
@@ -86,9 +88,14 @@ BF16_VARIANTS = {(48, 1): (48, 4, False), (96, 1): (96, 2, False),
                  (192, 1): (96, 2, True), (192, 2): (96, 2, False),
                  (384, 2): (96, 2, True), (384, 4): (48, 4, True)}
 BF16_BK = 64            # input channels of one staged weight tile (128 bytes)
+TENSOR_MAP_BYTES = 128  # sizeof(CUtensorMap)
 BF16_MAX_STAGES = 4
 BF16_MIN_STAGES = 2
 BF16_MAX_TILE = 252     # a tensor map's box extent is at most 256 = tile + 4
+# The C entry points' argument types, bound once per library (_build.bind).
+_BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_WEIGHT_MAP_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_FP32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 # Cost model of bf16_candidates, in m64 x 96-channel wgmma steps over all of K.
 BF16_PASS_COST = 0.3
 BF16_WINDOW_COST = 0.5 / 100e3      # per byte of window a CTA waits for
@@ -431,11 +438,32 @@ def _fused_residual_block_bf16(x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Te
     b, h, w, c = x.shape
     _check_width(c)
     if geometry is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        geometry = bf16_tiling(c, h, w, b, sms)
+        geometry = bf16_tiling(c, h, w, b, _build.multiprocessors(x.device))
     out = _launch_bf16("msid_resblock_forward", x, w1k, w2k, affines, geometry)
     launches += 1
     return out
+
+
+def weight_map(wk: torch.Tensor, g: int) -> ctypes.Array:
+    """The tensor map K1 and K3 read the K-major operand ``wk`` through in
+    clusters of ``g`` CTAs (``msid_resblock_weight_map``): encoded on first
+    use and kept on the operand itself, per (address, g), so the operand
+    ``ResidualBlock.prepared_operands`` or ``v2_prepared_weights`` keeps
+    carries its maps for as long as it lives, and a launch encodes only
+    x's map (found again in the kernel library's bounded table)."""
+    c = wk.shape[0] // 9
+    maps = wk.__dict__.setdefault("_tensor_maps", {})
+    key = (wk.data_ptr(), g)
+    found = maps.get(key)
+    if found is None:
+        found = ctypes.create_string_buffer(TENSOR_MAP_BYTES)
+        fn = _build.bind("resblock", "msid_resblock_weight_map", _WEIGHT_MAP_ARGTYPES,
+                         defines=bf16_defines(c))
+        err = fn(wk.data_ptr(), c, g, found)
+        if err != 0:
+            raise RuntimeError(f"resblock weight map failed: error {err}")
+        maps[key] = found
+    return found
 
 
 def _launch_bf16(entry: str, x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tensor,
@@ -454,16 +482,10 @@ def _launch_bf16(entry: str, x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tens
     for name, t in (("x", x), ("w1", w1k), ("w2", w2k)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    from msid_tpu_torch.ops._build import load_library
-
-    fn = getattr(load_library("resblock", bf16_defines(c)), entry)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.bind("resblock", entry, _BF16_ARGTYPES, defines=bf16_defines(c))
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1k.data_ptr(), w2k.data_ptr(), affines.data_ptr(),
-                 out.data_ptr(), b, h, w, c, th, tw, g, stages, stream)
+    err = _build.call(fn, x.device, x.data_ptr(), weight_map(w1k, g), weight_map(w2k, g),
+                      affines.data_ptr(), out.data_ptr(), b, h, w, c, th, tw, g, stages)
     if err != 0:
         raise RuntimeError(f"resblock kernel launch failed ({entry}): error {err}")
     return out
@@ -480,25 +502,18 @@ def _fused_residual_block_fp32(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tens
     _check("x", x, (b, h, w, c), torch.float32, x.device)
     _check("affines", affines, (4, c), torch.float32, x.device)
     _check_weights(w1, w2, c, torch.float32, x.device)
-    from msid_tpu_torch.ops._build import load_library
-
-    fn = load_library("resblock_fp32").msid_resblock_fp32_forward
+    fn = _build.bind("resblock_fp32", "msid_resblock_fp32_forward", _FP32_ARGTYPES)
     w1c, w2c = w1.contiguous(), w2.contiguous()
     out = torch.empty_like(x)
     if geometry is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        geometry = fp32_tiling(c, h, w, b, sms)
+        geometry = fp32_tiling(c, h, w, b, _build.multiprocessors(x.device))
     th, tw, nt, nu, g, kc = geometry
     fp32_check_tile(c, th, tw, nt, nu, g, kc)
     for name, t in (("x", x), ("w1", w1c), ("w2", w2c), ("affines", affines)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), affines.data_ptr(),
-                 out.data_ptr(), b, h, w, c, th, tw, nt, nu, g, kc, stream)
+    err = _build.call(fn, x.device, x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(),
+                      affines.data_ptr(), out.data_ptr(), b, h, w, c, th, tw, nt, nu, g, kc)
     if err != 0:
         raise RuntimeError(f"resblock_fp32 kernel launch failed: cudaError {err}")
     launches_fp32 += 1
@@ -596,8 +611,7 @@ def fused_residual_block_v2(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC [B,H,W,C], got shape {tuple(x.shape)}")
     b, h, w, c = x.shape
-    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
-           if x.device.type == "cuda" else H100_SMS)
+    sms = _build.multiprocessors(x.device) if x.device.type == "cuda" else H100_SMS
     geometry = v2_tile(c, h, w, b, row_block, col_block, sms)
     if x.device.type == "cpu":
         return fused_residual_block_v2_reference(x, w1, w2, affines)

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from msid_tpu_torch.ops import _build
 from msid_tpu_torch.ops.noise import CLAMP_HI, CLAMP_LO, NoiseConfig
 
 # Kernel launches so far in this process; chip_smoke.py zeroes it before
@@ -38,6 +39,8 @@ _MASK32 = 0xFFFFFFFF
 _THREADS = 256
 _TARGET_CTAS = 1056          # 8 per SM of an H100's 132
 _SMEM_LIMIT = 227 * 1024     # bytes a CTA may use on Hopper
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+             + [ctypes.c_uint] * 2 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
 
 
 def seed_key(seed: int) -> tuple[int, int]:
@@ -201,21 +204,13 @@ def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
     vec = n % 4 == 0 and x.data_ptr() % align == 0 and out.data_ptr() % align == 0
     chunks, per_cta = launch_shape(bsz, n)
 
-    from msid_tpu_torch.ops._build import load_library
-
-    fn = load_library("noise").msid_noise_forward
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                   + [ctypes.c_uint] * 2 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(),
-                 masks.data_ptr() if masks is not None else None,
-                 0 if x.dtype == torch.float32 else 1, int(vec), bsz, n, w * c, c,
-                 chunks, per_cta, k0, k1,
-                 cfg.dead_band_prob, cfg.speckle_sigma, cfg.gaussian_sigma ** 2,
-                 cfg.thermal_scale ** 2, stripe_probability(cfg), cfg.stripe_sigma,
-                 stream)
+    fn = _build.bind("noise", "msid_noise_forward", _ARGTYPES)
+    err = _build.call(fn, x.device, x.data_ptr(), out.data_ptr(),
+                      masks.data_ptr() if masks is not None else None,
+                      0 if x.dtype == torch.float32 else 1, int(vec), bsz, n, w * c, c,
+                      chunks, per_cta, k0, k1,
+                      cfg.dead_band_prob, cfg.speckle_sigma, cfg.gaussian_sigma ** 2,
+                      cfg.thermal_scale ** 2, stripe_probability(cfg), cfg.stripe_sigma)
     if err != 0:
         raise RuntimeError(f"noise kernel launch failed: cudaError {err}")
     launches += 1

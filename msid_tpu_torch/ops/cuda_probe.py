@@ -4,9 +4,10 @@ Counterpart of the ``any_dma`` variant of ``benchmarks/pallas_probe.py``:
 copy a ``[rows, W, C]`` fp32 array into on-chip memory with an explicit
 asynchronous copy and its completion barrier, then write ``x * 2``. On the
 TPU it gated the halo-window-by-DMA design of the fused ResidualBlock; here
-it gates the TMA window load of K3 (``csrc/resblock.cu``): a tensor map
+it gates the TMA path of K1 and K3 (``csrc/resblock.cu``): a tensor map
 from ``cuTensorMapEncodeTiled``, ``cp.async.bulk.tensor`` and an
-``mbarrier`` (``csrc/any_dma.cu``).
+``mbarrier``, one box of at most 32 x 256 values a CTA
+(``csrc/any_dma.cu``).
 
 ``any_dma_scale`` launches the kernel on a CUDA tensor or raises; a CPU
 tensor takes the plain version ``any_dma_scale_reference``.
@@ -18,9 +19,13 @@ import ctypes
 
 import torch
 
+from msid_tpu_torch.ops import _build
+
 # Kernel launches so far in this process; chip_smoke.py zeroes the count
 # before driving a path and reads it after.
 launches_any_dma = 0
+
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def any_dma_scale_reference(x: torch.Tensor) -> torch.Tensor:
@@ -51,15 +56,8 @@ def any_dma_scale(x: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16 != 0:
         raise ValueError("x must be 16-byte aligned")
     out = torch.empty_like(x)
-
-    from msid_tpu_torch.ops._build import load_library
-
-    fn = load_library("any_dma").msid_any_dma_scale
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), rows, n, stream)
+    fn = _build.bind("any_dma", "msid_any_dma_scale", _ARGTYPES)
+    err = _build.call(fn, x.device, x.data_ptr(), out.data_ptr(), rows, n)
     if err != 0:
         raise RuntimeError(f"any_dma kernel launch failed: error {err}")
     launches_any_dma += 1

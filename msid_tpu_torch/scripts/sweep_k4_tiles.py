@@ -107,10 +107,10 @@ def main(argv=None) -> int:
     lines = []
     if args.kernel in ("k4", "both"):
         # What FP32_ACTIVE_CLUSTERS holds: clusters of g CTAs the card runs at once.
-        from msid_tpu_torch.ops._build import load_library
+        from msid_tpu_torch.ops import _build
 
-        fn = load_library("resblock_fp32").msid_resblock_fp32_active_clusters
-        fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+        fn = _build.bind("resblock_fp32", "msid_resblock_fp32_active_clusters",
+                         [ctypes.c_int] * 2)
         print(json.dumps({"kernel": "k4", "smem_bytes": 200000, "active_clusters": {
             g: fn(g, 200000) for g in (1, 2, 4, 8)}, "assumed": cd.FP32_ACTIVE_CLUSTERS}),
             flush=True)

@@ -2,7 +2,11 @@
 the source and every local header it includes, so an edited header is
 rebuilt; and the SASS counter's parsing of a ``cuobjdump -sass`` listing."""
 
+import contextlib
+import ctypes
+
 import pytest
+import torch
 
 from msid_tpu_torch.benchmarks import sass_count
 from msid_tpu_torch.ops import _build
@@ -27,15 +31,19 @@ def test_library_path_follows_every_included_header(tmp_path, monkeypatch):
 
 def test_the_bf16_resblocks_share_one_header():
     """K1 and K3 are two kernels of one source, built once per width, on the
-    device code of one header; K2 includes none."""
+    device code of one header; every source launches through the one host
+    header ``launch.cuh``, and K2 includes nothing else."""
     header = _build.CSRC / "hopper_common.cuh"
-    assert _build.sources("resblock") == [_build.CSRC / "resblock.cu", header]
+    launch = _build.CSRC / "launch.cuh"
+    assert _build.sources("resblock") == [_build.CSRC / "resblock.cu", header, launch]
     source = (_build.CSRC / "resblock.cu").read_text()
     for name in ("resblock_kernel", "resblock_v2_kernel", "msid_resblock_forward",
                  "msid_resblock_v2_forward"):
         assert f" {name}(" in source or f"\n    {name}(" in source
     assert not (_build.CSRC / "resblock_v2.cu").exists()
-    assert _build.sources("noise") == [_build.CSRC / "noise.cu"]
+    assert _build.sources("noise") == [_build.CSRC / "noise.cu", launch]
+    for name in ("resblock_fp32", "any_dma"):
+        assert _build.sources(name) == [_build.CSRC / f"{name}.cu", launch]
 
 
 def test_sass_count_parses_a_listing():
@@ -101,3 +109,84 @@ def test_sass_loops_count_one_pass_of_each_loop_and_find_the_element_loops():
     assert found == {"plain": loops[0], "gated": loops[2]}
     with pytest.raises(ValueError, match="two element loops"):
         sass_count.element_loops(loops[:2])
+
+
+class _FakeEntry:
+    """A C function as ctypes gives it, counting assignments of its types."""
+
+    def __init__(self):
+        self.__dict__["sets"] = []
+
+    def __setattr__(self, name, value):
+        self.sets.append(name)
+        self.__dict__[name] = value
+
+    def __call__(self, *args):
+        return len(args)
+
+
+def test_bind_sets_an_entry_points_types_once(monkeypatch):
+    """An entry point is looked up and typed once per library and entry;
+    later binds are a dictionary lookup that loads nothing."""
+    entry, loads = _FakeEntry(), []
+
+    class Library:
+        msid_entry = entry
+
+    monkeypatch.setattr(_build, "_bound", {})
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, defines=(): loads.append((name, defines)) or Library)
+    types = [ctypes.c_void_p, ctypes.c_int]
+    for _ in range(3):
+        fn = _build.bind("k", "msid_entry", types, defines=("MSID_C=48",))
+    assert fn is entry and fn.argtypes == types and fn.restype is ctypes.c_int
+    assert entry.sets == ["argtypes", "restype"] and loads == [("k", ("MSID_C=48",))]
+    other = _build.bind("k", "msid_entry", types, ctypes.c_longlong)   # another build
+    assert other is entry and len(loads) == 2 and entry.restype is ctypes.c_longlong
+
+
+def test_a_loaded_library_is_returned_without_the_lock(monkeypatch):
+    class NoLock:
+        def __enter__(self):
+            raise AssertionError("the lock was taken for a loaded library")
+
+        def __exit__(self, *exc):
+            return False
+
+    lib = object()
+    monkeypatch.setattr(_build, "_libraries", {("k", ()): lib})
+    monkeypatch.setattr(_build, "_lock", NoLock())
+    assert _build.load_library("k") is lib
+
+
+@pytest.mark.parametrize("current,entered", [(0, False), (1, True)])
+def test_call_passes_the_stream_and_enters_only_another_device(monkeypatch, current,
+                                                               entered):
+    """The stream of the tensor's device goes last; the device is entered
+    only when it is not the current one."""
+    seen = []
+
+    @contextlib.contextmanager
+    def device(d):
+        seen.append(d)
+        yield
+
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: current, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1234 + index, raising=False)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    target = torch.device("cuda", 0)
+    assert _build.call(lambda *a: a, target, 7, 8) == (7, 8, 1234)
+    assert seen == ([target] if entered else [])
+
+
+@pytest.mark.parametrize("rc,counted", [(0, 1), (700, 0)])
+def test_call_counts_a_launch_where_the_entry_point_succeeded(monkeypatch, rc, counted):
+    """``launches`` moves once per launch that returned 0, for every kernel
+    alike (what a graph capture counts), and not for a refused one."""
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1,
+                        raising=False)
+    monkeypatch.setattr(_build, "launches", 5)
+    assert _build.call(lambda *a: rc, torch.device("cuda", 0), 7) == rc
+    assert _build.launches == 5 + counted

@@ -14,7 +14,7 @@ import torch
 
 from msid_tpu_torch.models.blocks import ResidualBlock
 from msid_tpu_torch.models.restoration import exact_fp32
-from msid_tpu_torch.ops import cuda_decoder, cuda_probe
+from msid_tpu_torch.ops import _build, cuda_decoder, cuda_probe
 from msid_tpu_torch.ops.cuda_decoder import (
     fold_batchnorm,
     fused_residual_block,
@@ -146,10 +146,12 @@ def test_fp32_eval_block_launches_k4_on_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 192, 48), (5, 7, 12), (33, 50, 6), (70, 1, 1028)])
+@pytest.mark.parametrize("shape", [(8, 192, 48), (5, 7, 12), (33, 50, 6), (70, 1, 1028),
+                                   (3072, 192, 48), (1000, 193, 12)])
 def test_k5_equals_scale_on_the_card(shape):
-    """Whole boxes, a box smaller than the array, and ragged rows and
-    columns: the copy engine's zero fill past the edge is never stored."""
+    """Whole boxes, a box smaller than the array, ragged rows and columns,
+    and the large array of 3456 boxes: the copy engine's zero fill past the
+    edge is never stored."""
     need_card()
     x = torch.from_numpy(np.random.default_rng(shape[0]).normal(0, 1, shape)
                          .astype(np.float32)).cuda()
@@ -240,3 +242,172 @@ def test_fp32_session_is_fp32_with_the_flags_at_torch_defaults_on_the_card():
         got = InferenceSession(model.cuda(), batch_size=2, image_size=32).predict(x)
         assert torch.backends.cudnn.allow_tf32
     assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k5_encodes_each_map_once_on_the_card():
+    """Repeated calls on one tensor encode no map after the first (x's, kept
+    in the library's table); a tensor of another shape does."""
+    need_card()
+    x = torch.randn(8, 192, 48, device="cuda")
+    cuda_probe.any_dma_scale(x)
+    torch.cuda.synchronize()
+    first = _build.tensor_map_encodes("any_dma")
+    for _ in range(5):
+        cuda_probe.any_dma_scale(x)             # out freed each time: the same address
+    torch.cuda.synchronize()
+    assert _build.tensor_map_encodes("any_dma") == first
+    y = torch.randn(16, 192, 48, device="cuda")
+    assert torch.equal(cuda_probe.any_dma_scale(y), y * 2)
+    assert _build.tensor_map_encodes("any_dma") > first
+
+
+@pytest.mark.cuda
+def test_k1_encodes_weight_maps_once_per_operand_on_the_card():
+    """The two weight maps are encoded once per prepared operand and cluster
+    size and kept on the operand; x's map once per x; so a repeated launch
+    encodes nothing, and its output is bit-equal to the first."""
+    need_card()
+    args = [a if i == 3 else a.bfloat16() for i, a in enumerate(block_inputs((2, 24, 24, 96),
+                                                                            seed=4))]
+    p1, p2 = (cuda_decoder.prepare_bf16_weights(w) for w in args[1:3])
+    defines = cuda_decoder.bf16_defines(96)
+    got = fused_residual_block(args[0], p1, p2, args[3])
+    torch.cuda.synchronize()
+    encodes = _build.tensor_map_encodes("resblock", defines)
+    assert len(p1._tensor_maps) == len(p2._tensor_maps) == 1
+    for _ in range(3):
+        again = fused_residual_block(args[0], p1, p2, args[3])
+    torch.cuda.synchronize()
+    assert _build.tensor_map_encodes("resblock", defines) == encodes
+    assert torch.equal(got, again)
+
+
+def flagship_like(dtype, decoder_arch="unet_skip", fill=True):
+    """The flagship's layers at a tiny size (K1's widths in bf16)."""
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+
+    torch.manual_seed(0)
+    model = SatMAERestoration(image_size=32, patch_size=16, embed_dim=64, depth=2,
+                              num_heads=4, decoder_arch=decoder_arch,
+                              decoder_channels=(96, 48, 48, 48),
+                              residual_output=fill, input_fill=fill).eval()
+    for m in model.modules():
+        if hasattr(m, "running_var"):
+            m.running_mean.normal_(0, 0.1)
+            m.running_var.uniform_(0.5, 2.0)
+    return model.set_compute_dtype(dtype).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,tta,optimize,blocks", [
+    (torch.bfloat16, 1, 1, "auto", 8), (torch.bfloat16, 16, 1, False, 8),
+    (torch.float32, 1, 1, "auto", 8), (torch.float32, 16, 1, False, 8),
+    (torch.bfloat16, 1, 8, "auto", 64), (torch.bfloat16, 16, 1, "hybrid", 0),
+    (torch.bfloat16, 1, 1, True, 0),
+])
+def test_session_graph_replays_what_eager_computes_on_the_card(dtype, b, tta, optimize,
+                                                               blocks):
+    """A session on the card is a captured CUDA graph that replays the
+    kernels of its eager forward, in order: bit-equal outputs; the block
+    kernel launches captured; predict's result a copy, not the graph's
+    buffer. The folded graphs run on unet_light (no fill stage)."""
+    need_card()
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    folded = optimize in ("hybrid", True)
+    model = flagship_like(dtype, "unet_light" if folded else "unet_skip", fill=not folded)
+    session = InferenceSession(model, batch_size=b, image_size=32, tta=tta,
+                               optimize="auto" if optimize == "hybrid" else optimize)
+    assert session.compiled == "cuda_graph"
+    assert session.captured_launches == blocks
+    assert session.optimized == {"hybrid": "hybrid", True: "fastpath"}.get(optimize, False)
+    x = np.random.default_rng(b).normal(0, 0.5, (b, 32, 32, 13)).astype(np.float32)
+    xd = torch.from_numpy(x).cuda()
+    before = session.replays
+    got = session.predict(x)
+    again = session.forward(xd)
+    want = session.forward_eager(xd)
+    torch.cuda.synchronize()
+    assert session.replays == before + 2
+    assert torch.equal(again, want)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    session.predict(np.zeros_like(x))             # the next replay leaves got alone
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("donate", [False, True])
+def test_session_benchmark_replays_with_and_without_donation_on_the_card(donate):
+    need_card()
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    session = InferenceSession(flagship_like(torch.bfloat16), batch_size=2, image_size=32,
+                               donate_input=donate)
+    before = session.replays
+    result = session.benchmark(warmup_runs=1, benchmark_iterations=3)
+    assert session.donate_input is donate and session.replays == before + 4
+    assert result["p50_ms"] > 0 and result["fps"] == 1e3 / result["mean_ms"]
+    assert session.benchmark(warmup_runs=0, benchmark_iterations=2,
+                             pipelined=True)["p50_ms"] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_session_keeps_what_its_graph_reads_on_the_card(dtype):
+    """The graph reads the blocks' prepared operands (K1's or K4's) by
+    address. Train mode drops the blocks' own references to them, memory of
+    their sizes is then taken and filled with NaN, an eager forward
+    prepares new operands, and the caller's model is written and run: every
+    later predict is still bit-equal to the first."""
+    need_card()
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    model = flagship_like(dtype)
+    session = InferenceSession(model, batch_size=2, image_size=32)
+    x = np.random.default_rng(5).normal(0, 0.5, (2, 32, 32, 13)).astype(np.float32)
+    xd = torch.from_numpy(x).cuda()
+    first = session.predict(x)
+    blocks = [m for m in session.model.modules() if isinstance(m, ResidualBlock)]
+    sizes = [t.nbytes for m in blocks for t in m.kept_operands]
+    assert len(sizes) == 3 * 8
+    session.model.train()
+    session.model.eval()
+    junk = [torch.full((n // 4,), float("nan"), device="cuda") for n in sizes for _ in range(4)]
+    with torch.inference_mode():
+        session.model(xd)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.5)
+        model.train()
+        model.eval()
+        model(xd)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(session.predict(x), first)
+    assert torch.equal(session.forward(xd).cpu(), torch.from_numpy(first))
+    del junk
+
+
+class _HostRead(torch.nn.Module):
+    """A forward that reads a value to the host: it cannot be captured."""
+
+    def __init__(self):
+        super().__init__()
+        self.scale = torch.nn.Parameter(torch.ones(1))
+
+    def forward(self, x):
+        return x * self.scale if float(x.sum()) >= 0 else -x
+
+
+@pytest.mark.cuda
+def test_session_capture_failure_raises_on_the_card():
+    """Last in the file: a forward with a host read fails its capture, and
+    the session raises with the reason instead of serving eagerly."""
+    need_card()
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        InferenceSession(_HostRead(), batch_size=1, image_size=8, num_bands=2)
+    torch.cuda.synchronize()
+    x = torch.ones(3, device="cuda")
+    assert float((x * 2).sum()) == 6.0                # the card still works

@@ -54,6 +54,55 @@ def test_predict_rejects_bad_input(session, shape, match):
         session.predict(np.zeros(shape, np.float32))
 
 
+@pytest.mark.parametrize("donate", [False, True])
+def test_cpu_session_stays_eager_and_keeps_donate_input(donate):
+    """A CPU session captures nothing: no compiled form, no captured
+    launches, no replays; its forward, eager forward and predict agree.
+    ``donate_input`` is taken and kept, as the JAX session keeps it."""
+    s = InferenceSession(tiny_model(), batch_size=2, image_size=32, device="cpu",
+                         donate_input=donate)
+    assert s.compiled is None and s.captured_launches is None and s.replays == 0
+    assert s.donate_input is donate
+    x = np.random.default_rng(1).normal(0, 0.5, (2, 32, 32, 13)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    want = s.forward_eager(xt)
+    assert torch.equal(s.forward(xt), want)
+    np.testing.assert_array_equal(s.predict(x), want.numpy())
+    assert s.replays == 0
+
+
+@pytest.mark.parametrize("arch,fill,optimize,tta", [
+    ("unet_skip", True, "auto", 1), ("unet_light", False, True, 1),
+    ("unet_skip", True, False, 2),
+])
+def test_session_serves_the_weights_it_was_built_with(arch, fill, optimize, tta):
+    """The session keeps its own copy of the model, as the JAX session keeps
+    the variables it was compiled with: writing the caller's weights in
+    place, training it and running it afterwards change nothing the
+    session serves, and the caller's model is left in its mode and place."""
+    model = SatMAERestoration(image_size=32, embed_dim=32, depth=1, num_heads=2,
+                              decoder_arch=arch, decoder_channels=(8, 8, 8, 8),
+                              residual_output=fill, input_fill=fill)
+    s = InferenceSession(model, batch_size=2, image_size=32, device="cpu",
+                         optimize=optimize, tta=tta)
+    assert s.model is not model and model.training and not s.model.training
+    x = np.random.default_rng(2).normal(0, 0.5, (2, 32, 32, 13)).astype(np.float32)
+    first = s.predict(x)
+    model.eval()
+    with torch.no_grad():
+        before = model(torch.from_numpy(x))
+        for p in model.parameters():
+            p.mul_(1.5)
+        for m in model.modules():
+            if hasattr(m, "running_var"):
+                m.running_var.mul_(2.0)
+        model.train()
+        model.eval()
+        after = model(torch.from_numpy(x))
+    assert not torch.equal(before, after)            # the caller's weights did change
+    np.testing.assert_array_equal(s.predict(x), first)
+
+
 def test_cpu_session_has_no_device_benchmark(session):
     with pytest.raises(RuntimeError, match="CUDA events"):
         session.benchmark(warmup_runs=0, benchmark_iterations=1)

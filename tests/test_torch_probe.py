@@ -99,7 +99,7 @@ def test_plain_v2_zeroes_h_outside_the_image():
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0.03, atol=0.02)
 
 
-@pytest.mark.parametrize("shape", [(8, 16, 8), (3, 5, 4)])
+@pytest.mark.parametrize("shape", [(8, 16, 8), (3, 5, 4), (8, 192, 48)])
 def test_plain_any_dma_matches_the_tpu_probe_kernel(shape):
     """The TPU probe's kernel is an inner function of ``main()``
     (``benchmarks/pallas_probe.py:145-163``) and cannot be imported; it is

@@ -85,7 +85,7 @@ def run_path(session: dict, path: str, dtype: torch.dtype) -> list:
                                    device="cpu")
         x = np.random.default_rng(0).normal(0, 0.5, (2, model.image_size, model.image_size,
                                                      model.in_channels)).astype(np.float32)
-        with recording_flags(model) as seen:
+        with recording_flags(serving.model) as seen:     # the session's own copy
             serving.predict(x)
         return seen
     trainer = session["trainer"]

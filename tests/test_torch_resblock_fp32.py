@@ -151,7 +151,7 @@ def test_only_bf16_and_fp32_reach_a_kernel(dtype):
 def test_a_failed_build_raises_and_never_falls_back(monkeypatch):
     """On the CUDA path, a build or load that fails raises; the plain
     version is not computed and no launch is counted."""
-    def failed_build(name):
+    def failed_build(name, defines=()):
         raise RuntimeError(f"nvcc failed for {name}.cu")
 
     def forbidden(*args):

@@ -243,3 +243,54 @@ def test_autocast_eval_block_prepares_bf16_operands_once():
     assert out.dtype == torch.bfloat16
     assert [s[:2] for s in seen] == [(torch.bfloat16, torch.bfloat16)] * 2
     assert seen[0][2] == seen[1][2]                  # the same cast weight both times
+
+
+def test_weight_maps_are_encoded_once_per_operand_and_cluster(monkeypatch):
+    """K1's and K3's weight maps: encoded on first use per (operand address,
+    cluster size), kept on the operand, so a prepared operand the block
+    keeps is encoded once, and a new operand (new weights) again."""
+    from msid_tpu_torch.ops import _build
+
+    encoded = []
+
+    def encode(ptr, c, g, buf):
+        encoded.append((ptr, c, g))
+        buf.raw = bytes([g]) * cuda_decoder.TENSOR_MAP_BYTES
+        return 0
+
+    monkeypatch.setattr(_build, "bind", lambda name, entry, types, restype=None,
+                        defines=(): encode)
+    w = torch.zeros(3, 3, 96, 96, dtype=torch.bfloat16)
+    wk = cuda_decoder.prepare_bf16_weights(w)
+    first = cuda_decoder.weight_map(wk, 1)
+    assert cuda_decoder.weight_map(wk, 1) is first
+    assert encoded == [(wk.data_ptr(), 96, 1)] and first.raw[0] == 1
+    assert cuda_decoder.weight_map(wk, 2).raw[0] == 2 and len(encoded) == 2
+    again = cuda_decoder.prepare_bf16_weights(w)          # a new operand
+    cuda_decoder.weight_map(again, 1)
+    assert len(encoded) == 3 and len(wk._tensor_maps) == 2
+
+
+def test_a_copied_block_prepares_its_own_operands():
+    """A deep copy (what a session keeps of its model) or a pickled block
+    carries no prepared operands: it makes its own from its own weights,
+    bit-equal to the original's forward, and the original keeps its own
+    (``kept_operands``, what a captured graph reads)."""
+    import copy
+    import pickle
+
+    block = ResidualBlock(8).eval()
+    randomize_block(block, seed=7)
+    x = torch.randn(1, 8, 6, 6, generator=torch.Generator().manual_seed(8))
+    with torch.no_grad():
+        want = block(x)
+        kept = block.kept_operands
+        assert kept is block.prepared_operands(torch.float32, x.device)
+        for other in (copy.deepcopy(block), pickle.loads(pickle.dumps(block))):
+            assert other.kept_operands is None
+            assert torch.equal(other(x), want)
+            assert other.kept_operands is not None
+            assert other.kept_operands[0].data_ptr() != kept[0].data_ptr()
+    assert block.kept_operands is kept
+    block.train()
+    assert block.kept_operands is None
