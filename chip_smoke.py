@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port (``msid_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, the result lines
-    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise,
-                                               # probe, hybrid), no result lines
+    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise, probe,
+                                               # hybrid, scene, data_cache), no result lines
 
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
@@ -52,7 +52,22 @@ network. Phases, each of which must pass:
    output within relative RMS 1e-4 of the CPU's, graph against eager;
    then one bf16 ``InferenceSession(tta=8)`` at B=1, 64 K1 launches
    captured per forward, graph against eager;
-7. train: one bf16 train step of the flagship at B=2 on the card against
+7. scene: the full-width flagship with seeded weights restores a ragged
+   uint16 scene of 1000 x 1111 x 13 (483 windows of 64, overlap 16, in
+   batches of 64) through ``deployment.sliding_window``'s host, device and
+   streaming assemblies, in bf16 (K1) and fp32 (K4): host and device within
+   1e-4, streaming and device within 1e-5 relative, each repeat of a path
+   equal to its first run; each step captured once with 8 block launches,
+   one replay per window batch, 8 block kernels per replay and per batch by
+   the profiler, no launch of the other dtype's kernel; Mpix/s of each path
+   in turns, device busy time and idle share per batch, peak memory; a
+   112 x 112 scene restored in fp32 on the card and on the CPU (relative RMS
+   1e-4); then ``python -m msid_tpu_torch.scripts.restore --streaming auto``
+   in a child process on a 4096 x 4096 x 13 uint16 TIFF from a checkpoint of
+   the same weights (it must stream, and its output must equal the same
+   scene streamed in this process within 1e-5), and the device memory a
+   10980 x 10980 scene needs, reckoned from shapes;
+8. train: one bf16 train step of the flagship at B=2 on the card against
    the same step in fp32 on the CPU (every noise component off); then
    ``setup_training_session(synthetic=True, epochs=1)`` into a temporary
    directory and ``Trainer.fit``: 6 train steps of 64 tiles and 2 padded validation
@@ -61,7 +76,15 @@ network. Phases, each of which must pass:
    validation batch and 8 K1 launches per validation batch; then step
    times with the kernel and with the plain composition (``noise.impl:
    jnp``) in turns, peak memory, and a profiler breakdown of one step;
-8. evaluate: ``msid_tpu_torch.scripts.train`` trains the flagship for one
+9. data_cache: 1024 uint16 EuroSAT-shaped tiles written as TIFFs by the
+   port's ``write_tiff`` under ``data.root_dir``: ``get_dataloaders`` with
+   ``data.device_cache`` caches both splits on the card as uint16 (1024 x
+   64 x 64 x 13 x 2 bytes) and yields the host loader's batches bit for
+   bit; then the flagship's train step fed by the cache and by the host
+   loader (which reads the TIFFs), one epoch each in turns (cache, host,
+   host, cache), step-to-step p50 and peak memory, one K2 launch per
+   cached step;
+10. evaluate: ``msid_tpu_torch.scripts.train`` trains the flagship for one
    epoch into a temporary directory and writes its checkpoint; then
    ``msid_tpu_torch.scripts.evaluate`` scores it in bf16 (the trainer's
    last validation line within 1e-5 relative), in fp32 (8 K4 launches
@@ -71,7 +94,7 @@ network. Phases, each of which must pass:
    batch) and with ``--ensemble`` of the same checkpoint (equal to the
    single score within 1e-5); the checkpoint's size and save time and
    each evaluation's time are printed;
-9. probe: the async-copy probe kernel (K5) against ``x * 2`` at
+11. probe: the async-copy probe kernel (K5) against ``x * 2`` at
    [8,192,48], [3072,192,48] and a ragged [1000,193,12] fp32 (exactly
    equal), the tensor map it encodes on a tensor's first call and on six
    more, and its device time
@@ -87,7 +110,7 @@ network. Phases, each of which must pass:
    then ``msid_tpu_torch.benchmarks.kernel_probe.main`` for every variant,
    each kernel's launch counter moving by that variant's calls and no
    other counter moving;
-10. hybrid: the default full-width model (``unet_light`` 384/192/96/48, no
+12. hybrid: the default full-width model (``unet_light`` 384/192/96/48, no
    fill) in bf16: ``InferenceSession(optimize="auto")`` serves the module's
    forward at B=1 and the hybrid graph at B=16, ``optimize=True`` the
    fastpath; each folded graph within relative RMS 2e-2 of the module's
@@ -143,6 +166,10 @@ BF16_B1_LAUNCHES_BEFORE = 559   # device launches of one bf16 B=1 flagship forwa
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 SHAPES = ((384, 24), (192, 48), (96, 96), (48, 192))   # (C, H=W) per stage
 BATCHES = (1, 16)
+SCENE_BATCH = 64                  # windows per batch of the scene path
+# K1 and K4 against their plain versions at the serving batches and at the
+# scene path's (the tile choice depends on the batch)
+KERNEL_BATCHES = BATCHES + (SCENE_BATCH,)
 REQUESTS = 4
 RTOL, ATOL = 0.03, 0.02          # the TPU kernel v3's golden tolerance
 MAX_REL_RMS = 2e-2               # bf16 GPU forward vs fp32 CPU forward
@@ -179,6 +206,7 @@ PROBE_ITERS = 20
 # multiple of a box's 32; n = 2316, no multiple of 256 columns)
 ANY_DMA_SHAPES = ((8, 192, 48), (3072, 192, 48), (1000, 193, 12))
 GRAPH_LAUNCHES = 100              # K5's device time: one CUDA graph of 100 launches
+PROFILE_SESSIONS = 3              # profiler sessions per measurement; the most complete is kept
 SKIP_CONFIG = ROOT / "configs" / "experiments" / "long_skip.yaml"   # full width, no fill
 HYBRID_BATCHES = (1, 16, 128)
 HYBRID_FP32_REL_RMS = 1e-4        # folded graphs vs the module's forward, fp32, TF32 off
@@ -186,6 +214,20 @@ HYBRID_METRIC_RTOL = 1e-4         # --forward hybrid vs --forward apply, fp32
 # The same under bf16 autocast: the two graphs round at different places
 # (outputs differ by ~6e-3 relative RMS), as the serving check allows.
 HYBRID_BF16_METRIC_RTOL = 2e-2
+# Scene restoration: a ragged uint16 scene (neither side a multiple of the
+# stride 48) through the three assemblies; the reference's bounds between them.
+SCENE_SHAPE = (1000, 1111, 13)
+SCENE_WINDOW, SCENE_OVERLAP = 64, 16
+SCENE_BAND_ROWS = 16              # origin rows of a streamed band (the default)
+SCENE_DEVICE_VS_HOST = 1e-4       # same windows and weights, other accumulation arithmetic
+SCENE_STREAM_RTOL = 1e-5          # only the grouping of the sums differs
+# 4 windows padded to a batch of SCENE_BATCH on the card (its B=64 graph), in
+# bf16 and fp32, against the plain fp32 restore on the CPU
+SCENE_SMALL = (112, 112, 13)
+CLI_SCENE_SHAPE = (4096, 4096, 13)    # 16.8 Mpix: above AUTO_STREAM_PIXELS, so it streams
+WHOLE_SCENE_SIDE = 10980          # a Sentinel-2 tile, for the device-memory reckoning
+CACHE_TILES = 1024                # EuroSAT-shaped uint16 tiles written for the cache phase
+CACHE_TURNS = ("cache", "host", "host", "cache")
 
 
 def load_flagship() -> dict:
@@ -296,7 +338,8 @@ def library_block(torch, F):
 
 
 def phase_kernel(torch, F, failures: list) -> list[dict]:
-    """K1 against its plain version at the flagship shapes, through the
+    """K1 against its plain version at the flagship shapes and
+    ``KERNEL_BATCHES``, through the
     functional entry (HWIO weights) and with the prepared K-major operands
     the model keeps, timed with the latter."""
     from msid_tpu_torch.ops import cuda_decoder
@@ -312,7 +355,7 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for c, s in SHAPES:
-        for b in BATCHES:
+        for b in KERNEL_BATCHES:
             x, w1, w2, aff = random_block_inputs(torch, c, s, b, seed=c + b)
             p1, p2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
             encodes = [resblock_encodes()]
@@ -361,7 +404,7 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
 
 def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
     """K4 against its plain version (both fp32, TF32 off) at the flagship
-    and tiny widths, with times beside a cuDNN fp32 composition's, the
+    and tiny widths and ``KERNEL_BATCHES``, with times beside a cuDNN fp32 composition's, the
     bound of its route (three TF32 passes on the tensor cores) and the
     bound at the fp32 FMA peak."""
     from msid_tpu_torch.models.restoration import exact_fp32
@@ -375,7 +418,7 @@ def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for c, s in FP32_SHAPES:
-        for b in BATCHES:
+        for b in KERNEL_BATCHES:
             x, w1, w2, aff = random_block_inputs(torch, c, s, b, seed=c + b,
                                                  dtype=torch.float32)
             got = cuda_decoder.fused_residual_block(x, w1, w2, aff)
@@ -464,35 +507,71 @@ def rel_rms(a: np.ndarray, ref: np.ndarray) -> float:
     return float(np.sqrt(np.mean((a - ref) ** 2)) / np.sqrt(np.mean(ref ** 2)))
 
 
-def device_profile(torch, fn, iters: int = 3, tags: dict | None = None) -> dict:
+def device_profile(torch, fn, iters: int = 3, tags: dict | None = None,
+                   expect: dict | None = None) -> dict:
     """Device time and launches per call of ``fn``, by kernel name, from the
     device-side events of ``torch.profiler`` (CUPTI). ``tags`` maps a
-    result key to a substring of kernel names whose times it sums."""
+    result key to a substring of kernel names whose times it sums;
+    ``device_busy_ms`` sums every device record (kernels and copies),
+    ``device_active_ms`` is the time some record ran (their union, which
+    counts overlapping copies and kernels once). The profiler can drop
+    kernel records (one run saw 389.7 of a B=16 graph replay's 539
+    launches, the same replay's output bit-equal to the eager forward's),
+    and a dropped record only lowers a count or a sum. So ``PROFILE_SESSIONS``
+    sessions of ``iters`` calls are taken. ``expect`` maps a key of ``tags``
+    to the launches one call must show: a session is full when every such
+    count is exact, and over when one is larger, which no dropped record
+    explains; the kept session is the full one with the most records, else
+    the one with the most records. ``sessions_full`` and ``sessions_over``
+    count them, for the caller to check and print."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    tags, expect = tags or {}, expect or {}
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    kept, full, over = None, 0, 0
+    for _ in range(PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        counts = {key: sum(1 for name, _, _ in events if tags[key] in name)
+                  for key in expect}
+        is_full = all(counts[k] == n * iters for k, n in expect.items())
+        full += is_full
+        over += any(counts[k] > n * iters for k, n in expect.items())
+        rank = (is_full, len(events))
+        if kept is None or rank > kept[0]:
+            kept = (rank, events)
+    events = kept[1]
     per_kernel: dict[str, float] = {}
-    launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / iters
-            launches += 1
+    for name, start, end in events:
+        per_kernel[name] = per_kernel.get(name, 0.0) + (end - start) / 1e3 / iters
+    active, reach = 0.0, None
+    for _, start, end in sorted(events, key=lambda e: e[1]):
+        if reach is None or start > reach:
+            active, reach = active + end - start, end
+        elif end > reach:
+            active, reach = active + end - reach, end
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     out = {"device_busy_ms": sum(per_kernel.values()),
-           "device_launches": launches / iters,
+           "device_active_ms": active / 1e3 / iters,
+           "device_launches": len(events) / iters,
+           "sessions": PROFILE_SESSIONS, "sessions_full": full, "sessions_over": over,
            "top_ms": [[k[:80], v] for k, v in top]}
-    for key, tag in (tags or {}).items():
+    for key, tag in tags.items():
         out[key] = sum(v for k, v in per_kernel.items() if tag in k)
-        out[f"{key}_launches"] = sum(1 for e in prof.events() if e.device_type ==
-                                     DeviceType.CUDA and tag in e.name) / iters
+        out[f"{key}_launches"] = sum(1 for name, _, _ in events if tag in name) / iters
     return out
+
+
+def profile_complete(prof: dict, key: str, expect: float) -> bool:
+    """The kept session of ``device_profile`` showed ``expect`` launches of
+    ``key`` per call and no session showed more."""
+    return prof[f"{key}_launches"] == expect and prof["sessions_over"] == 0
 
 
 def session_turns(torch, session, requests: list, tag: str, iters: int) -> dict:
@@ -534,7 +613,8 @@ def session_turns(torch, session, requests: list, tag: str, iters: int) -> dict:
            "graph_vs_eager_rel_rms": rel_rms(graph_out.cpu().numpy(), eager_out.cpu().numpy())}
     for form, fn in (("graph", lambda: session.forward(xd)),
                      ("eager", lambda: session.forward_eager(xd))):
-        prof = device_profile(torch, fn, tags={"block_ms": tag})
+        prof = device_profile(torch, fn, tags={"block_ms": tag},
+                              expect={"block_ms": session.captured_launches})
         device = float(np.mean([t["device_p50_ms"] for t in turns[form]]))
         row[form] = {
             "turns": turns[form], "device_p50_ms": device,
@@ -544,6 +624,8 @@ def session_turns(torch, session, requests: list, tag: str, iters: int) -> dict:
             "device_idle_share": 1 - prof["device_busy_ms"] / device,
             "device_launches": prof["device_launches"],
             "block_kernels": prof["block_ms_launches"], "block_ms": prof["block_ms"],
+            "profiler_sessions_full": prof["sessions_full"],
+            "profiler_sessions_over": prof["sessions_over"],
             "top_ms": prof["top_ms"][:5]}
     return row
 
@@ -566,9 +648,13 @@ def check_session(failures: list, name: str, row: dict, expect: int) -> None:
         failures.append(f"{name}: compiled {row['compiled']!r}, "
                         f"{row['captured_launches']} launches captured, expected {expect}")
     for form in ("graph", "eager"):
-        if row[form]["block_kernels"] != expect or not row[form]["device_busy_ms"] > 0:
-            failures.append(f"{name}: the profiler saw {row[form]['block_kernels']} block "
-                            f"kernels per {form} forward, expected {expect}")
+        r = row[form]
+        if (r["block_kernels"] != expect or r["profiler_sessions_over"]
+                or not r["device_busy_ms"] > 0):
+            failures.append(f"{name}: the profiler saw {r['block_kernels']} block kernels "
+                            f"per {form} forward, expected {expect}; "
+                            f"{r['profiler_sessions_full']} of {PROFILE_SESSIONS} sessions "
+                            f"full, {r['profiler_sessions_over']} over")
     if not row["graph_equals_eager"]:
         failures.append(f"{name}: graph and eager differ, max abs "
                         f"{row['graph_vs_eager_max_abs']}, rel RMS "
@@ -991,7 +1077,7 @@ def evaluate_fp32_against_cpu(torch, fp32_config: Path, ckpt_dir: Path) -> dict:
     batch, _ = split_batch_item(next(iter(val_loader)))
     with torch.no_grad():
         clean = preprocess_tiles(
-            torch.from_numpy(np.ascontiguousarray(batch[:8])).cuda(), models["cuda"].image_size)
+            torch.as_tensor(batch[:8], device="cuda"), models["cuda"].image_size)
         noisy = corrupt(fold_in(EVAL_SEED, 0), clean, NoiseConfig.from_config(config),
                         impl="pallas")
         cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
@@ -1492,6 +1578,381 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
     return result
 
 
+def scene_windows(h: int, w: int) -> int:
+    from msid_tpu_torch.deployment.sliding_window import _window_origins
+
+    stride = SCENE_WINDOW - SCENE_OVERLAP
+    return (len(_window_origins(h, SCENE_WINDOW, stride))
+            * len(_window_origins(w, SCENE_WINDOW, stride)))
+
+
+def max_rel(a: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.max(np.abs(a - ref) / np.maximum(np.abs(ref), 1e-6)))
+
+
+def scene_cli(torch, cfg: dict, weights: dict, dev_step, failures: list) -> dict:
+    """``python -m msid_tpu_torch.scripts.restore --streaming auto`` on a
+    4096x4096x13 uint16 TIFF from a checkpoint of ``weights``, in a child
+    process; its output against the same scene streamed in this process by
+    ``dev_step`` (the same weights in bf16)."""
+    from msid_tpu_torch.data.tiff import read_tiff, write_tiff
+    from msid_tpu_torch.deployment import sliding_window as sw
+    from msid_tpu_torch.scripts.restore import AUTO_STREAM_PIXELS
+    from msid_tpu_torch.training.optim import build_optimizer_from_config
+    from msid_tpu_torch.training.train_state import TrainState
+    from msid_tpu_torch.utils.checkpointing import CheckpointManager
+    from msid_tpu_torch.utils.setup_helpers import create_model_from_config
+
+    h, w, _ = CLI_SCENE_SHAPE
+    result = {"shape": list(CLI_SCENE_SHAPE), "mpix": h * w / 1e6,
+              "streams_by_auto": h * w > AUTO_STREAM_PIXELS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as tmp:
+        tmp = Path(tmp)
+        model, _ = create_model_from_config(cfg, 0, "cpu")
+        model.load_state_dict(weights)
+        optimizer, _ = build_optimizer_from_config(cfg, model)
+        CheckpointManager(tmp / "ckpt").save(1, TrainState.create(model, optimizer),
+                                             metrics={"val_psnr": 0.0})
+        del model, optimizer
+        scene = np.random.default_rng(9).integers(0, 10000, CLI_SCENE_SHAPE, dtype=np.uint16)
+        write_tiff(tmp / "scene.tif", scene)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "msid_tpu_torch.scripts.restore", "--config", str(CONFIG),
+             "--checkpoint", str(tmp / "ckpt"), "--input", str(tmp / "scene.tif"),
+             "--output", str(tmp / "restored.tif"), "--streaming", "auto"],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        result["cli_seconds"] = time.perf_counter() - t0
+        log = proc.stderr + proc.stdout
+        result["returncode"] = proc.returncode
+        result["cli_log_tail"] = log.strip().splitlines()[-4:]
+        result["streamed"] = "Streaming restore" in log
+        rate = [line for line in log.splitlines() if "Mpix/s" in line]
+        result["cli_restore_line"] = rate[-1].split(": ", 1)[-1] if rate else None
+        if proc.returncode != 0 or not result["streamed"]:
+            failures.append(f"scene CLI: rc {proc.returncode}, streamed {result['streamed']}: "
+                            f"{log[-2000:]}")
+            return result
+        out = read_tiff(tmp / "restored.tif")
+        t0 = time.perf_counter()
+        want = sw.restore_scene_streaming(None, None, scene, window=SCENE_WINDOW,
+                                          overlap=SCENE_OVERLAP, batch_size=SCENE_BATCH,
+                                          step=dev_step, output_dtype=np.float32)
+        seconds = time.perf_counter() - t0
+    result.update(in_process_streaming_seconds=seconds,
+                  in_process_streaming_mpix_per_s=h * w / 1e6 / seconds,
+                  output_shape=list(out.shape), output_dtype=str(out.dtype),
+                  finite=bool(np.isfinite(out).all()),
+                  cli_vs_in_process_max_abs=float(np.abs(out - want).max()),
+                  cli_vs_in_process_equal=bool(np.array_equal(out, want)))
+    ok = (out.shape == CLI_SCENE_SHAPE and out.dtype == np.float32 and result["finite"]
+          and np.allclose(out, want, rtol=SCENE_STREAM_RTOL, atol=SCENE_STREAM_RTOL))
+    result["ok"] = bool(ok)
+    if not ok:
+        failures.append(f"scene CLI: output {out.shape} {out.dtype}, finite {result['finite']}, "
+                        f"max abs vs in-process {result['cli_vs_in_process_max_abs']}")
+    return result
+
+
+def phase_scene(torch, failures: list, card: str) -> dict:
+    """The full-width flagship restores a ragged uint16 scene through the
+    host, device and streaming assemblies, in bf16 (K1) and fp32 (K4):
+    the paths against each other, 8 block launches per window batch (the
+    steps' captured launches times their replays, and by the profiler per
+    replay and over a whole run of each path), Mpix/s of each path in
+    turns, device busy time and idle share per batch from each path's own
+    profiled run, peak memory; a small scene through the same B=64 graph
+    against the plain fp32 restore on the CPU, in both dtypes; then the
+    restore CLI streaming a 4096x4096 scene."""
+    from msid_tpu_torch.deployment import sliding_window as sw
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_decoder
+
+    cfg = load_flagship()
+    cpu_model = SatMAERestoration.from_config(cfg, device="cpu").eval()
+    randomize_(torch, cpu_model, seed=3)
+    weights = cpu_model.state_dict()
+    size = cpu_model.image_size
+    h, w, _ = SCENE_SHAPE
+    scene = np.random.default_rng(4).integers(0, 10000, SCENE_SHAPE, dtype=np.uint16)
+    small = scene[:SCENE_SMALL[0], :SCENE_SMALL[1]]
+    torch.set_num_threads(8)
+    small_want = sw.restore_scene(cpu_model, None, small, window=SCENE_WINDOW,
+                                  overlap=SCENE_OVERLAP, model_size=size, batch_size=4,
+                                  device_assembly=True, device="cpu")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    windows = scene_windows(h, w)
+    batches = -(-windows // SCENE_BATCH)
+    stride = SCENE_WINDOW - SCENE_OVERLAP
+    xs = sw._window_origins(w, SCENE_WINDOW, stride)
+    groups, _ = sw._band_plan(sw._window_origins(h, SCENE_WINDOW, stride), SCENE_WINDOW,
+                              stride, SCENE_BAND_ROWS)
+    per_run = {"host": batches, "device": batches,      # streaming: batches of each band
+               "streaming": sum(-(-len(sub) * len(xs) // SCENE_BATCH) for _, sub in groups)}
+    kw = dict(window=SCENE_WINDOW, overlap=SCENE_OVERLAP, model_size=size,
+              batch_size=SCENE_BATCH)
+    result = {"check": "scene", "config": str(CONFIG.relative_to(ROOT)), "card": card,
+              "scene": list(SCENE_SHAPE), "scene_dtype": "uint16", "windows": windows,
+              "batches": per_run, "window": SCENE_WINDOW, "overlap": SCENE_OVERLAP,
+              "batch_size": SCENE_BATCH}
+    launches = {}
+    dev_step_bf16 = None
+    for name, dtype, counter, other, tag, small_bound, tiling in (
+            ("bf16", torch.bfloat16, "launches", "launches_fp32", "resblock_kernel",
+             MAX_REL_RMS, cuda_decoder.bf16_tiling),
+            ("fp32", torch.float32, "launches_fp32", "launches", "resblock_fp32_kernel",
+             FP32_FORWARD_REL_RMS, cuda_decoder.fp32_tiling)):
+        model = SatMAERestoration.from_config(cfg, dtype=dtype)
+        model.load_state_dict(weights)
+        cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+        host_step = sw.make_scene_step(model, None, SCENE_WINDOW, size)
+        dev_step = sw.make_device_scene_step(model, None, SCENE_WINDOW, size, SCENE_OVERLAP)
+        del model
+        steps = {"host": host_step, "device": dev_step, "streaming": dev_step}
+        paths = {
+            "host": lambda: sw.restore_scene(None, None, scene, step=host_step, **kw),
+            "device": lambda: sw.restore_scene(None, None, scene, step=dev_step,
+                                               device_assembly=True, **kw),
+            "streaming": lambda: sw.restore_scene_streaming(
+                None, None, scene, step=dev_step, output_dtype=np.float32,
+                band_origin_rows=SCENE_BAND_ROWS, **kw),
+        }
+        row: dict = {"paths": {}}
+        outs = {}
+        for path, run in paths.items():        # the first run captures the step's graph
+            torch.cuda.reset_peak_memory_stats()
+            replays = steps[path].replays
+            t0 = time.perf_counter()
+            outs[path] = run()
+            row["paths"][path] = {
+                "first_seconds": time.perf_counter() - t0,
+                "first_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "replays_per_run": steps[path].replays - replays, "seconds": []}
+        for path in ("host", "device", "streaming", "streaming", "device", "host"):
+            torch.cuda.reset_peak_memory_stats()
+            replays = steps[path].replays
+            t0 = time.perf_counter()
+            out = paths[path]()
+            seconds = time.perf_counter() - t0
+            p = row["paths"][path]
+            p["seconds"].append(seconds)
+            p["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            p["repeat_equal"] = p.get("repeat_equal", True) and bool(np.array_equal(out, outs[path]))
+            p["replays_per_run_steady"] = steps[path].replays - replays
+        # by the profiler: one whole run of each path (its device time over
+        # its own batches: copies, gathers, replays, blends, carries,
+        # finalizes) and a replay alone
+        profiles = {path: device_profile(torch, run, iters=1, tags={"block_ms": tag},
+                                         expect={"block_ms": 8 * per_run[path]})
+                    for path, run in paths.items()}
+        origins = [(y, x) for y in sw._window_origins(h, SCENE_WINDOW, stride)
+                   for x in xs][:SCENE_BATCH]
+        windows_dev = torch.from_numpy(np.stack(
+            [scene[y:y + SCENE_WINDOW, x:x + SCENE_WINDOW] for y, x in origins])).cuda()
+        profiles["replay"] = device_profile(torch, lambda: dev_step.run(windows_dev),
+                                            tags={"block_ms": tag}, expect={"block_ms": 8})
+        del windows_dev
+        for path, p in row["paths"].items():
+            mean = float(np.mean(p["seconds"]))
+            prof, n = profiles[path], per_run[path]
+            p.update(mean_seconds=mean, mpix_per_s=h * w / 1e6 / mean,
+                     batch_ms=mean * 1e3 / n,
+                     device_busy_ms_per_batch=prof["device_busy_ms"] / n,
+                     device_active_ms_per_batch=prof["device_active_ms"] / n,
+                     device_launches_per_batch=prof["device_launches"] / n,
+                     block_launches_per_batch=prof["block_ms_launches"] / n,
+                     device_idle_share=1 - prof["device_active_ms"] / (mean * 1e3),
+                     profiler_sessions_full=prof["sessions_full"],
+                     profiler_sessions_over=prof["sessions_over"],
+                     profile_top_ms=prof["top_ms"][:6])
+        row["replay_profile"] = {k: profiles["replay"][k] for k in (
+            "device_busy_ms", "device_launches", "block_ms", "block_ms_launches",
+            "sessions_full", "sessions_over", "top_ms")}
+        # 4 windows padded to SCENE_BATCH: the graph the scene path replays,
+        # against the plain fp32 restore on the CPU
+        small_got = sw.restore_scene(None, None, small, step=dev_step, device_assembly=True,
+                                     **kw)
+        row["small_scene"] = {"shape": list(SCENE_SMALL), "batch_size": SCENE_BATCH,
+                              "rel_rms_vs_cpu_fp32": rel_rms(small_got, small_want),
+                              "max_abs_vs_cpu_fp32": float(np.abs(small_got - small_want).max()),
+                              "bound_rel_rms": small_bound}
+        # the tiles K1 or K4 took in the B=SCENE_BATCH forward
+        row["block_tiles"] = {f"C{c}": list(tiling(c, s, s, SCENE_BATCH, sms))
+                              for c, s in SHAPES}
+        captured = {k: steps[k].captured_launches for k in ("host", "device")}
+        replays = host_step.replays + dev_step.replays
+        counted, wrong = getattr(cuda_decoder, counter), getattr(cuda_decoder, other)
+        # the wrappers counted each graph's warmup and capture; a replay runs
+        # the captured launches
+        device = counted - sum(captured.values()) + replays * captured["device"]
+        launches[name] = device
+        row.update(captured_launches=captured, replays=replays, device_launches=device,
+                   other_kernel_launches=wrong)
+        row["host_vs_device_max_abs"] = float(np.abs(outs["host"] - outs["device"]).max())
+        row["streaming_vs_device_max_abs"] = float(
+            np.abs(outs["streaming"] - outs["device"]).max())
+        row["streaming_vs_device_max_rel"] = max_rel(outs["streaming"], outs["device"])
+        checks = {
+            "finite_shape": all(o.shape == SCENE_SHAPE and np.isfinite(o).all()
+                                for o in outs.values()),
+            "host_vs_device": bool(np.allclose(outs["host"], outs["device"],
+                                               rtol=SCENE_DEVICE_VS_HOST,
+                                               atol=SCENE_DEVICE_VS_HOST)),
+            "streaming_vs_device": bool(np.allclose(outs["streaming"], outs["device"],
+                                                    rtol=SCENE_STREAM_RTOL,
+                                                    atol=SCENE_STREAM_RTOL)),
+            "captured_8": captured == {"host": 8, "device": 8},
+            "one_replay_per_batch": all(p["replays_per_run"] == per_run[path]
+                                        and p["replays_per_run_steady"] == per_run[path]
+                                        for path, p in row["paths"].items()),
+            "profiler_8_per_replay": profile_complete(profiles["replay"], "block_ms", 8),
+            "profiler_8_per_batch": all(profile_complete(profiles[path], "block_ms",
+                                                         8 * per_run[path])
+                                        for path in paths),
+            "small_scene_vs_cpu": bool(np.isfinite(small_got).all()
+                                       and small_got.shape == SCENE_SMALL
+                                       and row["small_scene"]["rel_rms_vs_cpu_fp32"]
+                                       <= small_bound),
+            "no_other_kernel": wrong == 0,
+            "repeatable": all(p["repeat_equal"] for p in row["paths"].values()),
+        }
+        row["checks"] = checks
+        for check, ok in checks.items():
+            if not ok:
+                failures.append(f"scene {name}: {check} failed ({captured}, replays {replays}, "
+                                f"host-device {row['host_vs_device_max_abs']}, stream-device "
+                                f"{row['streaming_vs_device_max_abs']}, small vs CPU "
+                                f"{row['small_scene']['rel_rms_vs_cpu_fp32']})")
+        if name == "fp32":
+            row["device_vs_bf16_rel_rms"] = rel_rms(outs["device"], result["bf16"]["device_out"])
+        row["device_out"] = outs["device"]
+        result[name] = row
+        del host_step, steps, paths
+        if name == "bf16":
+            dev_step_bf16 = dev_step
+        del dev_step
+        torch.cuda.empty_cache()
+    for name in ("bf16", "fp32"):
+        result[name].pop("device_out")
+    result["launches"] = launches
+    result["cli"] = scene_cli(torch, cfg, weights, dev_step_bf16, failures)
+    del dev_step_bf16
+    torch.cuda.empty_cache()
+    side = WHOLE_SCENE_SIDE
+    result["whole_scene_device_gb"] = {
+        "side": side, "scene_uint16": side * side * 13 * 2 / 1e9,
+        "out_sum_fp32": side * side * 13 * 4 / 1e9, "w_sum_fp32": side * side * 4 / 1e9,
+        "total": side * side * (13 * 2 + 13 * 4 + 4) / 1e9,
+        "source": "shapes, not measured"}
+    emit(result)
+    return result
+
+
+def phase_data_cache(torch, failures: list, card: str) -> dict:
+    """1024 uint16 EuroSAT-shaped tiles written as TIFFs: the device cache
+    narrows them to uint16 and gives the host loader's batches bit for bit;
+    then the flagship's train step fed by the cache and by the host loader,
+    one epoch each, in turns."""
+    from msid_tpu_torch.data.pipeline import BatchLoader, DeviceCachedLoader, get_dataloaders
+    from msid_tpu_torch.data.tiff import write_tiff
+    from msid_tpu_torch.ops import cuda_noise
+    from msid_tpu_torch.training.eval import split_batch_item
+    from msid_tpu_torch.utils.setup_helpers import setup_training_session
+
+    cfg = load_flagship()
+    result = {"check": "data_cache", "config": str(CONFIG.relative_to(ROOT)), "card": card,
+              "tiles": CACHE_TILES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as tmp:
+        root = Path(tmp) / "EuroSAT_MS"
+        rng = np.random.default_rng(6)
+        t0 = time.perf_counter()
+        for i in range(CACHE_TILES):
+            d = root / ("AnnualCrop", "Forest", "River", "SeaLake")[i % 4]
+            d.mkdir(parents=True, exist_ok=True)
+            write_tiff(d / f"{d.name}_{i}.tif",
+                       rng.integers(0, 10000, (64, 64, 13), dtype=np.uint16))
+        result["write_seconds"] = time.perf_counter() - t0
+        config = dict(cfg, data=dict(cfg["data"], root_dir=str(root), device_cache=True))
+        host_config = dict(config, data=dict(config["data"], device_cache=False))
+        t0 = time.perf_counter()
+        cached = get_dataloaders(config)
+        result["cache_build_seconds"] = time.perf_counter() - t0
+        host = get_dataloaders(host_config)
+        nbytes = sum(getattr(loader, "nbytes", 0) for loader in cached)
+        equal = []
+        for c_loader, h_loader in zip(cached, host):
+            for c_item, h_item in zip(list(c_loader), list(h_loader)):
+                (cb, cn), (hb, hn) = split_batch_item(c_item), split_batch_item(h_item)
+                equal.append(cn == hn and bool(np.array_equal(
+                    cb.float().cpu().numpy(), np.asarray(hb, np.float32))))
+        result.update(
+            nbytes=nbytes, expected_nbytes=CACHE_TILES * 64 * 64 * 13 * 2,
+            storage_dtypes=[str(getattr(loader, "_tiles", None).dtype) for loader in cached
+                            if isinstance(loader, DeviceCachedLoader)],
+            batches_compared=len(equal), train_batches=len(cached[0]),
+            val_batches=len(cached[1]))
+        checks = {
+            "cached": all(isinstance(loader, DeviceCachedLoader) for loader in cached)
+            and not any(isinstance(loader, DeviceCachedLoader) for loader in host)
+            and all(isinstance(loader, BatchLoader) for loader in host),
+            "uint16": result["storage_dtypes"] == ["torch.uint16"] * 2
+            and nbytes == result["expected_nbytes"],
+            "batches_equal": bool(equal) and all(equal)
+            and len(equal) == len(cached[0]) + len(cached[1]),
+        }
+        del cached, host
+
+        run_dir = Path(tmp) / "run"
+        session = setup_training_session(config, output_dir=run_dir, epochs=1, seed=0)
+        trainer = session["trainer"]
+        loaders = {"cache": session["train_loader"],
+                   "host": get_dataloaders(host_config)[0]}
+        result["step_loader_types"] = {k: type(v).__name__ for k, v in loaders.items()}
+        step = trainer.train_step
+        stamps: list = []
+
+        def timed_step(state, batch, seed):
+            out = step(state, batch, seed)          # ends in a host sync (the finite check)
+            stamps.append(time.perf_counter())
+            return out
+
+        trainer.train_step = timed_step
+        trainer.train_epoch(loaders["cache"], 0)          # warmup
+        times: dict = {"cache": [], "host": []}
+        noise_launches = 0
+        for epoch, turn in enumerate(CACHE_TURNS, start=1):
+            stamps.clear()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_noise.launches = 0
+            trainer.train_epoch(loaders[turn], epoch)
+            if turn == "cache":
+                noise_launches += cuda_noise.launches
+            times[turn] += list(np.diff(stamps) * 1e3)   # step to step, data included
+            result[f"{turn}_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        trainer.train_step = step
+        steps_per_epoch = len(loaders["cache"])
+        for turn, t in times.items():
+            p50 = float(np.percentile(t, 50))
+            result[f"step_p50_ms_{turn}"] = p50
+            result[f"step_p90_ms_{turn}"] = float(np.percentile(t, 90))
+            result[f"tiles_per_s_{turn}"] = 64 * 1e3 / p50
+        result.update(steps_per_epoch=steps_per_epoch, nan_skips=trainer.state.nan_skips,
+                      train_cache_noise_launches=noise_launches)
+        checks["noise_per_cached_step"] = (
+            noise_launches == CACHE_TURNS.count("cache") * steps_per_epoch)
+        checks["no_skipped_step"] = trainer.state.nan_skips == 0
+        session["checkpoint_manager"].close()
+        del session, trainer, loaders
+        torch.cuda.empty_cache()
+    result["checks"] = checks
+    result["launches"] = {"noise": noise_launches}
+    emit(result)
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"data_cache: {name} failed")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1530,7 +1991,9 @@ def main() -> int:
                    "kernel_fp32": lambda: phase_kernel_fp32(torch, F, failures),
                    "noise": lambda: phase_noise(torch, failures),
                    "probe": lambda: phase_probe(torch, F, failures),
-                   "hybrid": lambda: phase_hybrid(torch, failures, card)}
+                   "hybrid": lambda: phase_hybrid(torch, failures, card),
+                   "scene": lambda: phase_scene(torch, failures, card),
+                   "data_cache": lambda: phase_data_cache(torch, failures, card)}
         for name in only:
             if name not in partial:
                 print(f"chip_smoke: only {sorted(partial)} run alone, got {name!r}",
@@ -1556,14 +2019,16 @@ def main() -> int:
     noise = timed("noise", phase_noise, torch, failures)
     serve, reference = timed("serve", phase_serve, torch, failures, card)
     serve_fp32 = timed("serve_fp32", phase_serve_fp32, torch, failures, card, reference)
+    scene = timed("scene", phase_scene, torch, failures, card)
     train = timed("train", phase_train, torch, failures, card)
+    data_cache = timed("data_cache", phase_data_cache, torch, failures, card)
     evaluate = timed("evaluate", phase_evaluate, torch, failures, card)
     probe = timed("probe", phase_probe, torch, F, failures)
     hybrid = timed("hybrid", phase_hybrid, torch, failures, card)
     emit({"check": "phase_seconds", **seconds})
 
-    def per_forward(kernel_rows):
-        big = [r for r in kernel_rows if r["B"] == max(BATCHES) and (r["C"], r["H"]) in SHAPES]
+    def per_forward(kernel_rows, b=max(BATCHES)):
+        big = [r for r in kernel_rows if r["B"] == b and (r["C"], r["H"]) in SHAPES]
         out = {k: 2 * sum(r[k] for r in big)       # 2 blocks per stage
                for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bound_ffma_ms")
                if k in big[0]}
@@ -1572,15 +2037,21 @@ def main() -> int:
         return out
 
     k1, k4 = per_forward(rows), per_forward(rows_fp32)
+    scene_per = f"the 8 launches of one B={SCENE_BATCH} window batch of the scene path"
+    k1_scene = dict(per_forward(rows, SCENE_BATCH), per=scene_per)
+    k4_scene = dict(per_forward(rows_fp32, SCENE_BATCH), per=scene_per)
     resblock_by_path = {"serve": serve["launches"], "serve_fp32": serve_fp32["k1_launches"],
+                        "scene": scene["launches"]["bf16"],
                         "train": train["launches"]["resblock"],
                         "evaluate": evaluate["launches"]["resblock"],
                         "probe": probe["launches"]["resblock"],
                         "hybrid": hybrid["launches"]["resblock"]}
     noise_by_path = {"serve": serve["noise_launches"], "train": train["launches"]["noise"],
+                     "train_cache": data_cache["launches"]["noise"],
                      "evaluate": evaluate["launches"]["noise"]}
     fp32_by_path = {"evaluate": evaluate["launches"]["resblock_fp32"],
                     "serve_fp32": serve_fp32["k4_launches"],
+                    "scene_fp32": scene["launches"]["fp32"],
                     "probe": probe["launches"]["resblock_fp32"],
                     "hybrid": hybrid["launches"]["resblock_fp32"]}
     v2_by_path = {"probe": probe["launches"]["resblock_v2"]}
@@ -1591,7 +2062,7 @@ def main() -> int:
     # Serving corrupts nothing: K2 runs on the training and evaluate paths.
     for name, by_path, paths in (
             ("fused_residual_block", resblock_by_path, resblock_by_path),
-            ("apply_sensor_noise", noise_by_path, ("train", "evaluate")),
+            ("apply_sensor_noise", noise_by_path, ("train", "train_cache", "evaluate")),
             ("fused_residual_block_fp32", fp32_by_path, fp32_by_path),
             ("fused_residual_block_v2", v2_by_path, v2_by_path),
             ("any_dma_scale", any_dma_by_path, any_dma_by_path)):
@@ -1612,6 +2083,7 @@ def main() -> int:
         "library_ms": k1["library_ms"],
         "library": "cuDNN bf16 conv2d composition of the same block",
         "per": f"the 8 launches of one B={max(BATCHES)} flagship forward",
+        "scene_forward": k1_scene,
         "tiles": {f"C{r['C']}B{r['B']}": r["tile"] + [r["cluster"]] for r in rows},
     }, {
         "name": "apply_sensor_noise",
@@ -1656,6 +2128,7 @@ def main() -> int:
                 "66.9 TFLOP/s fp32 outside the tensor cores; 3.35 TB/s HBM (H100 SXM)",
         "tiles": {f"C{r['C']}B{r['B']}": r["tile"] + [r["cluster"]] for r in rows_fp32},
         "per": f"the 8 launches of one B={max(BATCHES)} flagship forward",
+        "scene_forward": k4_scene,
     }, {
         "name": "fused_residual_block_v2",
         "route": "cuda",

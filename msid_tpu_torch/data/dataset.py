@@ -1,20 +1,23 @@
 """Host-side datasets (numpy): counterpart of ``msid_tpu/data/dataset.py``.
 
 The host stops at raw HWC tiles (64x64x13); preprocessing and corruption
-run on the device. ``SyntheticEuroSAT`` is the procedural stand-in the
-JAX package trains on when no data is on disk, tile for tile identical to
-it; ``_reference_split`` is the reference's seeded 80/20 split. The
-EuroSAT TIFF reader is not ported yet: a ``data.root_dir`` that holds
-tiles raises; one that is missing or empty falls back to synthetic tiles.
+run on the device. ``EuroSATMultiSpectral`` reads the EuroSAT-MS tiles
+under ``data.root_dir`` (``data/tiff.py``), sample for sample and split
+for split the JAX package's; ``SyntheticEuroSAT`` is the procedural
+stand-in both packages train on when no tile is on disk, tile for tile
+identical to the JAX package's; ``_reference_split`` is the reference's
+seeded 80/20 split.
 """
 
 from __future__ import annotations
 
 import logging
 from pathlib import Path
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
+
+from msid_tpu_torch.data.tiff import read_tiff
 
 logger = logging.getLogger(__name__)
 
@@ -31,6 +34,74 @@ def _reference_split(n: int, train_split: float, seed: int) -> Tuple[np.ndarray,
     np.random.set_state(rng_state)
     split_idx = int(train_split * n)
     return indices[:split_idx], indices[split_idx:]
+
+
+class EuroSATMultiSpectral:
+    """Raw HWC float32 tiles read from disk, indexed within one split.
+
+    Samples are every ``*.tif`` under ``root_dir`` (recursively, sorted),
+    or the ``*.jpg``/``*.png`` files when there is no ``.tif``; the split
+    is ``_reference_split``'s. A tile with fewer bands than ``num_bands``
+    is zero-padded, one with more is cut; a tile of another size is cropped
+    or zero-padded to ``tile_size``; an unreadable file gives a zero tile,
+    as in the reference. A grey jpg/png is repeated over the bands (PIL is
+    imported only for those)."""
+
+    def __init__(self, root_dir: str | Path, split: str = "train",
+                 train_split: float = 0.8, seed: int = 42,
+                 num_bands: int = NUM_BANDS, tile_size: int = TILE_SIZE):
+        self.root_dir = Path(root_dir)
+        self.num_bands = num_bands
+        self.tile_size = tile_size
+        samples = sorted(self.root_dir.rglob("*.tif"))
+        if not samples:
+            samples = sorted(list(self.root_dir.rglob("*.jpg"))
+                             + list(self.root_dir.rglob("*.png")))
+        if not samples:
+            raise FileNotFoundError(f"No image tiles found under {self.root_dir}")
+        train_idx, val_idx = _reference_split(len(samples), train_split, seed)
+        if split == "train":
+            self.samples: List[Path] = [samples[i] for i in train_idx]
+        elif split == "val":
+            self.samples = [samples[i] for i in val_idx]
+        else:
+            raise ValueError(f"Invalid split: {split}. Use 'train' or 'val'")
+        logger.info("%s split: %d samples", split.upper(), len(self.samples))
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        """The raw (un-normalized) float32 tile ``[tile, tile, num_bands]``."""
+        path = self.samples[idx]
+        try:
+            if path.suffix.lower() in (".tif", ".tiff"):
+                img = read_tiff(path).astype(np.float32)
+            else:
+                from PIL import Image
+
+                gray = np.asarray(Image.open(path).convert("L"), dtype=np.float32)
+                img = np.repeat(gray[:, :, None], self.num_bands, axis=2)
+        except Exception as e:  # unreadable: a zero tile, as the reference
+            logger.error("Error reading %s: %s", path, e)
+            return np.zeros((self.tile_size, self.tile_size, self.num_bands), np.float32)
+        if img.ndim == 2:
+            img = img[:, :, None]
+        c = img.shape[2]
+        if c < self.num_bands:
+            pad = np.zeros((*img.shape[:2], self.num_bands - c), img.dtype)
+            img = np.concatenate([img, pad], axis=2)
+        elif c > self.num_bands:
+            img = img[:, :, :self.num_bands]
+        t = self.tile_size
+        if img.shape[:2] != (t, t):
+            img = img[:t, :t]
+            if img.shape[0] < t or img.shape[1] < t:
+                padded = np.zeros((t, t, self.num_bands), img.dtype)
+                padded[:img.shape[0], :img.shape[1]] = img
+                img = padded
+        return np.ascontiguousarray(img, dtype=np.float32)
+
 
 
 class SyntheticEuroSAT:
@@ -121,28 +192,22 @@ class SyntheticEuroSAT:
         return img.astype(np.float32)
 
 
-TILE_PATTERNS = ("*.tif", "*.jpg", "*.png")
-
-
 def build_dataset(config: dict, split: str):
-    """The config's dataset: synthetic tiles when ``data.root_dir`` holds no
-    tile (it does not exist, or nothing under it matches
-    ``TILE_PATTERNS``) and ``data.synthetic_fallback`` allows it (the
-    default), as the reference falls back."""
+    """The config's dataset: the tiles under ``data.root_dir``, or
+    synthetic tiles when it holds none (it does not exist, or nothing under
+    it is a tile) and ``data.synthetic_fallback`` allows it (the default),
+    as the reference falls back."""
     data_cfg = config.get("data", {})
     root = Path(data_cfg.get("root_dir", "./data/EuroSAT_MS"))
-    if root.is_dir() and any(next(root.rglob(p), None) for p in TILE_PATTERNS):
-        raise NotImplementedError(
-            f"data.root_dir {root} holds image tiles, but the EuroSAT TIFF reader "
-            "(msid_tpu/data/tiff.py, EuroSATMultiSpectral) is not ported yet; "
-            "train on synthetic tiles (synthetic=True)")
-    if not data_cfg.get("synthetic_fallback", True):
-        raise FileNotFoundError(f"No image tiles found under {root}")
+    kwargs = dict(train_split=float(data_cfg.get("train_split", 0.8)),
+                  seed=int(config.get("seed", 42)),
+                  num_bands=int(data_cfg.get("num_bands", NUM_BANDS)))
+    try:
+        return EuroSATMultiSpectral(root, split=split, **kwargs)
+    except FileNotFoundError:
+        if not data_cfg.get("synthetic_fallback", True):
+            raise
     logger.warning("Dataset not found at %s — using synthetic tiles", root)
     return SyntheticEuroSAT(
         int(data_cfg.get("synthetic_samples", 512)), split=split,
-        train_split=float(data_cfg.get("train_split", 0.8)),
-        seed=int(config.get("seed", 42)),
-        num_bands=int(data_cfg.get("num_bands", NUM_BANDS)),
-        complexity=str(data_cfg.get("synthetic_complexity", "base")),
-    )
+        complexity=str(data_cfg.get("synthetic_complexity", "base")), **kwargs)

@@ -3,9 +3,13 @@
 ``BatchLoader`` yields seeded, shuffled batches of raw tiles, staged by a
 background thread; ``get_dataloaders`` builds the train loader (drop_last)
 and the validation loader (every sample, the trailing batch padded to the
-static shape and yielded as ``(batch, true_count)``). The JAX package's
-``DeviceCachedLoader`` is not ported yet: it gives bit-identical batches,
-so ``data.device_cache`` falls back to the host loader with a log line.
+static shape and yielded as ``(batch, true_count)``).
+``DeviceCachedLoader`` holds the whole tile set in device memory, narrowed
+to uint16 where that is exact, and gathers each batch there by index: the
+same batches as ``BatchLoader`` with the same arguments, with no host copy
+of a tile per step. ``data.device_cache`` (true, false or "auto") picks it
+in ``get_dataloaders`` and ``get_test_dataloader`` when the set fits
+``data.device_cache_max_gb``, and the host loader otherwise.
 """
 
 from __future__ import annotations
@@ -13,11 +17,19 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
+
+from msid_tpu_torch.models.restoration import resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+class DeviceCacheTooLarge(ValueError):
+    """The stacked tile set exceeds the cache's byte budget after its
+    storage dtype was resolved; callers fall back to the host loader."""
 
 
 class BatchLoader:
@@ -117,9 +129,120 @@ class BatchLoader:
             stop.set()
 
 
-def get_dataloaders(config: dict):
+class DeviceCachedLoader(BatchLoader):
+    """Batches of raw tiles gathered from a tile set held in device memory.
+
+    The whole dataset is stacked and uploaded once at construction; each
+    batch is one ``index_select`` on the device, from an index vector the
+    host sends (8 bytes a tile). The seeded permutation of each epoch, the
+    batch boundaries and the pad rule (``pad_last`` repeats the batch's
+    first tile, here by repeating its index before the gather) are
+    ``BatchLoader``'s, so the batches are the same, as device tensors.
+
+    ``storage_dtype``: ``"native"`` keeps the tiles' dtype; ``"auto"``
+    stores float tiles as uint16 when every value is an integer in
+    [0, 65535] (Sentinel-2 DN decoded to float32): exact, since the train
+    step casts to float32 first, and half the bytes; ``"uint16"`` requires
+    it and raises ``ValueError`` otherwise. ``max_bytes`` is checked
+    against the stacked set after that choice and raises
+    ``DeviceCacheTooLarge`` when it is exceeded. ``nbytes`` is what the
+    cache holds on the device.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 drop_last: bool = True, seed: int = 0, pad_last: bool = False,
+                 storage_dtype: str = "native", max_bytes: Optional[int] = None,
+                 device: str | torch.device = "cuda"):
+        super().__init__(dataset, batch_size, shuffle=shuffle, drop_last=drop_last,
+                         seed=seed, prefetch=0, pad_last=pad_last)
+        if storage_dtype not in ("native", "auto", "uint16"):
+            raise ValueError(f"storage_dtype must be native/auto/uint16, got {storage_dtype!r}")
+        self.device = resolve_device(device)
+        stacked = np.stack([dataset[i] for i in range(len(dataset))], axis=0)
+        if storage_dtype != "native" and np.issubdtype(stacked.dtype, np.floating):
+            if _uint16_exact(stacked):
+                stacked = stacked.astype(np.uint16)
+            elif storage_dtype == "uint16":
+                raise ValueError(
+                    "device_cache_dtype: uint16 requires integral tiles in [0, 65535]; "
+                    "this dataset has fractional or out-of-range values — use "
+                    "'native' (or 'auto' to narrow only when exact)")
+        # _tile_nbytes sized the cache from the first tile only; a set that
+        # stays float32 past its first tile is twice that estimate.
+        if max_bytes is not None and stacked.nbytes > max_bytes:
+            raise DeviceCacheTooLarge(
+                f"tile set is {stacked.nbytes / 1e9:.2f} GB after dtype resolution "
+                f"(> {max_bytes / 1e9:.2f} GB budget)")
+        self.nbytes = stacked.nbytes
+        self._tiles = torch.from_numpy(stacked).to(self.device)
+
+    def _make_batch(self, idxs: np.ndarray):
+        count = len(idxs)
+        if self.pad_last and count < self.batch_size:
+            idxs = np.concatenate([idxs, np.repeat(idxs[:1], self.batch_size - count)])
+        index = torch.from_numpy(np.asarray(idxs, np.int64)).to(self.device)
+        batch = torch.index_select(self._tiles, 0, index)
+        return (batch, count) if self.pad_last else batch
+
+
+def _uint16_exact(x: np.ndarray) -> bool:
+    """Every value of the float array is an integer in [0, 65535]."""
+    return bool(x.size and x.min() >= 0 and x.max() <= np.iinfo(np.uint16).max
+                and not np.any(x != np.floor(x)))
+
+
+def _device_cache_enabled(config: dict, nbytes_estimate: int) -> bool:
+    """``data.device_cache``: false, or true/"auto" when the estimate fits
+    ``data.device_cache_max_gb`` (true warns when it does not)."""
+    data_cfg = config.get("data", {})
+    mode = data_cfg.get("device_cache", False)
+    if mode is False:
+        return False
+    cap_gb = float(data_cfg.get("device_cache_max_gb", 4.0))
+    fits = nbytes_estimate <= cap_gb * 1e9
+    if not fits and mode is True:
+        logger.warning("data.device_cache: true but the tile set is %.2f GB "
+                       "(> device_cache_max_gb %.1f) — falling back to the host "
+                       "loader", nbytes_estimate / 1e9, cap_gb)
+    return fits
+
+
+def _tile_nbytes(dataset, storage_dtype: str = "native") -> int:
+    """Estimated cache bytes of ``dataset``, from its first tile: halved when
+    ``storage_dtype`` narrows and that tile is float32 and uint16-exact, so
+    that a set which fits only narrowed is not refused. The loader checks
+    the whole set again when it is built."""
+    if len(dataset) == 0:
+        return 0
+    tile = np.asarray(dataset[0])
+    nbytes = tile.nbytes
+    if (storage_dtype in ("auto", "uint16") and np.issubdtype(tile.dtype, np.floating)
+            and tile.itemsize == 4 and _uint16_exact(tile)):
+        nbytes //= 2
+    return nbytes * len(dataset)
+
+
+def _device_cached_or_host(dataset, storage_dtype: str = "native",
+                           max_bytes: Optional[int] = None,
+                           device: str | torch.device = "cuda", **kw):
+    """A ``DeviceCachedLoader`` of ``dataset``, or the host ``BatchLoader``
+    for an empty split or a set over budget after narrowing."""
+    if len(dataset) > 0:
+        try:
+            return DeviceCachedLoader(dataset, storage_dtype=storage_dtype,
+                                      max_bytes=max_bytes, device=device, **kw)
+        except DeviceCacheTooLarge as e:
+            logger.warning("device cache disabled for this split: %s — using the "
+                           "host loader", e)
+    return BatchLoader(dataset, **kw)
+
+
+def get_dataloaders(config: dict, device: str | torch.device = "cuda"):
     """``(train_loader, val_loader)``; both batches are
-    ``micro_batch_size * gradient_accumulation_steps`` tiles."""
+    ``micro_batch_size * gradient_accumulation_steps`` tiles. With
+    ``data.device_cache`` the splits that fit are cached on ``device``
+    (the GPU unless told otherwise), the validation split in what the
+    train split left of the budget."""
     from msid_tpu_torch.data.dataset import build_dataset
 
     training = config.get("training", {})
@@ -127,12 +250,35 @@ def get_dataloaders(config: dict):
     batch = int(training.get("micro_batch_size", 8)) * int(
         training.get("gradient_accumulation_steps", 1))
     seed = int(config.get("seed", 42))
-    if data_cfg.get("device_cache", False):
-        logger.info("data.device_cache is set, but the device tile cache "
-                    "(DeviceCachedLoader) is not ported yet; using the host "
-                    "loader, which gives the same batches")
-    train_loader = BatchLoader(build_dataset(config, "train"), batch_size=batch,
-                               shuffle=True, drop_last=True, seed=seed)
-    val_loader = BatchLoader(build_dataset(config, "val"), batch_size=batch,
-                             shuffle=False, drop_last=False, seed=seed, pad_last=True)
-    return train_loader, val_loader
+    train_ds, val_ds = build_dataset(config, "train"), build_dataset(config, "val")
+    storage = data_cfg.get("device_cache_dtype", "auto")
+    train_kw = dict(batch_size=batch, shuffle=True, drop_last=True, seed=seed)
+    val_kw = dict(batch_size=batch, shuffle=False, drop_last=False, seed=seed, pad_last=True)
+    if _device_cache_enabled(config, _tile_nbytes(train_ds, storage)
+                             + _tile_nbytes(val_ds, storage)):
+        cap = int(float(data_cfg.get("device_cache_max_gb", 4.0)) * 1e9)
+        train_loader = _device_cached_or_host(train_ds, storage, cap, device, **train_kw)
+        spent = getattr(train_loader, "nbytes", 0)
+        val_loader = _device_cached_or_host(val_ds, storage, max(0, cap - spent), device,
+                                            **val_kw)
+        return train_loader, val_loader
+    return BatchLoader(train_ds, **train_kw), BatchLoader(val_ds, **val_kw)
+
+
+def get_test_dataloader(config: dict, batch_size: Optional[int] = None,
+                        device: str | torch.device = "cuda"):
+    """Every sample of the dataset (``train_split`` 1.0) in order, the
+    trailing batch padded, of ``batch_size`` tiles (default
+    ``training.micro_batch_size``); cached on ``device`` as in
+    ``get_dataloaders``."""
+    from msid_tpu_torch.data.dataset import build_dataset
+
+    data_cfg = config.get("data", {})
+    ds = build_dataset(dict(config, data=dict(data_cfg, train_split=1.0)), "train")
+    bs = batch_size or int(config.get("training", {}).get("micro_batch_size", 8))
+    kw = dict(batch_size=bs, shuffle=False, drop_last=False, pad_last=True)
+    storage = data_cfg.get("device_cache_dtype", "auto")
+    if len(ds) > 0 and _device_cache_enabled(config, _tile_nbytes(ds, storage)):
+        cap = int(float(data_cfg.get("device_cache_max_gb", 4.0)) * 1e9)
+        return _device_cached_or_host(ds, storage, cap, device, **kw)
+    return BatchLoader(ds, **kw)

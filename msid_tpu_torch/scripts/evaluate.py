@@ -115,7 +115,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             variables = tuple(members)
             logger.info("Ensembling %d checkpoints (mean restoration)", len(members))
 
-    _, val_loader = get_dataloaders(config)
+    _, val_loader = get_dataloaders(config, device)
     results = evaluate_model(
         model, variables, val_loader, loss_cfg=LossConfig.from_config(config),
         noise_cfg=NoiseConfig.from_config(config), image_size=image_size, tta=args.tta,

@@ -148,7 +148,7 @@ def setup_training_session(config_path: str | Path | dict,
         config.setdefault("data", {})["root_dir"] = "/nonexistent-forces-synthetic"
     seed = int(config.get("seed", 42)) if seed is None else seed
 
-    train_loader, val_loader = get_dataloaders(config)
+    train_loader, val_loader = get_dataloaders(config, device)
     model, counts = create_model_from_config(config, seed, device)
 
     pretrained = config.get("model", {}).get("encoder", {}).get("pretrained_path")

@@ -411,3 +411,73 @@ def test_session_capture_failure_raises_on_the_card():
     torch.cuda.synchronize()
     x = torch.ones(3, device="cuda")
     assert float((x * 2).sum()) == 6.0                # the card still works
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scene_paths_agree_and_replay_their_eager_step_on_the_card(dtype):
+    """A ragged uint16 scene through the three assemblies on the card: host
+    and device within 1e-4, streaming and device within 1e-5; each step
+    captured once with the 8 block launches and replayed once a batch; a
+    replay bit-equal to the step's eager forward; in fp32 the device path
+    within 1e-4 of the same restore on the CPU."""
+    need_card()
+    from msid_tpu_torch.deployment import sliding_window as sw
+
+    model = flagship_like(dtype)
+    scene = np.random.default_rng(5).integers(0, 10000, (80, 100, 13), dtype=np.uint16)
+    kw = dict(window=32, overlap=8, model_size=32, batch_size=4)
+    host_step = sw.make_scene_step(model, None, 32, 32)
+    dev_step = sw.make_device_scene_step(model, None, 32, 32, 8)
+    host = sw.restore_scene(None, None, scene, step=host_step, **kw)
+    dev = sw.restore_scene(None, None, scene, step=dev_step, device_assembly=True, **kw)
+    streamed = sw.restore_scene_streaming(None, None, scene, step=dev_step, band_origin_rows=2,
+                                          output_dtype=np.float32, **kw)
+    np.testing.assert_allclose(host, dev, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(streamed, dev, rtol=1e-5, atol=1e-5)
+    windows = len(sw._window_origins(80, 32, 24)) * len(sw._window_origins(100, 32, 24))
+    assert host_step.compiled == dev_step.compiled == "cuda_graph"
+    assert host_step.captured_launches == dev_step.captured_launches == 8
+    assert host_step.replays == -(-windows // 4)
+    batch = torch.from_numpy(scene[None, :32, :32]).repeat(4, 1, 1, 1).cuda()
+    assert torch.equal(dev_step.run(batch).clone(), dev_step._raw(batch))
+    if dtype == torch.float32:
+        cpu = sw.restore_scene(model.cpu(), None, scene, device_assembly=True, device="cpu",
+                               **kw)
+        np.testing.assert_allclose(dev, cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_a_host_step_result_outlives_the_next_replay_on_the_card():
+    """The host assembly keeps one batch in flight: a result copied out
+    before the next replay must not change when that replay overwrites the
+    graph's output."""
+    need_card()
+    from msid_tpu_torch.deployment import sliding_window as sw
+
+    step = sw.make_scene_step(flagship_like(torch.bfloat16), None, 32, 32)
+    rng = np.random.default_rng(6)
+    a, b = (rng.uniform(0, 10000, (4, 32, 32, 13)).astype(np.float32) for _ in range(2))
+    first = step(a)
+    second = step(b)
+    got_a, got_b = sw.device_get(*first), sw.device_get(*second)
+    assert np.array_equal(got_a, step._raw(torch.from_numpy(a).cuda()).cpu().numpy())
+    assert np.array_equal(got_b, step._raw(torch.from_numpy(b).cuda()).cpu().numpy())
+    assert not np.array_equal(got_a, got_b)
+
+
+@pytest.mark.cuda
+def test_device_cache_gathers_uint16_tiles_on_the_card():
+    need_card()
+    from msid_tpu_torch.data.pipeline import BatchLoader, DeviceCachedLoader
+
+    tiles = [np.random.default_rng(i).integers(0, 10000, (8, 8, 13)).astype(np.float32)
+             for i in range(10)]
+    cached = DeviceCachedLoader(tiles, batch_size=4, shuffle=True, drop_last=False,
+                                pad_last=True, seed=2, storage_dtype="auto")
+    assert cached._tiles.is_cuda and cached._tiles.dtype == torch.uint16
+    host = BatchLoader(tiles, batch_size=4, shuffle=True, drop_last=False, pad_last=True,
+                       seed=2)
+    for (cb, cn), (hb, hn) in zip(cached, host):
+        assert cb.is_cuda and cn == hn
+        np.testing.assert_array_equal(cb.float().cpu().numpy(), hb)

@@ -16,8 +16,14 @@ from msid_tpu.data.pipeline import BatchLoader as JaxBatchLoader
 from msid_tpu.ops.fill import fit_gram as jax_fit_gram
 from msid_tpu.ops.fill import fit_gram_from_config as jax_fit_gram_from_config
 from msid_tpu.utils.setup_helpers import estimate_memory as jax_estimate_memory
-from msid_tpu_torch.data.dataset import SyntheticEuroSAT, _reference_split, build_dataset
-from msid_tpu_torch.data.pipeline import BatchLoader, get_dataloaders
+from msid_tpu_torch.data.dataset import (
+    EuroSATMultiSpectral,
+    SyntheticEuroSAT,
+    _reference_split,
+    build_dataset,
+)
+from msid_tpu_torch.data.pipeline import BatchLoader, DeviceCachedLoader, get_dataloaders
+from msid_tpu_torch.data.tiff import write_tiff
 from msid_tpu_torch.ops.fill import fit_gram, fit_gram_from_config
 from msid_tpu_torch.training import trainer as trainer_module
 from msid_tpu_torch.training.eval import run_eval_loop, split_batch_item
@@ -129,18 +135,19 @@ def test_accumulation_collapses_when_it_fits(tmp_path, caplog):
     assert session["trainer"].accum_steps == 4
 
 
-def test_what_is_not_ported_raises(tmp_path, caplog):
+def test_what_is_not_ported_raises(tmp_path):
     config = tiny_config()
     tiles = tmp_path / "tiles"
     (tiles / "River").mkdir(parents=True)
-    (tiles / "River" / "River_1.tif").write_bytes(b"II*\x00")
-    with pytest.raises(NotImplementedError, match="TIFF reader"):
-        build_dataset(dict(config, data=dict(config["data"], root_dir=str(tiles))), "train")
+    for i in range(3):
+        write_tiff(tiles / "River" / f"River_{i}.tif", np.full((64, 64, 13), i, np.uint16))
+    ds = build_dataset(dict(config, data=dict(config["data"], root_dir=str(tiles))), "train")
+    assert isinstance(ds, EuroSATMultiSpectral) and len(ds) == 2
     with pytest.raises(FileNotFoundError):
         build_dataset(dict(config, data=dict(config["data"], synthetic_fallback=False)), "train")
-    with caplog.at_level(logging.INFO):
-        train, val = get_dataloaders(dict(config, data=dict(config["data"], device_cache=True)))
-    assert isinstance(train, BatchLoader) and "not ported yet" in caplog.text
+    train, val = get_dataloaders(dict(config, data=dict(config["data"], device_cache=True)),
+                                 device="cpu")
+    assert isinstance(train, DeviceCachedLoader) and isinstance(val, DeviceCachedLoader)
     # the folded graphs have no fill prologue: a hybrid validation pass on a
     # model with the input stage raises as the JAX package's does
     fill = dict(config, model=dict(config["model"], input_fill={"enabled": True}))
