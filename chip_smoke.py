@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (``msid_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, the result lines
-    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise, probe,
-                                               # hybrid, scene, data_cache), no result lines
+    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise, probe, hybrid,
+                                               # scene, data_cache, export, perceptual,
+                                               # pretrained), no result lines
 
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
@@ -122,7 +123,31 @@ network. Phases, each of which must pass:
    ``scripts.evaluate --forward apply`` and ``--forward hybrid`` in fp32
    (metrics within 1e-4 relative) and under bf16 autocast (within 2e-2),
    and ``--forward hybrid`` refused with
-   ``ValueError`` on the flagship (it has the input fill stage).
+   ``ValueError`` on the flagship (it has the input fill stage);
+13. export: the flagship (seeded random weights) exported on the card by
+   ``deployment.export.export_program`` in bf16 and fp32: ``module.pt2``
+   below max(2 MB, payload / 2), 8 ``msid::fused_residual_block`` nodes,
+   verified at B=1 and 3, the fp32 artifact ``compare_live_vs_exported``
+   allclose; each served by ``InferenceSession(artifact_path=...)`` at B=1
+   and B=16 beside the live session on the same weights, in turns (device
+   p50 of a replay, launches and busy time per replay by the profiler, 8
+   K1 or K4 kernels a replay, no tensor-map encode at a replay), bf16
+   within 1e-3 relative RMS of the live session and 2e-2 of fp32 on the
+   CPU, fp32 within 1e-4 of the CPU; an int8 artifact (sizes,
+   ``quantization_report``, cosine > 0.99), a ``tta=8`` artifact at B=1
+   against the live ``tta=8`` session (64 K1 a replay), the ``unet_light``
+   fastpath artifact at B=16 against the live fastpath session; then
+   ``python -m msid_tpu_torch.scripts.export --verify --int8`` on the
+   flagship in a child process, with its seconds;
+14. perceptual: VGG16 weights written to an ``.npz`` and resolved by
+   ``resolve_perceptual``; the flagship's bf16 train step at B=64 with the
+   edge stand-in and with the VGG16 term (weight 0.1), in turns, its cost
+   per step; the VGG term on the card (TF32 off) within 1e-4 of the CPU;
+15. pretrained: a synthetic ViT-Base SatMAE ``.pth`` (3-band patch embed,
+   fused qkv, 197 positions) through ``setup_training_session``'s
+   ``pretrained_path``: the position embedding resampled to 144, the qkv
+   split, and the encoder on the card within 1e-4 relative RMS of the
+   same checkpoint loaded on the CPU (fp32).
 
 A launch count in the kernels line is a count of device launches. A
 wrapper counts its launch when it runs eagerly and when a graph is
@@ -144,6 +169,7 @@ directories that are removed at the end.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -228,6 +254,12 @@ CLI_SCENE_SHAPE = (4096, 4096, 13)    # 16.8 Mpix: above AUTO_STREAM_PIXELS, so 
 WHOLE_SCENE_SIDE = 10980          # a Sentinel-2 tile, for the device-memory reckoning
 CACHE_TILES = 1024                # EuroSAT-shaped uint16 tiles written for the cache phase
 CACHE_TURNS = ("cache", "host", "host", "cache")
+# Artifacts: a bf16 artifact against the live bf16 session on the same weights
+# (the same kernels; the exported graph makes the blocks' operands itself)
+ARTIFACT_VS_LIVE_BF16 = 1e-3
+INT8_COSINE = 0.99                # int8 weights: the JAX CLI's gate
+VGG_WEIGHT = 0.1                  # the perceptual term's weight in the VGG phase
+VGG_CPU_RTOL = 1e-4               # the VGG term on the card (TF32 off) against the CPU
 
 
 def load_flagship() -> dict:
@@ -1953,6 +1985,343 @@ def phase_data_cache(torch, failures: list, card: str) -> dict:
     return result
 
 
+def count_block_nodes(torch, path: Path) -> int:
+    """``msid::fused_residual_block`` nodes in an artifact's exported graph."""
+    from msid_tpu_torch.deployment.export import MODULE_FILE
+
+    program = torch.export.load(path / MODULE_FILE)
+    op = torch.ops.msid.fused_residual_block.default
+    return sum(n.target is op for n in program.graph.nodes)
+
+
+def artifact_turns(torch, artifact, live, x, tag: str, iters: int) -> dict:
+    """An artifact session against the live session on the same weights: in
+    turns (live, artifact, artifact, live) the device p50 of a replay
+    (``benchmark``); then the tensor maps K1's libraries encode over
+    ``iters`` artifact replays and a profiler breakdown of one artifact
+    replay (the live session's is the serve phases')."""
+    turns: dict = {"live": [], "artifact": []}
+    for form in ("live", "artifact", "artifact", "live"):
+        session = artifact if form == "artifact" else live
+        turns[form].append(session.benchmark(warmup_runs=3,
+                                             benchmark_iterations=iters)["p50_ms"])
+    xd = torch.from_numpy(x).cuda()
+    encodes = resblock_encodes()
+    for _ in range(iters):
+        artifact.forward(xd)
+    torch.cuda.synchronize()
+    prof = device_profile(torch, lambda: artifact.forward(xd), tags={"block": tag},
+                          expect={"block": artifact.captured_launches})
+    live_ms, artifact_ms = (float(np.mean(turns[k])) for k in ("live", "artifact"))
+    return {"turns_device_p50_ms": turns, "live_device_p50_ms": live_ms,
+            "device_p50_ms": artifact_ms, "artifact_over_live": artifact_ms / live_ms,
+            "captured_launches": artifact.captured_launches,
+            "encodes_per_replay": (resblock_encodes() - encodes) / iters,
+            "device_launches_per_replay": prof["device_launches"],
+            "block_kernels_per_replay": prof["block_launches"], "block_ms": prof["block"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": 1 - prof["device_busy_ms"] / artifact_ms,
+            "profiler_sessions_full": prof["sessions_full"],
+            "profiler_sessions_over": prof["sessions_over"]}
+
+
+def phase_export(torch, failures: list, card: str) -> dict:
+    """The flagship exported on the card in bf16 and fp32 and served from
+    the artifacts (``InferenceSession(artifact_path=...)``) beside the live
+    sessions: layout, custom-op nodes, verification, agreement, launches
+    and device times; an int8 artifact, a ``tta=8`` one, the ``unet_light``
+    fastpath, and the export CLI in a child process."""
+    import dataclasses
+
+    from msid_tpu_torch.deployment.export import (
+        MODULE_FILE,
+        PARAMS_FILE,
+        QPARAMS_FILE,
+        compare_live_vs_exported,
+        export_program,
+        verify_exported_model,
+    )
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.deployment.quantize import quantization_report
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_decoder
+
+    cfg = load_flagship()
+    cpu_model = SatMAERestoration.from_config(cfg, device="cpu").eval()
+    randomize_(torch, cpu_model, seed=0)
+    size, bands = cpu_model.image_size, cpu_model.in_channels
+    shape = (1, size, size, bands)
+    x0 = noisy_tiles(1, size, bands, seed=100)
+    torch.set_num_threads(8)
+    with torch.no_grad():
+        ref = cpu_model(torch.from_numpy(x0)).numpy()
+    params = list(cpu_model.parameters())
+    result = {"check": "export", "config": str(CONFIG.relative_to(ROOT)), "card": card,
+              "parameters": sum(p.numel() for p in params),
+              "parameters_2d": sum(p.numel() for p in params if p.dim() >= 2)}
+    launches = {"export": 0, "export_fp32": 0}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_export_")
+    models = {}
+    for name, dtype, counter, tag in (
+            ("bfloat16", torch.bfloat16, "launches", "resblock_kernel"),
+            ("float32", torch.float32, "launches_fp32", "resblock_fp32_kernel")):
+        model = SatMAERestoration.from_config(cfg, dtype=dtype).eval()
+        model.load_state_dict(cpu_model.state_dict())
+        models[name] = model
+        t0 = time.perf_counter()
+        path = export_program(model, Path(tmp.name) / name, input_shape=shape)
+        row = {"export_seconds": time.perf_counter() - t0,
+               "module_bytes": (path / MODULE_FILE).stat().st_size,
+               "payload_bytes": (path / PARAMS_FILE).stat().st_size,
+               "block_nodes": count_block_nodes(torch, path),
+               "verify_b1_b3": verify_exported_model(path, shape, (1, 3))}
+        if not (row["module_bytes"] < max(2e6, row["payload_bytes"] / 2)
+                and row["block_nodes"] == 8 and row["verify_b1_b3"]):
+            failures.append(f"export {name}: {row}")
+        if dtype == torch.float32:
+            cmp = compare_live_vs_exported(model, None, path, shape)
+            row["live_vs_exported"] = dataclasses.asdict(cmp)
+            if not cmp.allclose:
+                failures.append(f"export float32: live vs exported {cmp}")
+        for b in BATCHES:
+            setattr(cuda_decoder, counter, 0)
+            artifact = InferenceSession(artifact_path=path, batch_size=b, image_size=size,
+                                        num_bands=bands)
+            requests = [x0] if b == 1 else [noisy_tiles(b, size, bands, seed=400 + i)
+                                             for i in range(REQUESTS)]
+            outs = [artifact.predict(r) for r in requests]
+            counted = getattr(cuda_decoder, counter)
+            live = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
+            want = [live.predict(r) for r in requests]
+            b_row = artifact_turns(torch, artifact, live, requests[0], tag, 20)
+            b_row["rel_rms_vs_live"] = max(rel_rms(o, w) for o, w in zip(outs, want))
+            b_row["finite"] = all(np.isfinite(o).all() for o in outs)
+            if b == 1:
+                b_row["rel_rms_vs_cpu_fp32"] = rel_rms(outs[0], ref)
+            launches["export" if dtype == torch.bfloat16 else "export_fp32"] += (
+                counted + (artifact.replays - 1) * artifact.captured_launches)
+            bound = (ARTIFACT_VS_LIVE_BF16 if dtype == torch.bfloat16
+                     else FP32_FORWARD_REL_RMS)
+            cpu_bound = MAX_REL_RMS if dtype == torch.bfloat16 else FP32_FORWARD_REL_RMS
+            if not (artifact.compiled == "cuda_graph" and artifact.captured_launches == 8
+                    and b_row["block_kernels_per_replay"] == 8
+                    and not b_row["profiler_sessions_over"]
+                    and b_row["encodes_per_replay"] == 0 and b_row["finite"]
+                    and b_row["rel_rms_vs_live"] <= bound
+                    and b_row.get("rel_rms_vs_cpu_fp32", 0.0) <= cpu_bound):
+                failures.append(f"export {name} B={b}: {b_row}")
+            row[f"b{b}"] = b_row
+            del artifact, live
+            torch.cuda.empty_cache()
+        result[name] = row
+
+    # int8 weights (bf16 compute), and a tta=8 artifact against the live tta=8 session
+    model = models["bfloat16"]
+    t0 = time.perf_counter()
+    path = export_program(model, Path(tmp.name) / "int8", input_shape=shape, int8_weights=True)
+    state = {k: v.float().cpu().numpy() for k, v in model.state_dict().items()}
+    report = quantization_report(state, model, torch.from_numpy(x0).cuda())
+    cmp = compare_live_vs_exported(model, None, path, shape, rtol=0.1, atol=0.05)
+    result["int8"] = dict(report, export_seconds=time.perf_counter() - t0,
+                          payload_bytes=(path / QPARAMS_FILE).stat().st_size,
+                          payload_ratio=result["bfloat16"]["payload_bytes"]
+                          / (path / QPARAMS_FILE).stat().st_size,
+                          live_vs_exported=dataclasses.asdict(cmp))
+    if not cmp.cosine_similarity > INT8_COSINE:
+        failures.append(f"export int8: {result['int8']}")
+    path = export_program(model, Path(tmp.name) / "tta8", input_shape=shape, tta=8)
+    artifact = InferenceSession(artifact_path=path, batch_size=1, image_size=size,
+                                num_bands=bands)
+    live = InferenceSession(model, batch_size=1, image_size=size, num_bands=bands, tta=8)
+    result["tta8_b1"] = tta = artifact_turns(torch, artifact, live, x0, "resblock_kernel", 10)
+    tta["rel_rms_vs_live"] = rel_rms(artifact.predict(x0), live.predict(x0))
+    if not (artifact.captured_launches == 64 and tta["block_kernels_per_replay"] == 64
+            and tta["rel_rms_vs_live"] <= ARTIFACT_VS_LIVE_BF16):
+        failures.append(f"export tta=8: {tta}")
+    del artifact, live, models, model
+    torch.cuda.empty_cache()
+
+    # the unet_light fastpath (optimize=True) at B=16, against the live fastpath session
+    light = SatMAERestoration().eval()
+    randomize_(torch, light, seed=2)
+    light = light.set_compute_dtype(torch.bfloat16).cuda()
+    path = export_program(light, Path(tmp.name) / "light", input_shape=shape, optimize=True)
+    artifact = InferenceSession(artifact_path=path, batch_size=16, image_size=size,
+                                num_bands=bands)
+    live = InferenceSession(light, batch_size=16, image_size=size, num_bands=bands,
+                            optimize=True)
+    x16 = noisy_tiles(16, size, bands, seed=300)
+    result["unet_light_fastpath_b16"] = fast = artifact_turns(
+        torch, artifact, live, x16, "resblock_kernel", 10)
+    fast["rel_rms_vs_live"] = rel_rms(artifact.predict(x16), live.predict(x16))
+    fast["block_nodes"] = count_block_nodes(torch, path)
+    if not (artifact.captured_launches == 0 and fast["block_nodes"] == 0
+            and fast["rel_rms_vs_live"] <= ARTIFACT_VS_LIVE_BF16):
+        failures.append(f"export unet_light fastpath: {fast}")
+    del artifact, live, light
+    torch.cuda.empty_cache()
+
+    # the export CLI, as a user runs it: seeded flagship weights, int8, verified
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "msid_tpu_torch.scripts.export", "--model-config",
+         str(CONFIG), "--output", str(Path(tmp.name) / "cli"), "--verify", "--int8"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    result["cli"] = {"seconds": time.perf_counter() - t0, "rc": proc.returncode,
+                     "log_tail": proc.stderr.strip().splitlines()[-3:]}
+    if proc.returncode != 0:
+        failures.append(f"export CLI: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    tmp.cleanup()
+    result["launches"] = launches
+    emit(result)
+    return result
+
+
+def phase_perceptual(torch, failures: list, card: str) -> dict:
+    """The VGG16 perceptual loss from a weights file: the flagship's bf16
+    train step at B=64 with and without it, in turns, and the VGG term on
+    the card against the CPU."""
+    from msid_tpu_torch.models.restoration import SatMAERestoration, exact_fp32
+    from msid_tpu_torch.ops.noise import NoiseConfig
+    from msid_tpu_torch.training.losses import LossConfig
+    from msid_tpu_torch.training.optim import build_optimizer_from_config
+    from msid_tpu_torch.training.perceptual import (
+        init_vgg16_params,
+        resolve_perceptual,
+        vgg_perceptual_per_sample,
+    )
+    from msid_tpu_torch.training.train_state import TrainState, make_train_step
+
+    cfg = load_flagship()
+    result = {"check": "perceptual", "config": str(CONFIG.relative_to(ROOT)), "card": card,
+              "perceptual_weight": VGG_WEIGHT}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vgg_") as tmp:
+        weights = Path(tmp) / "vgg16.npz"
+        np.savez(weights, **{k: v.numpy() for k, v in init_vgg16_params(0).items()})
+        impl, vgg = resolve_perceptual({"perceptual_impl": "vgg",
+                                        "perceptual_weights_path": str(weights)}, "cuda")
+    result["impl"] = impl
+    model = SatMAERestoration.from_config(cfg, device="cpu")
+    randomize_(torch, model, seed=1)
+    model.cuda()
+    optimizer, _ = build_optimizer_from_config(cfg, model)
+    state = TrainState.create(model, optimizer)
+    loss_cfg = dataclasses.replace(LossConfig.from_config(cfg), perceptual_weight=VGG_WEIGHT)
+    steps = {name: make_train_step(model, loss_cfg, NoiseConfig.from_config(cfg),
+                                   image_size=model.image_size, compute_dtype=torch.bfloat16,
+                                   vgg_params=params)
+             for name, params in (("edge", None), ("vgg", vgg))}
+    batch = train_batch(13, 64, seed=6)
+    times: dict = {"edge": [], "vgg": []}
+    metrics = {}
+    for name in ("edge", "vgg", "vgg", "edge"):          # in turns, each after a warmup
+        for i in range(TIMED_STEPS + 1):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            _, metrics[name] = steps[name](state, batch, 100 + i)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times[name].append(start.elapsed_time(end))
+    for name, t in times.items():
+        result[f"step_{name}_p50_ms"] = float(np.median(t))
+        result[f"{name}_loss"] = float(metrics[name]["loss"])
+    result["vgg_step_cost_ms"] = result["step_vgg_p50_ms"] - result["step_edge_p50_ms"]
+    rng = np.random.default_rng(7)
+    pred, target = (torch.from_numpy(rng.uniform(-2, 2, (2, 192, 192, 13)).astype(np.float32))
+                    for _ in range(2))
+    with exact_fp32(torch.float32):
+        got = vgg_perceptual_per_sample(vgg, pred.cuda(), target.cuda()).cpu().numpy()
+    want = vgg_perceptual_per_sample(init_vgg16_params(0), pred, target).numpy()
+    result["vgg_vs_cpu_max_rel"] = float(np.max(np.abs(got - want) / np.abs(want)))
+    ok = (impl == "vgg" and result["vgg_vs_cpu_max_rel"] <= VGG_CPU_RTOL
+          and all(np.isfinite(result[f"{n}_loss"]) for n in times)
+          and result["vgg_loss"] != result["edge_loss"] and state.nan_skips == 0)
+    if not ok:
+        failures.append(f"perceptual: {result}")
+    del model, state, steps, vgg
+    torch.cuda.empty_cache()
+    emit(result)
+    return result
+
+
+def satmae_state(torch, rng, dim: int = 768, depth: int = 12, tokens: int = 197) -> dict:
+    """A torch SatMAE ViT-Base state dict (3-band patch embed, fused qkv, a
+    CLS token: 197 positions of a 224 px model) from a seeded generator."""
+    def normal(std, *shape):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32))
+
+    state = {"patch_embed.proj.weight": normal(0.02, dim, 3, 16, 16),
+             "patch_embed.proj.bias": normal(0.02, dim),
+             "pos_embed": normal(0.02, 1, tokens, dim),
+             "cls_token": normal(0.02, 1, 1, dim),
+             "norm.weight": 1 + normal(0.02, dim), "norm.bias": normal(0.02, dim)}
+    for i in range(depth):
+        p = f"blocks.{i}."
+        state.update({p + "norm1.weight": 1 + normal(0.02, dim),
+                      p + "norm1.bias": normal(0.02, dim),
+                      p + "norm2.weight": 1 + normal(0.02, dim),
+                      p + "norm2.bias": normal(0.02, dim),
+                      p + "attn.qkv.weight": normal(0.02, 3 * dim, dim),
+                      p + "attn.qkv.bias": normal(0.02, 3 * dim),
+                      p + "attn.proj.weight": normal(0.02, dim, dim),
+                      p + "attn.proj.bias": normal(0.02, dim),
+                      p + "mlp.fc1.weight": normal(0.02, 4 * dim, dim),
+                      p + "mlp.fc1.bias": normal(0.02, 4 * dim),
+                      p + "mlp.fc2.weight": normal(0.02, dim, 4 * dim),
+                      p + "mlp.fc2.bias": normal(0.02, dim)})
+    return state
+
+
+def phase_pretrained(torch, failures: list, card: str) -> dict:
+    """A synthetic ViT-Base SatMAE checkpoint (197 positions) through
+    ``setup_training_session``'s ``pretrained_path``: the encoder on the
+    card against the same checkpoint loaded on the CPU, fp32."""
+    import copy
+
+    from msid_tpu_torch.models.convert import adapt_pos_embed, load_pretrained_encoder
+    from msid_tpu_torch.models.restoration import SatMAERestoration, exact_fp32
+    from msid_tpu_torch.utils.setup_helpers import setup_training_session
+
+    cfg = load_flagship()
+    result = {"check": "pretrained", "config": str(CONFIG.relative_to(ROOT)), "card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_satmae_") as tmp:
+        state = satmae_state(torch, np.random.default_rng(8))
+        ckpt = Path(tmp) / "satmae_vitb.pth"
+        torch.save({"model": state}, ckpt)
+        result["checkpoint_bytes"] = ckpt.stat().st_size
+        config = copy.deepcopy(cfg)
+        config["model"]["encoder"]["pretrained_path"] = str(ckpt)
+        t0 = time.perf_counter()
+        session = setup_training_session(config, output_dir=Path(tmp) / "run", synthetic=True,
+                                         epochs=1, seed=0)
+        result["setup_seconds"] = time.perf_counter() - t0
+        encoder = session["model"].encoder.eval()
+        cpu_model = SatMAERestoration.from_config(cfg, device="cpu")
+        load_pretrained_encoder(ckpt, cpu_model)
+        session["checkpoint_manager"].close()
+    pos = adapt_pos_embed(state["pos_embed"].numpy(), encoder.num_patches)
+    size = cpu_model.image_size
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        0, 0.5, (2, cpu_model.in_channels, size, size)).astype(np.float32))
+    with torch.no_grad():
+        want = cpu_model.encoder.eval()(x).numpy()
+        with exact_fp32(torch.float32):
+            got = encoder(x.cuda().contiguous(memory_format=torch.channels_last)).cpu().numpy()
+    result.update(
+        pos_embed_equal=bool(np.array_equal(encoder.pos_embed.detach().cpu().numpy(), pos)),
+        qkv_equal=bool(torch.equal(encoder.blocks[11].attn.value.weight.detach().cpu(),
+                                   state["blocks.11.attn.qkv.weight"][1536:])),
+        encoder_rel_rms_vs_cpu=rel_rms(got, want))
+    if not (result["pos_embed_equal"] and result["qkv_equal"]
+            and result["encoder_rel_rms_vs_cpu"] <= FP32_FORWARD_REL_RMS):
+        failures.append(f"pretrained: {result}")
+    del session, encoder
+    torch.cuda.empty_cache()
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1993,7 +2362,10 @@ def main() -> int:
                    "probe": lambda: phase_probe(torch, F, failures),
                    "hybrid": lambda: phase_hybrid(torch, failures, card),
                    "scene": lambda: phase_scene(torch, failures, card),
-                   "data_cache": lambda: phase_data_cache(torch, failures, card)}
+                   "data_cache": lambda: phase_data_cache(torch, failures, card),
+                   "export": lambda: phase_export(torch, failures, card),
+                   "perceptual": lambda: phase_perceptual(torch, failures, card),
+                   "pretrained": lambda: phase_pretrained(torch, failures, card)}
         for name in only:
             if name not in partial:
                 print(f"chip_smoke: only {sorted(partial)} run alone, got {name!r}",
@@ -2025,6 +2397,9 @@ def main() -> int:
     evaluate = timed("evaluate", phase_evaluate, torch, failures, card)
     probe = timed("probe", phase_probe, torch, F, failures)
     hybrid = timed("hybrid", phase_hybrid, torch, failures, card)
+    export = timed("export", phase_export, torch, failures, card)
+    timed("perceptual", phase_perceptual, torch, failures, card)
+    timed("pretrained", phase_pretrained, torch, failures, card)
     emit({"check": "phase_seconds", **seconds})
 
     def per_forward(kernel_rows, b=max(BATCHES)):
@@ -2045,7 +2420,8 @@ def main() -> int:
                         "train": train["launches"]["resblock"],
                         "evaluate": evaluate["launches"]["resblock"],
                         "probe": probe["launches"]["resblock"],
-                        "hybrid": hybrid["launches"]["resblock"]}
+                        "hybrid": hybrid["launches"]["resblock"],
+                        "export": export["launches"]["export"]}
     noise_by_path = {"serve": serve["noise_launches"], "train": train["launches"]["noise"],
                      "train_cache": data_cache["launches"]["noise"],
                      "evaluate": evaluate["launches"]["noise"]}
@@ -2053,7 +2429,8 @@ def main() -> int:
                     "serve_fp32": serve_fp32["k4_launches"],
                     "scene_fp32": scene["launches"]["fp32"],
                     "probe": probe["launches"]["resblock_fp32"],
-                    "hybrid": hybrid["launches"]["resblock_fp32"]}
+                    "hybrid": hybrid["launches"]["resblock_fp32"],
+                    "export_fp32": export["launches"]["export_fp32"]}
     v2_by_path = {"probe": probe["launches"]["resblock_v2"]}
     any_dma_by_path = {"probe": probe["launches"]["any_dma"]}
     k3 = per_forward(probe["k3"])

@@ -31,6 +31,13 @@ never serves eagerly instead. A CPU session runs its forward eagerly
 CUDA events and returns the reference's result; with ``donate_input`` the
 upload of a fresh host batch is inside every timed call, as in the
 reference, where a donated input buffer cannot be used twice.
+
+A session can also serve an exported artifact (``artifact_path``,
+``deployment/export.py``) in place of a model: the loaded program, with its
+payload bound, is the forward, captured on the card as a live session's
+is (inside ``exact_fp32`` for an fp32 artifact); its decoder blocks are
+``msid::fused_residual_block`` nodes, which launch K1 or K4. Such a session
+has no ``model`` and refuses ``tta`` > 1 (an artifact bakes its own views).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from __future__ import annotations
 import copy
 import functools
 import threading
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -107,10 +115,11 @@ class CapturedForward:
 class InferenceSession:
     """Restoration inference at a fixed batch size."""
 
-    def __init__(self, model: torch.nn.Module, batch_size: int = 1,
+    def __init__(self, model: torch.nn.Module | None = None, batch_size: int = 1,
                  image_size: int = 192, num_bands: int = 13,
                  device: str | torch.device = "cuda", tta: int = 1,
-                 optimize: bool | str = "auto", donate_input: bool = False):
+                 optimize: bool | str = "auto", donate_input: bool = False,
+                 artifact_path: str | Path | None = None):
         """``optimize`` selects the inference graph. ``"auto"`` (default)
         picks by batch size and serves the module's own forward for models
         the folded graphs do not support: below ``HYBRID_AUTO_MIN_BATCH``
@@ -126,50 +135,29 @@ class InferenceSession:
         (see the module's docstring); ``self.compiled`` names the compiled form
         (``"cuda_graph"``, or None on the CPU) and
         ``self.captured_launches`` counts the hand-written kernel launches
-        of one captured forward."""
+        of one captured forward. With ``artifact_path`` (and no model) the
+        session serves that exported artifact, loaded for its device."""
         self.tta = int(tta)
         self.donate_input = bool(donate_input)
         self.device = resolve_device(device)
-        self.model = copy.deepcopy(model).to(self.device).eval()
-        self.dtype = getattr(model, "dtype", torch.float32)
         self.batch_size = batch_size
         self.input_shape = (batch_size, image_size, image_size, num_bands)
         self.optimized: bool | str = False
-        infer = self._model_forward
-        if optimize is True or optimize == "auto":
-            from msid_tpu_torch.deployment.fastpath import (
-                make_fast_inference_fn,
-                make_hybrid_inference_fn,
-                optimize_for_hybrid,
-                optimize_for_inference,
-            )
+        self.model: torch.nn.Module | None = None
+        if artifact_path is not None:
+            if self.tta > 1:
+                raise ValueError("tta ensembling needs model+variables, "
+                                 "not a serialized artifact")
+            from msid_tpu_torch.deployment.export import load_exported, read_meta
 
-            small = batch_size <= FASTPATH_AUTO_MAX_BATCH
-            try:
-                if optimize == "auto" and not small and batch_size < HYBRID_AUTO_MIN_BATCH:
-                    pass                       # below the hybrid switch point: the raw graph
-                elif optimize is True or small:
-                    # The JAX package's choice of upsample form: matmul +
-                    # depth-to-space for unet_light, conv-transpose for
-                    # unet_skip.
-                    mm = self.model.decoder_arch != "unet_skip"
-                    with torch.no_grad():
-                        weights = optimize_for_inference(
-                            self.model, dtype=self.dtype,
-                            upsample="matmul" if mm else "ct")
-                    infer = functools.partial(
-                        make_fast_inference_fn(self.model, matmul_upsample=mm), weights)
-                    self.optimized = "fastpath"
-                else:
-                    with torch.no_grad():
-                        weights = optimize_for_hybrid(self.model, dtype=self.dtype)
-                    infer = functools.partial(make_hybrid_inference_fn(self.model), weights)
-                    self.optimized = "hybrid"
-            except ValueError:
-                if optimize is True:
-                    raise
-        elif optimize is not False:
-            raise ValueError(f"optimize must be 'auto', True or False, got {optimize!r}")
+            self.dtype = getattr(torch, read_meta(artifact_path).get("dtype", "float32"))
+            infer = load_exported(artifact_path, self.device)
+        elif model is None:
+            raise ValueError("Provide model or artifact_path")
+        else:
+            self.model = copy.deepcopy(model).to(self.device).eval()
+            self.dtype = getattr(model, "dtype", torch.float32)
+            infer = self._model_graph(optimize)
         self._infer = wrap_forward(infer, self.tta, image_size, image_size)
         self.compiled: str | None = None
         self.captured_launches: int | None = None
@@ -183,13 +171,50 @@ class InferenceSession:
             self.captured_launches = self._graph.launches
             # What the warmup prepared and the capture read by address.
             self._captured_operands = [
-                m.kept_operands for m in self.model.modules()
+                m.kept_operands for m in (self.model.modules() if self.model is not None else ())
                 if isinstance(m, ResidualBlock) and m.kept_operands is not None]
 
     @property
     def replays(self) -> int:
         """Replays of the captured graph so far (0 on the CPU)."""
         return 0 if self._graph is None else self._graph.replays
+
+    def _model_graph(self, optimize: bool | str) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The model's inference graph that ``optimize`` picks (see
+        ``__init__``); sets ``self.optimized``."""
+        if optimize is False:
+            return self._model_forward
+        if optimize is not True and optimize != "auto":
+            raise ValueError(f"optimize must be 'auto', True or False, got {optimize!r}")
+        from msid_tpu_torch.deployment.fastpath import (
+            make_fast_inference_fn,
+            make_hybrid_inference_fn,
+            optimize_for_hybrid,
+            optimize_for_inference,
+        )
+
+        small = self.batch_size <= FASTPATH_AUTO_MAX_BATCH
+        try:
+            if optimize == "auto" and not small and self.batch_size < HYBRID_AUTO_MIN_BATCH:
+                return self._model_forward     # below the hybrid switch point: the raw graph
+            if optimize is True or small:
+                # The JAX package's choice of upsample form: matmul +
+                # depth-to-space for unet_light, conv-transpose for unet_skip.
+                mm = self.model.decoder_arch != "unet_skip"
+                with torch.no_grad():
+                    weights = optimize_for_inference(
+                        self.model, dtype=self.dtype, upsample="matmul" if mm else "ct")
+                self.optimized = "fastpath"
+                return functools.partial(
+                    make_fast_inference_fn(self.model, matmul_upsample=mm), weights)
+            with torch.no_grad():
+                weights = optimize_for_hybrid(self.model, dtype=self.dtype)
+            self.optimized = "hybrid"
+            return functools.partial(make_hybrid_inference_fn(self.model), weights)
+        except ValueError:
+            if optimize is True:
+                raise
+            return self._model_forward
 
     def _model_forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x.to(self.dtype))

@@ -16,6 +16,7 @@ from torch import nn
 from msid_tpu_torch.ops.cuda_decoder import (
     SUPPORTED_WIDTHS,
     fused_residual_block,
+    fused_residual_block_op,
     prepare_bf16_weights,
 )
 
@@ -91,7 +92,10 @@ class ResidualBlock(nn.Module):
     kernel's dtype and layout are prepared once and kept on the module
     (``prepared_operands``); they are made again when a source tensor was
     written (its ``_version``), replaced, or the dtype or device changed.
-    In train mode, or with GroupNorm, it is plain convs and norms.
+    While the block is being exported (``torch.export``) they are graph ops
+    of its parameters instead, made on every call of the exported program
+    and never kept, and the block is one ``msid::fused_residual_block``
+    node. In train mode, or with GroupNorm, it is plain convs and norms.
     """
 
     def __init__(self, features: int, norm: str = "batch"):
@@ -133,17 +137,20 @@ class ResidualBlock(nn.Module):
         if key is not None and self._prepared is not None and self._prepared[0] == key:
             return self._prepared[1]
         with torch.no_grad():
-            affines = torch.stack([*self.norm0.folded(), *self.norm1.folded()])
-            weights = [w.to(dtype).permute(2, 3, 1, 0)
-                       for w in (self.conv0.weight, self.conv1.weight)]
-            if device.type == "cuda" and dtype == torch.bfloat16 \
-                    and weights[0].shape[-1] in SUPPORTED_WIDTHS:
-                weights = [prepare_bf16_weights(w) for w in weights]
-            elif device.type == "cuda":
-                weights = [w.contiguous() for w in weights]
-        operands = (weights[0], weights[1], affines)
+            operands = self._operands(dtype, device)
         self._prepared = (key, operands) if key is not None else None
         return operands
+
+    def _operands(self, dtype: torch.dtype, device: torch.device) -> tuple:
+        affines = torch.stack([*self.norm0.folded(), *self.norm1.folded()])
+        weights = [w.to(dtype).permute(2, 3, 1, 0)
+                   for w in (self.conv0.weight, self.conv1.weight)]
+        if device.type == "cuda" and dtype == torch.bfloat16 \
+                and weights[0].shape[-1] in SUPPORTED_WIDTHS:
+            weights = [prepare_bf16_weights(w) for w in weights]
+        elif device.type == "cuda":
+            weights = [w.contiguous() for w in weights]
+        return weights[0], weights[1], affines
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training or self.norm0.kind != "batch":
@@ -153,9 +160,13 @@ class ResidualBlock(nn.Module):
         dtype = x.dtype
         if torch.is_autocast_enabled(x.device.type):
             dtype = torch.get_autocast_dtype(x.device.type)
-        w1, w2, affines = self.prepared_operands(dtype, x.device)
-        out = fused_residual_block(channels_last(x.to(dtype)).permute(0, 2, 3, 1),
-                                   w1, w2, affines)
+        if torch.compiler.is_exporting():
+            w1, w2, affines = self._operands(dtype, x.device)
+            block = fused_residual_block_op
+        else:
+            w1, w2, affines = self.prepared_operands(dtype, x.device)
+            block = fused_residual_block
+        out = block(channels_last(x.to(dtype)).permute(0, 2, 3, 1), w1, w2, affines)
         return out.permute(0, 3, 1, 2)
 
 

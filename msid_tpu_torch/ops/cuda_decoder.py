@@ -14,6 +14,16 @@ the port of ``fused_residual_block``, v1). A CPU tensor takes the plain
 PyTorch version ``fused_residual_block_reference``. There is no other
 route: a CUDA tensor neither kernel takes raises.
 
+``fused_residual_block_op`` is the same function registered as the custom
+operator ``msid::fused_residual_block``, with a shape-only fake version,
+so that ``torch.export`` keeps the block as one opaque node of the graph
+(``deployment/export.py``) and the node dispatches by device when the
+exported program runs: a program traced on the card launches K1 or K4,
+one traced on the CPU runs the plain version. Traced through the Python
+function instead, the CPU trace would record the plain composition and a
+trace on the card would reach the launch with tensors that have no
+memory.
+
 ``fused_residual_block_v2`` is K3 (``csrc/resblock.cu`` beside K1, the port
 of ``fused_residual_block_v2``): the same bf16 block as nine shifted tap
 GEMMs over one halo window that TMA loads with zero fill, on K1's wgmma and
@@ -284,11 +294,7 @@ def prepare_bf16_weights(w: torch.Tensor) -> torch.Tensor:
     c = w.shape[-1]
     k = w.permute(0, 1, 3, 2).reshape(9 * c, c)
     cp = -(-c // BF16_BK) * BF16_BK
-    if cp == c:
-        return k.contiguous()
-    out = torch.zeros(9 * c, cp, dtype=w.dtype, device=w.device)
-    out[:, :c] = k
-    return out
+    return F.pad(k, (0, cp - c)) if cp != c else k.contiguous()
 
 
 def bf16_defines(c: int) -> tuple[str, ...]:
@@ -420,6 +426,20 @@ def fused_residual_block(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     _check_weights(w1, w2, c, torch.bfloat16, x.device)
     return _fused_residual_block_bf16(x, prepare_bf16_weights(w1),
                                       prepare_bf16_weights(w2), affines)
+
+
+@torch.library.custom_op("msid::fused_residual_block", mutates_args=(),
+                         schema="(Tensor x, Tensor w1, Tensor w2, Tensor affines) -> Tensor")
+def fused_residual_block_op(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                            affines: torch.Tensor) -> torch.Tensor:
+    """``fused_residual_block`` as the operator ``msid::fused_residual_block``:
+    what ``ResidualBlock`` calls while it is being exported."""
+    return fused_residual_block(x, w1, w2, affines)
+
+
+@fused_residual_block_op.register_fake
+def _fused_residual_block_fake(x, w1, w2, affines):
+    return torch.empty_like(x)
 
 
 def _check_width(c: int) -> None:

@@ -1,25 +1,23 @@
 """Restoration losses (PyTorch): counterpart of ``msid_tpu/training/losses.py``.
 
 ``combined_loss`` = mse_weight * MSE + ssim_weight * (1 - SSIM)
-[+ sam_weight * SAM] [+ perceptual_weight * Sobel-edge MSE], with its exact
+[+ sam_weight * SAM] [+ perceptual_weight * perceptual], with its exact
 per-sample decomposition ``combined_loss_per_sample`` for the masked eval
-step. Every term is computed in fp32 with autocast off, whatever the dtype
-of ``pred``. The VGG16 perceptual loss (``training/perceptual.py`` of the
-JAX package) is not ported yet: it needs weights from a user file.
+step. The perceptual term is the reference's VGG16 feature MSE when VGG
+weights are given (``training/perceptual.py``), else the Sobel edge
+stand-in. Every term is computed in fp32 with autocast off, whatever the
+dtype of ``pred``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from msid_tpu_torch.ops.ssim import DEFAULT_DATA_RANGE, ssim, ssim_per_sample
-
-logger = logging.getLogger(__name__)
+from msid_tpu_torch.training.perceptual import vgg_perceptual_loss, vgg_perceptual_per_sample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,36 +37,6 @@ class LossConfig:
             perceptual_weight=float(loss.get("perceptual_weight", 0.0)),
             sam_weight=float(loss.get("sam_weight", 0.0)),
         )
-
-
-def resolve_perceptual(loss_config: dict) -> str:
-    """The perceptual loss a ``training.loss`` section asks for, as the
-    reference's ``resolve_perceptual`` decides it: ``"edge"`` (the Sobel
-    stand-in) unless ``perceptual_impl: vgg``; ``vgg`` without a weights file
-    warns and falls back to ``"edge"``; an unknown name raises
-    ``ValueError``. VGG with a weights file raises ``NotImplementedError``:
-    the VGG16 loss (training/perceptual.py) is not ported yet."""
-    impl = str(loss_config.get("perceptual_impl", "edge")).lower()
-    if impl not in ("vgg", "edge"):
-        raise ValueError(f"unknown perceptual_impl {impl!r}")
-    if impl == "edge":
-        return "edge"
-    path = loss_config.get("perceptual_weights_path")
-    if path and Path(path).exists():
-        raise NotImplementedError(
-            f"perceptual_impl: vgg with weights {path}: the VGG16 perceptual loss "
-            "(training/perceptual.py) is not ported yet")
-    logger.warning("perceptual_impl=vgg but no weights at %r — falling back to the "
-                   "Sobel edge stand-in", path)
-    return "edge"
-
-
-def refuse_vgg(vgg_params) -> None:
-    """Raise if VGG weights are given: the VGG16 loss is not ported yet."""
-    if vgg_params is not None:
-        raise NotImplementedError(
-            "the VGG16 perceptual loss (training/perceptual.py) is not ported "
-            "yet; leave vgg_params unset to use the Sobel edge stand-in")
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -148,7 +116,6 @@ def combined_loss_per_sample(pred: torch.Tensor, target: torch.Tensor,
                              cfg: LossConfig = LossConfig(),
                              vgg_params=None) -> torch.Tensor:
     """Per-sample combined loss, fp32 [B]; its mean is ``combined_loss``."""
-    refuse_vgg(vgg_params)
     with torch.autocast(pred.device.type, enabled=False):
         p, t = pred.float(), target.float()
         d = (p - t).reshape(p.shape[0], -1)
@@ -158,16 +125,18 @@ def combined_loss_per_sample(pred: torch.Tensor, target: torch.Tensor,
         if cfg.sam_weight > 0:
             total = total + cfg.sam_weight * sam_loss_per_sample(p, t)
         if cfg.perceptual_weight > 0:
-            total = total + cfg.perceptual_weight * _edge_perceptual_per_sample(p, t)
+            per = (_edge_perceptual_per_sample(p, t) if vgg_params is None
+                   else vgg_perceptual_per_sample(vgg_params, p, t))
+            total = total + cfg.perceptual_weight * per
         return total
 
 
 def combined_loss(pred: torch.Tensor, target: torch.Tensor,
                   cfg: LossConfig = LossConfig(),
                   vgg_params=None) -> tuple[torch.Tensor, dict]:
-    """Weighted MSE + (1 - SSIM) [+ SAM] [+ edge perceptual]; returns
-    ``(total, components)`` as fp32 device scalars."""
-    refuse_vgg(vgg_params)
+    """Weighted MSE + (1 - SSIM) [+ SAM] [+ perceptual]; returns ``(total,
+    components)`` as fp32 device scalars. ``vgg_params`` switches the
+    perceptual term from the Sobel edge stand-in to the VGG16 feature MSE."""
     with torch.autocast(pred.device.type, enabled=False):
         p, t = pred.float(), target.float()
         mse = mse_loss(p, t)
@@ -182,7 +151,8 @@ def combined_loss(pred: torch.Tensor, target: torch.Tensor,
             aux["sam_loss"] = sa
             total = total + cfg.sam_weight * sa
         if cfg.perceptual_weight > 0:
-            pe = edge_perceptual_loss(p, t)
+            pe = (edge_perceptual_loss(p, t) if vgg_params is None
+                  else vgg_perceptual_loss(vgg_params, p, t))
             aux["perceptual"] = pe
             total = total + cfg.perceptual_weight * pe
         aux["total"] = total

@@ -46,7 +46,6 @@ from msid_tpu_torch.training.losses import (
     LossConfig,
     combined_loss,
     combined_loss_per_sample,
-    refuse_vgg,
 )
 from msid_tpu_torch.training.optim import GroupedAdamW
 
@@ -153,9 +152,9 @@ def make_train_step(
     tensor; ``preprocess_on_device=True``) or clean model-range images;
     it goes to the model's device. ``seed`` (an int) seeds the corruption
     and the band permutation. ``metrics`` holds ``loss``, ``mse`` and
-    ``grad_norm`` as device scalars and ``skipped`` as an int.
+    ``grad_norm`` as device scalars and ``skipped`` as an int. ``vgg_params``
+    (on the model's device) makes the perceptual term the VGG16 loss.
     """
-    refuse_vgg(vgg_params)
     device = next(model.parameters()).device
     buffers = [b for b in model.buffers() if b.is_floating_point()]
 
@@ -186,7 +185,7 @@ def make_train_step(
             rows = slice(i * micro, (i + 1) * micro)
             with _autocast(device, compute_dtype):
                 out = model(noisy[rows].to(compute_dtype))
-            loss, aux = combined_loss(out, clean[rows], loss_cfg)
+            loss, aux = combined_loss(out, clean[rows], loss_cfg, vgg_params)
             loss.backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             mse_sum = aux["mse"].detach() if mse_sum is None else mse_sum + aux["mse"].detach()
@@ -253,9 +252,8 @@ def make_eval_step(
     the scored weights on every call (``fastpath.make_hybrid_forward``), so
     validation can score the graph that serving ships. It is opt-in, raises
     ``ValueError`` for models the folded graphs do not support, and does
-    not combine with an ensemble.
+    not combine with an ensemble. ``vgg_params`` is the train step's.
     """
-    refuse_vgg(vgg_params)
     orbit_prefix(tta, image_size, image_size)
     if forward_impl not in ("auto", "apply", "hybrid"):
         raise ValueError(f"forward_impl must be auto|apply|hybrid, got {forward_impl!r}")
@@ -297,7 +295,7 @@ def make_eval_step(
             noisy = corrupt(seed, clean, noise_cfg, impl=noise_impl)
             out = dihedral_ensemble(forward, noisy, tta).float()
             mask = (torch.arange(clean.shape[0], device=device) < count).float()
-            loss_ps = combined_loss_per_sample(out, clean, loss_cfg)
+            loss_ps = combined_loss_per_sample(out, clean, loss_cfg, vgg_params)
             sums = batch_metric_sums(out, clean, mask=mask)
             sums["loss"] = torch.sum(loss_ps * mask)
         return sums

@@ -23,7 +23,8 @@ import torch
 from msid_tpu_torch.models.restoration import resolve_device
 from msid_tpu_torch.ops.noise import IMPLS, NoiseConfig, fold_in
 from msid_tpu_torch.training.eval import run_eval_loop
-from msid_tpu_torch.training.losses import LossConfig, resolve_perceptual
+from msid_tpu_torch.training.losses import LossConfig
+from msid_tpu_torch.training.perceptual import resolve_perceptual
 from msid_tpu_torch.training.train_state import TrainState, make_eval_step, make_train_step
 
 logger = logging.getLogger(__name__)
@@ -86,19 +87,23 @@ class Trainer:
             logger.info("EMA of params enabled (decay %.5g); validation uses the "
                         "shadow weights", self.ema_decay)
 
+        # The perceptual term: the reference's VGG16 feature MSE when usable
+        # weights are configured, else the Sobel edge stand-in.
+        vgg_params = None
         if self.loss_cfg.perceptual_weight > 0:
-            resolve_perceptual(training.get("loss", {}))     # the edge stand-in, or raises
+            _, vgg_params = resolve_perceptual(training.get("loss", {}), self.device)
 
         augment = training.get("augment", {})
         self.train_step = train_step or make_train_step(
             model, self.loss_cfg, self.noise_cfg, accum_steps=accum,
             image_size=image_size, noise_impl=noise_impl,
             band_permutation_prob=float(augment.get("band_permutation_prob", 0.0)),
-            ema_decay=self.ema_decay, compute_dtype=self.compute_dtype,
+            vgg_params=vgg_params, ema_decay=self.ema_decay,
+            compute_dtype=self.compute_dtype,
         )
         self.eval_step = eval_step or make_eval_step(
             model, self.loss_cfg, self.noise_cfg, image_size=image_size,
-            noise_impl=noise_impl,
+            noise_impl=noise_impl, vgg_params=vgg_params,
             forward_impl=str(training.get("eval_forward", "auto")),
             compute_dtype=self.compute_dtype,
         )

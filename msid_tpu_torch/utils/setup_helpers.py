@@ -3,12 +3,12 @@
 ``setup_training_session`` of ``msid_tpu/utils/setup_helpers.py``.
 
 ``setup_training_session`` returns everything ``Trainer.fit`` needs on one
-device, the GPU unless ``device="cpu"`` is passed. It fits the dead-band
-fill's Gram matrix over the train split when the model has ``input_fill``,
-and builds the checkpoint manager under ``output_dir/checkpoints``
-(``outputs`` by default, as in the reference) from the ``checkpoint:``
-section. The SatMAE
-weight converter is a later slice: an existing ``pretrained_path`` raises.
+device, the GPU unless ``device="cpu"`` is passed. It loads the encoder
+from a SatMAE checkpoint when ``model.encoder.pretrained_path`` exists
+(``models/convert.py``), then fits the dead-band fill's Gram matrix over
+the train split when the model has ``input_fill``, and builds the
+checkpoint manager under ``output_dir/checkpoints`` (``outputs`` by
+default, as in the reference) from the ``checkpoint:`` section.
 """
 
 from __future__ import annotations
@@ -153,10 +153,11 @@ def setup_training_session(config_path: str | Path | dict,
 
     pretrained = config.get("model", {}).get("encoder", {}).get("pretrained_path")
     if pretrained and Path(pretrained).exists():
-        raise NotImplementedError(
-            f"pretrained_path {pretrained}: the SatMAE checkpoint converter "
-            "(models/convert.py) is not ported yet")
-    if pretrained:
+        from msid_tpu_torch.models.convert import load_pretrained_encoder
+
+        logger.info("Loading pretrained SatMAE weights from %s", pretrained)
+        load_pretrained_encoder(pretrained, model, model.in_channels)
+    elif pretrained:
         logger.warning("pretrained_path %s not found — training from scratch", pretrained)
 
     if model.input_fill:

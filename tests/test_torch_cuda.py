@@ -481,3 +481,65 @@ def test_device_cache_gathers_uint16_tiles_on_the_card():
     for (cb, cn), (hb, hn) in zip(cached, host):
         assert cb.is_cuda and cn == hn
         np.testing.assert_array_equal(cb.float().cpu().numpy(), hb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "launches"),
+                                          (torch.float32, "launches_fp32")])
+def test_artifact_session_launches_the_block_kernels_on_the_card(dtype, kernel, tmp_path):
+    """An artifact exported on the card serves from a captured graph whose
+    eight msid::fused_residual_block nodes launch K1 (bf16) or K4 (fp32),
+    close to the live session on the same weights; replay equals eager."""
+    need_card()
+    from msid_tpu_torch.deployment.export import export_program
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    model = flagship_like(dtype)
+    path = export_program(model, tmp_path / "a", input_shape=(1, 32, 32, 13))
+    before = getattr(cuda_decoder, kernel)
+    session = InferenceSession(artifact_path=path, batch_size=2, image_size=32)
+    assert session.compiled == "cuda_graph" and session.captured_launches == 8
+    assert getattr(cuda_decoder, kernel) > before
+    x = np.random.default_rng(0).normal(0, 0.5, (2, 32, 32, 13)).astype(np.float32)
+    got = session.predict(x)
+    eager = session.forward_eager(torch.from_numpy(x).cuda())
+    np.testing.assert_array_equal(got, eager.cpu().numpy())
+    want = InferenceSession(model, batch_size=2, image_size=32).predict(x)
+    rms = float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2)))
+    assert rms <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_artifact_is_fp32_and_keeps_its_device_on_the_card(tmp_path):
+    """An fp32 artifact agrees with the CPU forward with cuDNN's TF32 left
+    on (torch's default); one exported on the CPU refuses the card."""
+    need_card()
+    from msid_tpu_torch.deployment.export import export_program, load_exported
+
+    model = flagship_like(torch.float32).cpu()
+    x = torch.from_numpy(np.random.default_rng(1).normal(0, 0.5, (2, 32, 32, 13))
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = model(x).numpy()
+    cpu_path = export_program(model, tmp_path / "cpu", input_shape=(1, 32, 32, 13))
+    with pytest.raises(ValueError, match="exported on 'cpu'"):
+        load_exported(cpu_path, "cuda")
+    path = export_program(model.cuda(), tmp_path / "cuda", input_shape=(1, 32, 32, 13))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        got = load_exported(path)(x).cpu().numpy()
+        assert torch.backends.cudnn.allow_tf32
+    assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_vgg_perceptual_loss_on_the_card_matches_the_cpu():
+    need_card()
+    from msid_tpu_torch.training.perceptual import init_vgg16_params, vgg_perceptual_per_sample
+
+    rng = np.random.default_rng(2)
+    p, t = (torch.from_numpy(rng.uniform(-2, 2, (2, 32, 32, 13)).astype(np.float32))
+            for _ in range(2))
+    want = vgg_perceptual_per_sample(init_vgg16_params(0), p, t)
+    with exact_fp32(torch.float32):
+        got = vgg_perceptual_per_sample(init_vgg16_params(0, "cuda"), p.cuda(), t.cuda())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5)

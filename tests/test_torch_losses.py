@@ -16,6 +16,8 @@ jax_losses = importlib.import_module("msid_tpu.training.losses")
 metrics = importlib.import_module("msid_tpu_torch.ops.metrics")
 ssim = importlib.import_module("msid_tpu_torch.ops.ssim")
 losses = importlib.import_module("msid_tpu_torch.training.losses")
+init_vgg16_params = importlib.import_module("msid_tpu_torch.training.perceptual").init_vgg16_params
+jax_init_vgg16_params = importlib.import_module("msid_tpu.training.perceptual").init_vgg16_params
 
 torch.set_num_threads(2)
 
@@ -153,6 +155,15 @@ def test_loss_config_and_vgg_refusal():
                                     "perceptual_weight": 0.1, "sam_weight": 0.05}}}
     assert (losses.LossConfig.from_config(config).__dict__
             == jax_losses.LossConfig.from_config(config).__dict__)
-    p, t = to_t(*pair())
-    with pytest.raises(NotImplementedError, match="perceptual.py"):
-        losses.combined_loss(p, t, vgg_params={})
+    # VGG weights switch the perceptual term to the VGG16 feature MSE, as in
+    # the JAX package (same seeded weights, OIHW here, HWIO there)
+    cfg = losses.LossConfig.from_config(config)
+    jcfg = jax_losses.LossConfig.from_config(config)
+    p, t = pair()
+    total, aux = losses.combined_loss(*to_t(p, t), cfg, vgg_params=init_vgg16_params(0))
+    want, want_aux = jax_losses.combined_loss(jnp.asarray(p), jnp.asarray(t), jcfg,
+                                              vgg_params=jax_init_vgg16_params(0))
+    np.testing.assert_allclose(float(aux["perceptual"]), float(want_aux["perceptual"]),
+                               rtol=RTOL)
+    np.testing.assert_allclose(float(total), float(want), rtol=RTOL)
+    assert float(aux["perceptual"]) != float(losses.edge_perceptual_loss(*to_t(p, t)))

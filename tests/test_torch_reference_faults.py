@@ -18,7 +18,8 @@ from msid_tpu.training.perceptual import resolve_perceptual as jax_resolve_perce
 from msid_tpu.utils.setup_helpers import setup_training_session as jax_setup_training_session
 from msid_tpu_torch.data.dataset import build_dataset
 from msid_tpu_torch.deployment.inference import InferenceSession, benchmark_summary
-from msid_tpu_torch.training.losses import resolve_perceptual
+from msid_tpu_torch.training.perceptual import init_vgg16_params, resolve_perceptual
+from msid_tpu_torch.training import trainer as trainer_module
 from msid_tpu_torch.training.train_state import make_train_step
 from msid_tpu_torch.training.trainer import Trainer
 from msid_tpu_torch.utils.config import load_config
@@ -145,22 +146,40 @@ def test_perceptual_impl_resolves_as_the_reference(section, caplog):
             resolve_perceptual(section)
         return
     with caplog.at_level(logging.WARNING):
-        assert resolve_perceptual(section) == want == "edge"
+        assert resolve_perceptual(section) == (want, None) == ("edge", None)
     assert ("falling back" in caplog.text) == (section.get("perceptual_impl") == "VGG"
                                                or "perceptual_weights_path" in section)
 
 
-def test_trainer_takes_the_edge_stand_in_for_vgg_without_weights(tiny_session, tmp_path):
+def test_trainer_takes_the_edge_stand_in_for_vgg_without_weights(tiny_session, tmp_path,
+                                                                    monkeypatch):
     config = load_config(TINY)
     loss = dict(config["training"].get("loss", {}), perceptual_weight=0.1,
                 perceptual_impl="vgg")
     config["training"] = dict(config["training"], loss=loss)
     Trainer(tiny_session["model"], tiny_session["state"], config, device="cpu")
+    # with a weights file the trainer takes the VGG16 loss, as the reference's
     weights = tmp_path / "vgg16.npz"
-    weights.write_bytes(b"")
+    np.savez(weights, **{k: v.numpy() for k, v in init_vgg16_params(0).items()})
     config["training"]["loss"] = dict(loss, perceptual_weights_path=str(weights))
-    with pytest.raises(NotImplementedError, match="VGG16"):
-        Trainer(tiny_session["model"], tiny_session["state"], config, device="cpu")
+    assert resolve_perceptual(config["training"]["loss"])[0] == "vgg"
+    built = {}
+
+    def spy(name):
+        real = getattr(trainer_module, name)
+
+        def build(*args, **kwargs):
+            built[name] = kwargs
+            return real(*args, **kwargs)
+        return build
+
+    for name in ("make_train_step", "make_eval_step"):
+        monkeypatch.setattr(trainer_module, name, spy(name))
+    Trainer(tiny_session["model"], tiny_session["state"], config, device="cpu")
+    for kwargs in built.values():
+        assert torch.equal(kwargs["vgg_params"]["features.0.weight"],
+                           init_vgg16_params(0)["features.0.weight"])
+    assert len(built) == 2
 
 
 def test_a_root_dir_without_tiles_falls_back_to_synthetic_tiles(tmp_path):

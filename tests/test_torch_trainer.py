@@ -156,10 +156,34 @@ def test_what_is_not_ported_raises(tmp_path):
         Trainer(session["model"], session["state"],
                 dict(fill, training=dict(fill["training"], eval_forward="hybrid")),
                 device="cpu")
+    # an existing pretrained_path loads a SatMAE checkpoint into the encoder
+    # (models/convert.py) before anything else sees the weights
+    dim, depth = config["model"]["encoder"]["embed_dim"], config["model"]["encoder"]["depth"]
+    rng = np.random.default_rng(0)
+    state = {"patch_embed.proj.weight": rng.normal(0, 0.05, (dim, 3, 16, 16)),
+             "patch_embed.proj.bias": rng.normal(0, 0.05, (dim,)),
+             "pos_embed": rng.normal(0, 0.02, (1, 17, dim)),
+             "norm.weight": rng.normal(1, 0.02, (dim,)), "norm.bias": rng.normal(0, 0.02, (dim,))}
+    for i in range(depth):
+        for name, shape in (("norm1", (dim,)), ("norm2", (dim,)), ("attn.qkv", (3 * dim, dim)),
+                            ("attn.proj", (dim, dim)), ("mlp.fc1", (4 * dim, dim)),
+                            ("mlp.fc2", (dim, 4 * dim))):
+            state[f"blocks.{i}.{name}.weight"] = rng.normal(0, 0.05, shape)
+            state[f"blocks.{i}.{name}.bias"] = rng.normal(0, 0.02, shape[:1])
+    ckpt = tmp_path / "satmae.pth"
+    torch.save({"model": {k: torch.from_numpy(v.astype(np.float32))
+                          for k, v in state.items()}}, ckpt)
     pretrained = dict(config, model=dict(config["model"], encoder=dict(
-        config["model"]["encoder"], pretrained_path=str(TINY))))
-    with pytest.raises(NotImplementedError, match="convert.py"):
-        setup_training_session(pretrained, synthetic=True, device="cpu", output_dir=tmp_path)
+        config["model"]["encoder"], pretrained_path=str(ckpt))))
+    model = setup_training_session(pretrained, synthetic=True, device="cpu",
+                                   output_dir=tmp_path)["model"]
+    encoder = model.encoder.state_dict()
+    np.testing.assert_array_equal(encoder["pos_embed"].numpy(),
+                                  state["pos_embed"][:, 1:].astype(np.float32))
+    np.testing.assert_array_equal(encoder["blocks.1.attn.value.weight"].numpy(),
+                                  state["blocks.1.attn.qkv.weight"][2 * dim:].astype(np.float32))
+    np.testing.assert_array_equal(encoder["patch_embed.proj.weight"][:, 7].numpy(),
+                                  state["patch_embed.proj.weight"][:, 0].astype(np.float32))
 
 
 def test_too_many_skipped_steps_abort_the_epoch(tmp_path):
