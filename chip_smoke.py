@@ -4,7 +4,8 @@
     python3 chip_smoke.py                  # every phase, the result lines
     python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise, probe, hybrid,
                                                # scene, data_cache, export, perceptual,
-                                               # pretrained), no result lines
+                                               # pretrained, parallel, nccl_shared), no
+                                               # result lines
 
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
@@ -147,7 +148,24 @@ network. Phases, each of which must pass:
    fused qkv, 197 positions) through ``setup_training_session``'s
    ``pretrained_path``: the position embedding resampled to 144, the qkv
    split, and the encoder on the card within 1e-4 relative RMS of the
-   same checkpoint loaded on the CPU (fp32).
+   same checkpoint loaded on the CPU (fp32);
+16. parallel: (a) K2 on the back 32 rows of a [64,192,192,13] batch with
+   ``sample_offset=32``, fp32 and bf16, bit-equal to the back half of K2 on
+   the whole batch (masks too) and within its bound of the plain version;
+   (b) the flagship's ``Trainer`` with a data-parallel mesh over a one-rank
+   NCCL process group against the plain ``Trainer`` from the same seeded
+   weights, 3 train steps of B=64 each, in turns: the losses within 1e-3,
+   the largest parameter gap printed, both step p50s, one K2 launch a step;
+   (c) two gloo ranks sharing the card (``parallel.dryrun.spawn``), 32 rows
+   each of a B=64 batch, one train step against one process's B=64 step:
+   the noisy inputs bit-equal, loss and gradient norm within 1e-4 and
+   1e-3, one K2 launch a rank; and a control in the same launch, each
+   rank's BatchNorm moments over its own rows, outside those bounds; (d) a bf16
+   ``InferenceSession`` over a mesh of two replicas on the card at B=16:
+   each half bit-equal to a B=8 session, 16 K1 launches captured and
+   profiled per call. Run alone, ``nccl_shared`` starts two NCCL ranks on
+   the one card and prints what NCCL says (it refuses them, which is why
+   (c) is gloo).
 
 A launch count in the kernels line is a count of device launches. A
 wrapper counts its launch when it runs eagerly and when a graph is
@@ -170,8 +188,10 @@ directories that are removed at the end.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import functools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -260,6 +280,18 @@ ARTIFACT_VS_LIVE_BF16 = 1e-3
 INT8_COSINE = 0.99                # int8 weights: the JAX CLI's gate
 VGG_WEIGHT = 0.1                  # the perceptual term's weight in the VGG phase
 VGG_CPU_RTOL = 1e-4               # the VGG term on the card (TF32 off) against the CPU
+PARALLEL_NOISE_SHAPE = (64, 192, 192, 13)   # K2 with a sample offset: the back 32 rows
+PARALLEL_TRAIN_BATCH = 64         # the global batch of the data-parallel checks
+PARALLEL_SERVE_BATCH = 16         # the mesh session's batch, 8 a replica
+PARALLEL_TIMEOUT_S = 300          # two ranks sharing the card: start, build, one step
+# Data parallelism against one device on the card, both bf16: the same
+# arithmetic but for the order of the sums over the ranks and the buckets.
+# Readings (NVIDIA H100 80GB HBM3, 700 W): the one-rank NCCL trainer's loss
+# 3.2e-7 -> 5.9e-5 from the plain one's over 3 steps; two gloo ranks' loss
+# 4.9e-7 and gradient norm 4.7e-5 from one process's.
+PARALLEL_DP_LOSS_RTOL = 1e-3
+PARALLEL_LOSS_RTOL = 1e-4
+PARALLEL_GNORM_RTOL = 1e-3
 
 
 def load_flagship() -> dict:
@@ -2322,6 +2354,266 @@ def phase_pretrained(torch, failures: list, card: str) -> dict:
     return result
 
 
+def parallel_k2_offset(torch, failures: list) -> dict:
+    """(a) K2 on the back half of a batch with its sample offset, against
+    K2 on the whole batch (bit-equal) and against its plain version."""
+    from msid_tpu_torch.ops import cuda_noise
+    from msid_tpu_torch.ops.noise import NoiseConfig
+
+    cfg = NoiseConfig(enable_striping=True, stripe_prob=0.5)
+    b, half = PARALLEL_NOISE_SHAPE[0], PARALLEL_NOISE_SHAPE[0] // 2
+    out = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = (torch.rand(PARALLEL_NOISE_SHAPE, device="cuda", generator=g) * 5 - 2.5).to(dtype)
+        whole, masks = cuda_noise.apply_sensor_noise_kernel(21, x, cfg, return_masks=True)
+        rows, row_masks = cuda_noise.apply_sensor_noise_kernel(
+            21, x[half:].contiguous(), cfg, return_masks=True, sample_offset=half)
+        plain = cuda_noise.apply_sensor_noise_kernel_reference(21, x[half:], cfg,
+                                                               sample_offset=half)
+        torch.cuda.synchronize()
+        diff = (rows.float() - plain.float()).abs()
+        err = float(diff.max())
+        if dtype == torch.float32:
+            within = err <= NOISE_ATOL
+        else:
+            ulp = bf16_ulp(torch, torch.maximum(rows.float().abs(), plain.float().abs()))
+            within = bool((diff <= ulp + NOISE_ATOL).all())
+        row = {"bit_equal_to_whole": bool(torch.equal(rows, whole[half:])),
+               "masks_equal": bool(torch.equal(row_masks, masks[half:])),
+               "max_abs_err_vs_plain": err, "within_plain_bound": within,
+               "gated_samples": int(row_masks[:, -1].sum())}
+        out[dtype_name] = row
+        if not (row["bit_equal_to_whole"] and row["masks_equal"] and within):
+            failures.append(f"parallel (a) K2 offset {dtype_name}: {row}")
+    return out
+
+
+def parallel_dp_world_one(torch, failures: list, cfg: dict, weights: dict,
+                          batches: list) -> dict:
+    """(b) The flagship's Trainer with a data-parallel mesh over a one-rank
+    NCCL group against the plain Trainer from the same weights, one step
+    each in turns on each batch; K2's launches on the mesh's steps."""
+    import torch.distributed as dist
+
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_noise
+    from msid_tpu_torch.ops.noise import fold_in
+    from msid_tpu_torch.parallel import make_mesh
+    from msid_tpu_torch.parallel.dryrun import free_port
+    from msid_tpu_torch.training.optim import build_optimizer_from_config
+    from msid_tpu_torch.training.train_state import TrainState
+    from msid_tpu_torch.training.trainer import Trainer
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        trainers = {}
+        for form in ("plain", "dp"):
+            model = SatMAERestoration.from_config(cfg, device="cpu")
+            model.load_state_dict(weights)
+            model.to("cuda")
+            optimizer, schedule = build_optimizer_from_config(cfg, model)
+            trainers[form] = Trainer(model, TrainState.create(model, optimizer), config=cfg,
+                                     lr_schedule=schedule, device="cuda",
+                                     mesh=make_mesh() if form == "dp" else None)
+        launches = 0
+        times: dict = {"plain": [], "dp": []}
+        losses: dict = {"plain": [], "dp": []}
+        turns = []
+        base = fold_in(0, 0)
+        for i, batch in enumerate(batches):
+            for form in (("plain", "dp") if i % 2 == 0 else ("dp", "plain")):
+                t = trainers[form]
+                cuda_noise.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.state, metrics = t.train_step(t.state, batch, fold_in(base, i))
+                loss = float(metrics["loss"])                     # ends in a host sync
+                times[form].append((time.perf_counter() - t0) * 1e3)
+                losses[form].append(loss)
+                turns.append(form)
+                if form == "dp":
+                    launches += cuda_noise.launches
+        with torch.no_grad():
+            gap = max(float((a - b).abs().max()) for a, b in zip(
+                trainers["plain"].model.parameters(), trainers["dp"].model.parameters()))
+            scale = max(float(p.abs().max()) for p in trainers["plain"].model.parameters())
+        rel = [abs(a - b) / abs(a) for a, b in zip(losses["plain"], losses["dp"])]
+        row = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+               "batch": int(batches[0].shape[0]), "steps": len(batches),
+               "accum_steps": {f: trainers[f].accum_steps for f in trainers},
+               "turns": turns, "losses": losses, "loss_rel_diff": rel,
+               "step_ms": times,
+               "step_p50_ms": {f: float(np.median(v)) for f, v in times.items()},
+               "param_max_abs_gap": gap, "param_max_abs": scale,
+               "nan_skips": {f: trainers[f].state.nan_skips for f in trainers},
+               "k2_launches": launches}
+        if not (max(rel) <= PARALLEL_DP_LOSS_RTOL and launches == len(batches)
+                and all(v == 0 for v in row["nan_skips"].values())
+                and all(np.isfinite(v).all() for v in losses.values())):
+            failures.append(f"parallel (b) data parallel over one NCCL rank: {row}")
+        return row
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_two_ranks_one_card(torch, failures: list, weights_path: str,
+                                batch_path: str) -> dict:
+    """(c) Two gloo ranks sharing the card, 32 rows each of a B=64 batch,
+    one train step against one process's step on the whole batch. In the
+    same launch, a control: the same step with each rank's BatchNorm
+    moments over its own 32 rows (``local_norms``) must fall outside the
+    bounds, or they could not see the cross-replica reduction."""
+    from msid_tpu_torch.parallel.dryrun import run_step, spawn
+
+    spec = dict(task="step", config=str(CONFIG), weights=weights_path, batch=batch_path,
+                dtype="bfloat16", seed=5)
+    t0 = time.perf_counter()
+    launched = spawn(2, {"c": spec, "control": dict(spec, local_norms=True)},
+                     PARALLEL_TIMEOUT_S, device="cuda", backend="gloo", share_device=True)
+    spawn_seconds = time.perf_counter() - t0
+    ranks, controls = [r["c"] for r in launched], [r["control"] for r in launched]
+    one = run_step(spec, torch.device("cuda"))
+    torch.cuda.synchronize()
+
+    def rel_diff(results):
+        return {k: [abs(r["metrics"][k] - one["metrics"][k]) / abs(one["metrics"][k])
+                    for r in results] for k in ("loss", "grad_norm")}
+
+    def within(rel):
+        return (max(rel["loss"]) <= PARALLEL_LOSS_RTOL
+                and max(rel["grad_norm"]) <= PARALLEL_GNORM_RTOL)
+
+    noisy_equal = bool(torch.equal(torch.cat([r["noisy"] for r in ranks]), one["noisy"]))
+    rel, control_rel = rel_diff(ranks), rel_diff(controls)
+    row = {"ranks": 2, "backend": "gloo", "devices": [r["device"] for r in ranks],
+           "rows_per_rank": [int(r["noisy"].shape[0]) for r in ranks],
+           "noisy_bit_equal": noisy_equal,
+           "rank_metrics": [r["metrics"] for r in ranks], "one_process": one["metrics"],
+           "rel_diff": rel, "bounds": {"loss": PARALLEL_LOSS_RTOL,
+                                       "grad_norm": PARALLEL_GNORM_RTOL},
+           "control_local_norms_rel_diff": control_rel,
+           "control_outside_bounds": not within(control_rel),
+           "k2_launches_by_rank": [r["noise_launches"] for r in ranks],
+           "one_process_k2_launches": one["noise_launches"],
+           "spawn_seconds": spawn_seconds}
+    ok = (noisy_equal and within(rel) and row["control_outside_bounds"]
+          and row["k2_launches_by_rank"] == [1, 1]
+          and all(r["metrics"]["skipped"] == 0 for r in ranks))
+    if not ok:
+        failures.append(f"parallel (c) two ranks on one card: {row}")
+    return row
+
+
+def parallel_mesh_session(torch, failures: list, cfg: dict, weights: dict) -> dict:
+    """(d) A bf16 session over a mesh of two replicas on the card against a
+    B/2 session: each half bit-equal, 16 K1 launches a call."""
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_decoder
+    from msid_tpu_torch.parallel import make_mesh
+
+    model = SatMAERestoration.from_config(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(weights)
+    size, bands, b = model.image_size, model.in_channels, PARALLEL_SERVE_BATCH
+    requests = [noisy_tiles(b, size, bands, seed=300 + i) for i in range(REQUESTS)]
+    cuda_decoder.launches = 0
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    session = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands, mesh=mesh)
+    outs = [session.predict(r) for r in requests]
+    torch.cuda.synchronize()
+    counted = cuda_decoder.launches
+    launches = counted + sum((r.replays - 1) * r.captured_launches for r in session.replicas)
+    single = InferenceSession(model, batch_size=b // 2, image_size=size, num_bands=bands)
+    halves_equal = all(np.array_equal(out[:b // 2], single.predict(r[:b // 2])) and
+                       np.array_equal(out[b // 2:], single.predict(r[b // 2:]))
+                       for out, r in zip(outs, requests))
+    xd = torch.from_numpy(requests[0]).to("cuda")
+    prof = device_profile(torch, lambda: session.forward(xd),
+                          tags={"block_ms": "resblock_kernel"}, expect={"block_ms": 16})
+    row = {"replicas": len(session.replicas), "devices": [str(d) for d in mesh.devices],
+           "batch": b, "dtype": "bfloat16", "compiled": session.compiled,
+           "captured_launches": session.captured_launches, "halves_bit_equal": halves_equal,
+           "k1_per_call_profiled": prof["block_ms_launches"],
+           "profiler_sessions_full": prof["sessions_full"],
+           "profiler_sessions_over": prof["sessions_over"],
+           "device_busy_ms": prof["device_busy_ms"], "k1_device_launches": launches,
+           "finite": all(np.isfinite(o).all() for o in outs)}
+    if not (halves_equal and row["finite"] and session.compiled == "cuda_graph"
+            and session.captured_launches == 16 and profile_complete(prof, "block_ms", 16)):
+        failures.append(f"parallel (d) mesh session: {row}")
+    del session, single
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_parallel(torch, failures: list, card: str) -> dict:
+    """The parallel layer on one card: (a) K2's sample offset, (b) the
+    data-parallel Trainer over a one-rank NCCL group against the plain one,
+    (c) two gloo ranks sharing the card against one process, (d) mesh
+    serving with two replicas on the card. K2's launches on the mesh's
+    train steps (b, and each rank's in c) are the ``train_dp`` path, K1's
+    on the mesh session the ``serve_mesh`` path."""
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+
+    cfg = load_flagship()
+    result = {"check": "parallel", "config": str(CONFIG.relative_to(ROOT)), "card": card}
+    t0 = time.perf_counter()
+    result["k2_offset"] = parallel_k2_offset(torch, failures)
+    cpu_model = SatMAERestoration.from_config(cfg, device="cpu")
+    randomize_(torch, cpu_model, seed=4)
+    weights = cpu_model.state_dict()
+    batches = [train_batch(13, PARALLEL_TRAIN_BATCH, seed=20 + i) for i in range(3)]
+    result["dp_world_one"] = parallel_dp_world_one(torch, failures, cfg, weights, batches)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        weights_path, batch_path = f"{tmp}/weights.pt", f"{tmp}/batch.npy"
+        torch.save(weights, weights_path)
+        np.save(batch_path, batches[0])
+        result["two_ranks_one_card"] = parallel_two_ranks_one_card(
+            torch, failures, weights_path, batch_path)
+    torch.cuda.empty_cache()
+    result["mesh_session"] = parallel_mesh_session(torch, failures, cfg, weights)
+    result["launches"] = {
+        "train_dp": (result["dp_world_one"]["k2_launches"]
+                     + sum(result["two_ranks_one_card"]["k2_launches_by_rank"])),
+        "serve_mesh": result["mesh_session"]["k1_device_launches"]}
+    result["seconds"] = time.perf_counter() - t0
+    emit(result)
+    return result
+
+
+def phase_nccl_shared(torch, failures: list) -> dict:
+    """Two NCCL ranks on one card: what NCCL says (it is expected to refuse
+    them, which is why the two-rank check of the parallel phase is gloo)."""
+    from msid_tpu_torch.parallel.dryrun import TINY_FLAGSHIP, spawn
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        np.save(f"{tmp}/batch.npy", np.random.default_rng(0).uniform(
+            0, 10000, (4, 64, 64, 13)).astype(np.float32))
+        spec = dict(task="step", model=TINY_FLAGSHIP, batch=f"{tmp}/batch.npy")
+        debug = os.environ.get("NCCL_DEBUG")
+        os.environ["NCCL_DEBUG"] = "WARN"          # NCCL then says why it refuses
+        try:
+            spawn(2, {"nccl": spec}, 90, device="cuda", backend="nccl", share_device=True)
+            row = {"refused": False, "message": None}
+        except (RuntimeError, TimeoutError) as err:
+            lines = str(err).splitlines()
+            said = [ln for i, ln in enumerate(lines) if "NCCL WARN" in ln or "Duplicate" in ln
+                    or "DistBackendError" in ln or (i and "Last error" in lines[i - 1])]
+            row = {"refused": True, "error": type(err).__name__, "message": said[-8:]}
+        finally:
+            if debug is None:
+                os.environ.pop("NCCL_DEBUG")
+            else:
+                os.environ["NCCL_DEBUG"] = debug
+    row["check"] = "nccl_two_ranks_one_card"
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2365,7 +2657,9 @@ def main() -> int:
                    "data_cache": lambda: phase_data_cache(torch, failures, card),
                    "export": lambda: phase_export(torch, failures, card),
                    "perceptual": lambda: phase_perceptual(torch, failures, card),
-                   "pretrained": lambda: phase_pretrained(torch, failures, card)}
+                   "pretrained": lambda: phase_pretrained(torch, failures, card),
+                   "parallel": lambda: phase_parallel(torch, failures, card),
+                   "nccl_shared": lambda: phase_nccl_shared(torch, failures)}
         for name in only:
             if name not in partial:
                 print(f"chip_smoke: only {sorted(partial)} run alone, got {name!r}",
@@ -2400,6 +2694,7 @@ def main() -> int:
     export = timed("export", phase_export, torch, failures, card)
     timed("perceptual", phase_perceptual, torch, failures, card)
     timed("pretrained", phase_pretrained, torch, failures, card)
+    parallel = timed("parallel", phase_parallel, torch, failures, card)
     emit({"check": "phase_seconds", **seconds})
 
     def per_forward(kernel_rows, b=max(BATCHES)):
@@ -2421,10 +2716,12 @@ def main() -> int:
                         "evaluate": evaluate["launches"]["resblock"],
                         "probe": probe["launches"]["resblock"],
                         "hybrid": hybrid["launches"]["resblock"],
-                        "export": export["launches"]["export"]}
+                        "export": export["launches"]["export"],
+                        "serve_mesh": parallel["launches"]["serve_mesh"]}
     noise_by_path = {"serve": serve["noise_launches"], "train": train["launches"]["noise"],
                      "train_cache": data_cache["launches"]["noise"],
-                     "evaluate": evaluate["launches"]["noise"]}
+                     "evaluate": evaluate["launches"]["noise"],
+                     "train_dp": parallel["launches"]["train_dp"]}
     fp32_by_path = {"evaluate": evaluate["launches"]["resblock_fp32"],
                     "serve_fp32": serve_fp32["k4_launches"],
                     "scene_fp32": scene["launches"]["fp32"],
@@ -2439,7 +2736,8 @@ def main() -> int:
     # Serving corrupts nothing: K2 runs on the training and evaluate paths.
     for name, by_path, paths in (
             ("fused_residual_block", resblock_by_path, resblock_by_path),
-            ("apply_sensor_noise", noise_by_path, ("train", "train_cache", "evaluate")),
+            ("apply_sensor_noise", noise_by_path, ("train", "train_cache", "evaluate",
+                                                   "train_dp")),
             ("fused_residual_block_fp32", fp32_by_path, fp32_by_path),
             ("fused_residual_block_v2", v2_by_path, v2_by_path),
             ("any_dma_scale", any_dma_by_path, any_dma_by_path)):

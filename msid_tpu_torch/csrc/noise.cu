@@ -16,12 +16,14 @@
 // draws it (it drops the sigma_g * sigma_s cross term).
 //
 // Randomness: counter-based Philox4x32-10 with key = the 64-bit seed.
-// Counters are (index, sub-stream, b, stream): stream 0 holds the
+// Counters are (index, sub-stream, b + sample_offset, stream), the sample's
+// index in the global batch (a data-parallel rank passes its first row's
+// offset; memory is addressed by the local b): stream 0 holds the
 // per-sample draws (index q of sub-stream 0 gives uniforms 4q..4q+3: band
 // c's dead-band uniform is number c, the stripe gate's is number C;
 // sub-stream 1, index w*C + c, gives that stripe's normal), stream 1 the
 // per-element draws (index p gives elements 2p and 2p+1 of the sample, two
-// normals each). Every draw depends on (seed, b, position) only, so any
+// normals each). Every draw depends on (seed, global b, position) only, so any
 // grid gives the same output bit for bit. Uniforms take the top 23 bits,
 // u = (k + 0.5) * 2^-23, exact in fp32 and never 0 or 1; normals are
 // Box-Muller pairs (cos and sin of one angle) with the accurate logf,
@@ -191,6 +193,7 @@ struct Params {
   int c;           // bands
   int per_cta;     // groups of 4 elements per CTA
   uint32_t k0, k1; // the seed
+  uint32_t sample_offset;  // the batch's first sample in the global batch
   float p_dead, speckle, g2, t2, p_stripe, stripe_sigma, cm1;
 };
 
@@ -208,9 +211,11 @@ inline size_t table_bytes(int c, int wc) {
 }
 
 // Draw sample b's dead bands, gate and (if gated) stripes, compute its band
-// table, and write its masks (CTA 0 of the sample). Ends with the CTA synced.
+// table, and write its masks (CTA 0 of the sample). The draws are keyed by
+// the global sample gb = b + sample_offset, the masks' row by the local b.
+// Ends with the CTA synced.
 __device__ Tables sample_tables(float* smem, float* __restrict__ masks, const Params& p,
-                                const Keys& keys, uint32_t b) {
+                                const Keys& keys, uint32_t b, uint32_t gb) {
   Tables t;
   t.alive = smem;
   t.sd = smem + p.c;
@@ -218,7 +223,7 @@ __device__ Tables sample_tables(float* smem, float* __restrict__ masks, const Pa
   t.stripe = gate_s + 1;
   const int tid = threadIdx.x;
   for (int q = tid; 4 * q < p.c + 1; q += blockDim.x) {
-    const Words w = philox(q, 0, b, 0, keys);
+    const Words w = philox(q, 0, gb, 0, keys);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int j = 4 * q + r;
@@ -235,7 +240,7 @@ __device__ Tables sample_tables(float* smem, float* __restrict__ masks, const Pa
   t.gate = gate_s[0] != 0.0f;
   if (t.gate) {  // uniform across the CTA
     for (int i = tid; i < p.wc; i += blockDim.x) {
-      const Words w = philox(i, 1, b, 0, keys);
+      const Words w = philox(i, 1, gb, 0, keys);
       float n1, n2;
       box_muller(w.w[0], w.w[1], n1, n2);
       t.stripe[i] = n1 * p.stripe_sigma;
@@ -261,11 +266,11 @@ __device__ __forceinline__ float compose(float v, float n1, float n2, float a, f
 // each), any band count, any n. The band and the stripe index are carried
 // from a thread's group to its next by adding the stride, never by `%`.
 // One pass of the loop is one group (not unrolled: chip_smoke.py counts its
-// instructions).
+// instructions). Addresses take the local sample b, draws the global gb.
 template <typename T, bool VEC, bool GATE>
 __device__ __forceinline__ void group_loop(const T* __restrict__ x, T* __restrict__ out,
                                            const Params& p, const Keys& keys,
-                                           const Tables& t, uint32_t b) {
+                                           const Tables& t, uint32_t b, uint32_t gb) {
   const size_t base = static_cast<size_t>(b) * p.n;
   const T* xs = x + base;
   T* os = out + base;
@@ -288,8 +293,8 @@ __device__ __forceinline__ void group_loop(const T* __restrict__ x, T* __restric
 #pragma unroll
       for (int r = 0; r < 4; ++r) v[r] = e0 + r < p.n ? Io<T>::load1(xs + e0 + r) : 0.0f;
     }
-    const Words wa = philox(2 * g, 0, b, 1, keys);
-    const Words wb = philox(2 * g + 1, 0, b, 1, keys);
+    const Words wa = philox(2 * g, 0, gb, 1, keys);
+    const Words wb = philox(2 * g + 1, 0, gb, 1, keys);
     const uint32_t words[8] = {wa.w[0], wa.w[1], wa.w[2], wa.w[3],
                                wb.w[0], wb.w[1], wb.w[2], wb.w[3]};
     int c = band, wc = wc0;
@@ -326,10 +331,11 @@ __global__ void __launch_bounds__(kThreads)
 noise_group_kernel(const T* __restrict__ x, T* __restrict__ out,
                    float* __restrict__ masks, Params p) {
   const uint32_t b = blockIdx.y;
+  const uint32_t gb = b + p.sample_offset;
   const Keys keys = round_keys(p.k0, p.k1);
-  const Tables t = sample_tables(dyn_smem, masks, p, keys, b);
-  if (t.gate) group_loop<T, VEC, true>(x, out, p, keys, t, b);
-  else group_loop<T, VEC, false>(x, out, p, keys, t, b);
+  const Tables t = sample_tables(dyn_smem, masks, p, keys, b, gb);
+  if (t.gate) group_loop<T, VEC, true>(x, out, p, keys, t, b, gb);
+  else group_loop<T, VEC, false>(x, out, p, keys, t, b, gb);
 }
 
 template <typename T>
@@ -355,12 +361,14 @@ int launch_dtype(const void* x, void* out, float* masks, const Params& p, int ve
 // x, out: [B, n] contiguous, fp32 (dtype 0) or bf16 (dtype 1). masks:
 // [B, C+1] fp32 (alive per band, then the gate) or null. vec: n % 4 == 0
 // and x, out aligned to a group of 4. CTA x of sample b takes the groups of
-// 4 elements [x * per_cta, (x+1) * per_cta). Returns the CUDA error code of
-// the launch (0 on success).
+// 4 elements [x * per_cta, (x+1) * per_cta). Sample b draws as sample
+// b + sample_offset of a global batch (a data-parallel rank's rows). Returns
+// the CUDA error code of the launch (0 on success).
 extern "C" int msid_noise_forward(const void* x, void* out, float* masks,
                                   int dtype, int vec, int b, int n, int wc,
                                   int c, int chunks, int per_cta,
                                   unsigned int k0, unsigned int k1,
+                                  unsigned int sample_offset,
                                   float p_dead, float speckle, float g2,
                                   float t2, float p_stripe, float stripe_sigma,
                                   void* stream) {
@@ -371,6 +379,7 @@ extern "C" int msid_noise_forward(const void* x, void* out, float* masks,
   p.per_cta = per_cta;
   p.k0 = k0;
   p.k1 = k1;
+  p.sample_offset = sample_offset;
   p.p_dead = p_dead;
   p.speckle = speckle;
   p.g2 = g2;

@@ -10,6 +10,13 @@ same batches as ``BatchLoader`` with the same arguments, with no host copy
 of a tile per step. ``data.device_cache`` (true, false or "auto") picks it
 in ``get_dataloaders`` and ``get_test_dataloader`` when the set fits
 ``data.device_cache_max_gb``, and the host loader otherwise.
+
+Under data parallelism a loader is one shard of ``num_shards``: every
+rank draws the same seeded permutation each epoch and yields its rows
+``[i * b / n, (i + 1) * b / n)`` of each global batch of ``b`` tiles (the
+padded trailing batch is padded first, then split, with the global true
+count), so the ranks of an epoch see, together, the one-device epoch's
+batches.
 """
 
 from __future__ import annotations
@@ -43,11 +50,21 @@ class BatchLoader:
         prefetch: batches staged ahead by a background thread (0: none).
         pad_last: pad the trailing batch by repeating its first tile and
             yield ``(batch, true_count)``.
+        num_shards, shard_index: yield shard ``shard_index`` of ``num_shards``
+            of each batch of ``batch_size`` (the global batch), which they
+            must divide; ``true_count`` stays the global batch's.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
-                 pad_last: bool = False):
+                 pad_last: bool = False, num_shards: int = 1, shard_index: int = 0):
+        if batch_size % num_shards:
+            raise ValueError(f"global batch {batch_size} not divisible by {num_shards} "
+                             f"data shards")
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -69,15 +86,22 @@ class BatchLoader:
             return np.random.default_rng(self.seed * 100_003 + self.epoch).permutation(n)
         return np.arange(n)
 
+    def _shard(self, idxs: np.ndarray) -> tuple[np.ndarray, int]:
+        """This shard's indices of a batch and the batch's true count: a
+        trailing batch padded (``pad_last``) by repeating its first index,
+        then cut into ``num_shards`` parts."""
+        count = len(idxs)
+        if self.pad_last and count < self.batch_size:
+            idxs = np.concatenate([idxs, np.repeat(idxs[:1], self.batch_size - count)])
+        if self.num_shards > 1:
+            per = len(idxs) // self.num_shards
+            idxs = idxs[self.shard_index * per:(self.shard_index + 1) * per]
+        return idxs, count
+
     def _make_batch(self, idxs: np.ndarray):
+        idxs, count = self._shard(idxs)
         batch = np.stack([self.dataset[int(i)] for i in idxs], axis=0)
-        if self.pad_last:
-            count = batch.shape[0]
-            if count < self.batch_size:
-                pad = np.repeat(batch[:1], self.batch_size - count, axis=0)
-                batch = np.concatenate([batch, pad], axis=0)
-            return batch, count
-        return batch
+        return (batch, count) if self.pad_last else batch
 
     def __iter__(self) -> Iterator:
         indices = self._indices()
@@ -152,9 +176,11 @@ class DeviceCachedLoader(BatchLoader):
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, pad_last: bool = False,
                  storage_dtype: str = "native", max_bytes: Optional[int] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", num_shards: int = 1,
+                 shard_index: int = 0):
         super().__init__(dataset, batch_size, shuffle=shuffle, drop_last=drop_last,
-                         seed=seed, prefetch=0, pad_last=pad_last)
+                         seed=seed, prefetch=0, pad_last=pad_last, num_shards=num_shards,
+                         shard_index=shard_index)
         if storage_dtype not in ("native", "auto", "uint16"):
             raise ValueError(f"storage_dtype must be native/auto/uint16, got {storage_dtype!r}")
         self.device = resolve_device(device)
@@ -177,9 +203,7 @@ class DeviceCachedLoader(BatchLoader):
         self._tiles = torch.from_numpy(stacked).to(self.device)
 
     def _make_batch(self, idxs: np.ndarray):
-        count = len(idxs)
-        if self.pad_last and count < self.batch_size:
-            idxs = np.concatenate([idxs, np.repeat(idxs[:1], self.batch_size - count)])
+        idxs, count = self._shard(idxs)
         index = torch.from_numpy(np.asarray(idxs, np.int64)).to(self.device)
         batch = torch.index_select(self._tiles, 0, index)
         return (batch, count) if self.pad_last else batch
@@ -237,12 +261,20 @@ def _device_cached_or_host(dataset, storage_dtype: str = "native",
     return BatchLoader(dataset, **kw)
 
 
-def get_dataloaders(config: dict, device: str | torch.device = "cuda"):
+def _shard_kw(mesh) -> dict:
+    """The loader arguments of this rank's data shard (none without a mesh)."""
+    if mesh is None:
+        return {}
+    return dict(num_shards=mesh.data, shard_index=mesh.data_rank)
+
+
+def get_dataloaders(config: dict, device: str | torch.device = "cuda", mesh=None):
     """``(train_loader, val_loader)``; both batches are
-    ``micro_batch_size * gradient_accumulation_steps`` tiles. With
-    ``data.device_cache`` the splits that fit are cached on ``device``
-    (the GPU unless told otherwise), the validation split in what the
-    train split left of the budget."""
+    ``micro_batch_size * gradient_accumulation_steps`` tiles (the global
+    batch: with a ``mesh`` each loader yields this data rank's shard of
+    it). With ``data.device_cache`` the splits that fit are cached on
+    ``device`` (the GPU unless told otherwise), the validation split in
+    what the train split left of the budget."""
     from msid_tpu_torch.data.dataset import build_dataset
 
     training = config.get("training", {})
@@ -252,8 +284,10 @@ def get_dataloaders(config: dict, device: str | torch.device = "cuda"):
     seed = int(config.get("seed", 42))
     train_ds, val_ds = build_dataset(config, "train"), build_dataset(config, "val")
     storage = data_cfg.get("device_cache_dtype", "auto")
-    train_kw = dict(batch_size=batch, shuffle=True, drop_last=True, seed=seed)
-    val_kw = dict(batch_size=batch, shuffle=False, drop_last=False, seed=seed, pad_last=True)
+    train_kw = dict(batch_size=batch, shuffle=True, drop_last=True, seed=seed,
+                    **_shard_kw(mesh))
+    val_kw = dict(batch_size=batch, shuffle=False, drop_last=False, seed=seed, pad_last=True,
+                  **_shard_kw(mesh))
     if _device_cache_enabled(config, _tile_nbytes(train_ds, storage)
                              + _tile_nbytes(val_ds, storage)):
         cap = int(float(data_cfg.get("device_cache_max_gb", 4.0)) * 1e9)
@@ -266,17 +300,17 @@ def get_dataloaders(config: dict, device: str | torch.device = "cuda"):
 
 
 def get_test_dataloader(config: dict, batch_size: Optional[int] = None,
-                        device: str | torch.device = "cuda"):
+                        device: str | torch.device = "cuda", mesh=None):
     """Every sample of the dataset (``train_split`` 1.0) in order, the
     trailing batch padded, of ``batch_size`` tiles (default
-    ``training.micro_batch_size``); cached on ``device`` as in
-    ``get_dataloaders``."""
+    ``training.micro_batch_size``; this data rank's shard of them with a
+    ``mesh``); cached on ``device`` as in ``get_dataloaders``."""
     from msid_tpu_torch.data.dataset import build_dataset
 
     data_cfg = config.get("data", {})
     ds = build_dataset(dict(config, data=dict(data_cfg, train_split=1.0)), "train")
     bs = batch_size or int(config.get("training", {}).get("micro_batch_size", 8))
-    kw = dict(batch_size=bs, shuffle=False, drop_last=False, pad_last=True)
+    kw = dict(batch_size=bs, shuffle=False, drop_last=False, pad_last=True, **_shard_kw(mesh))
     storage = data_cfg.get("device_cache_dtype", "auto")
     if len(ds) > 0 and _device_cache_enabled(config, _tile_nbytes(ds, storage)):
         cap = int(float(data_cfg.get("device_cache_max_gb", 4.0)) * 1e9)

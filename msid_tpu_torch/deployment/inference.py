@@ -38,6 +38,17 @@ payload bound, is the forward, captured on the card as a live session's
 is (inside ``exact_fp32`` for an fp32 artifact); its decoder blocks are
 ``msid::fused_residual_block`` nodes, which launch K1 or K4. Such a session
 has no ``model`` and refuses ``tta`` > 1 (an artifact bakes its own views).
+
+Mesh serving (``InferenceSession(model, mesh=...)``, with a serving mesh
+of ``parallel.make_mesh(devices=...)``, builds a ``MeshSession``): the
+counterpart of the reference's data-parallel session, whose batch is
+sharded over the mesh's data axis. It holds one ``InferenceSession`` per
+device of ``mesh.devices``, of ``batch_size / data`` rows on that device,
+each with its own copy of the model and, on a card, its own captured
+graph; a call splits the batch in order, runs each replica on its rows
+(the replays on several cards overlap) and gathers the outputs on
+``devices[0]``. ``batch_size`` must divide by the data axis; an artifact
+cannot be served over a mesh (it is one device's program).
 """
 
 from __future__ import annotations
@@ -113,13 +124,19 @@ class CapturedForward:
 
 
 class InferenceSession:
-    """Restoration inference at a fixed batch size."""
+    """Restoration inference at a fixed batch size on one device; with
+    ``mesh``, a ``MeshSession`` over the mesh's devices."""
+
+    def __new__(cls, model: torch.nn.Module | None = None, *args, mesh=None, **kwargs):
+        if mesh is not None:
+            return MeshSession(model, *args, mesh=mesh, **kwargs)
+        return super().__new__(cls)
 
     def __init__(self, model: torch.nn.Module | None = None, batch_size: int = 1,
                  image_size: int = 192, num_bands: int = 13,
                  device: str | torch.device = "cuda", tta: int = 1,
                  optimize: bool | str = "auto", donate_input: bool = False,
-                 artifact_path: str | Path | None = None):
+                 artifact_path: str | Path | None = None, mesh=None):
         """``optimize`` selects the inference graph. ``"auto"`` (default)
         picks by batch size and serves the module's own forward for models
         the folded graphs do not support: below ``HYBRID_AUTO_MIN_BATCH``
@@ -136,7 +153,9 @@ class InferenceSession:
         (``"cuda_graph"``, or None on the CPU) and
         ``self.captured_launches`` counts the hand-written kernel launches
         of one captured forward. With ``artifact_path`` (and no model) the
-        session serves that exported artifact, loaded for its device."""
+        session serves that exported artifact, loaded for its device.
+        ``mesh`` makes the call build a ``MeshSession`` instead (see the
+        module's docstring)."""
         self.tta = int(tta)
         self.donate_input = bool(donate_input)
         self.device = resolve_device(device)
@@ -236,17 +255,7 @@ class InferenceSession:
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Restore a noisy NHWC float32 batch; checks rank, shape and batch."""
-        x = np.asarray(x)
-        if x.ndim != 4:
-            raise ValueError(f"Expected 4D NHWC input, got ndim={x.ndim}")
-        if x.shape[1:] != self.input_shape[1:]:
-            raise ValueError(f"Expected shape [*,{self.input_shape[1:]}], got {x.shape}")
-        if x.dtype != np.float32:
-            x = x.astype(np.float32)
-        if x.shape[0] != self.batch_size:
-            raise ValueError(
-                f"session built for batch {self.batch_size}, got {x.shape[0]}")
-        xt = torch.from_numpy(np.ascontiguousarray(x))
+        xt = checked_input(x, self.input_shape)
         if self._graph is None:
             return self.forward_eager(xt.to(self.device)).cpu().numpy()
         with self._lock:
@@ -280,6 +289,85 @@ class InferenceSession:
             times_ms = _timed_ms(call, benchmark_iterations, pipelined, self.device)
         return benchmark_summary(times_ms, self.batch_size, benchmark_iterations, pipelined,
                                  torch.cuda.get_device_name(self.device))
+
+
+class MeshSession:
+    """An ``InferenceSession`` over a serving mesh (see the module's
+    docstring), built by ``InferenceSession(model, ..., mesh=mesh)``:
+    ``replicas`` are the per-device sessions; ``predict`` and ``forward``
+    split the batch over them and gather on the first replica's device.
+    The replicas' attributes that describe the whole (``tta``, ``dtype``,
+    ``optimized``, ``compiled``, ``model``) are the first's, and
+    ``captured_launches`` and ``replays`` their sums. It has no
+    ``benchmark``: time a replica (``replicas[i].benchmark()``)."""
+
+    def __init__(self, model: torch.nn.Module | None, batch_size: int = 1,
+                 image_size: int = 192, num_bands: int = 13,
+                 device: str | torch.device | None = None, tta: int = 1,
+                 optimize: bool | str = "auto", donate_input: bool = False,
+                 artifact_path: str | Path | None = None, *, mesh):
+        """``device`` is ignored: the replicas run on ``mesh.devices``."""
+        if artifact_path is not None:
+            raise ValueError("mesh serving needs model+variables, not a serialized artifact")
+        if model is None:
+            raise ValueError("Provide model or artifact_path")
+        if mesh.distributed:
+            raise ValueError("a session serves over a local mesh of devices "
+                             "(parallel.make_mesh(devices=...)), not a process group's")
+        if batch_size % mesh.data != 0:
+            raise ValueError(f"batch_size {batch_size} must divide by the mesh data axis "
+                             f"({mesh.data})")
+        self.replicas = [InferenceSession(model, batch_size // mesh.data, image_size,
+                                          num_bands, device=d, tta=tta, optimize=optimize,
+                                          donate_input=donate_input)
+                         for d in mesh.devices]
+        first = self.replicas[0]
+        self.device, self.batch_size = first.device, batch_size
+        self.input_shape = (batch_size, *first.input_shape[1:])
+        self.tta, self.dtype, self.model = first.tta, first.dtype, first.model
+        self.optimized, self.compiled = first.optimized, first.compiled
+        self.captured_launches = (None if first.captured_launches is None else
+                                  sum(r.captured_launches for r in self.replicas))
+
+    @property
+    def replays(self) -> int:
+        """The replicas' replays of their captured graphs so far."""
+        return sum(r.replays for r in self.replicas)
+
+    def _over_replicas(self, x: torch.Tensor, call) -> torch.Tensor:
+        """``call(replica, rows)`` for each replica on its rows of ``x``, in
+        order, the outputs gathered on the first replica's device."""
+        outs = [call(r, rows.to(r.device))
+                for r, rows in zip(self.replicas, x.chunk(len(self.replicas)))]
+        return torch.cat([o.to(self.device) for o in outs])
+
+    def forward_eager(self, x: torch.Tensor) -> torch.Tensor:
+        """The replicas' eager forwards on their rows of ``x``."""
+        return self._over_replicas(x, lambda r, rows: r.forward_eager(rows))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The restored batch of a float32 tensor of the session's input
+        shape, each replica on its rows."""
+        return self._over_replicas(x, lambda r, rows: r.forward(rows))
+
+    def predict(self, x: np.ndarray) -> np.ndarray:
+        """Restore a noisy NHWC float32 batch; checks rank, shape and batch."""
+        return self.forward(checked_input(x, self.input_shape)).cpu().numpy()
+
+
+def checked_input(x: np.ndarray, input_shape: tuple) -> torch.Tensor:
+    """A host tensor of the float32 batch ``x``, after checking its rank,
+    shape and batch against a session's ``input_shape``."""
+    x = np.asarray(x)
+    if x.ndim != 4:
+        raise ValueError(f"Expected 4D NHWC input, got ndim={x.ndim}")
+    if x.shape[1:] != input_shape[1:]:
+        raise ValueError(f"Expected shape [*,{input_shape[1:]}], got {x.shape}")
+    if x.dtype != np.float32:
+        x = x.astype(np.float32)
+    if x.shape[0] != input_shape[0]:
+        raise ValueError(f"session built for batch {input_shape[0]}, got {x.shape[0]}")
+    return torch.from_numpy(np.ascontiguousarray(x))
 
 
 def _timed_ms(call: Callable[[], object], iterations: int, pipelined: bool,

@@ -39,6 +39,13 @@ class Norm(nn.Module):
     Parameters and running statistics stay fp32 whatever the model's
     compute dtype. In train mode ``batch`` normalizes with the biased batch
     variance and updates the running stats with it, as flax does.
+
+    Cross-replica BatchNorm (the JAX ``axis_name``, and GSPMD's global
+    statistics on a mesh): with a ``data_group`` (``set_data_group``), a
+    train-mode ``batch`` norm takes its moments over the global batch, from
+    ``[sum x, sum x^2, n]`` summed over the group by an all-reduce whose
+    backward sums the gradients too (``parallel/collectives.py``). Eval
+    mode and ``group`` norms are per sample and never communicate.
     """
 
     def __init__(self, features: int, kind: str = "batch"):
@@ -46,6 +53,7 @@ class Norm(nn.Module):
         if kind not in ("batch", "group"):
             raise ValueError(f"Unknown norm kind: {kind}")
         self.kind = kind
+        self.data_group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         if kind == "batch":
@@ -56,6 +64,11 @@ class Norm(nn.Module):
             while features % groups != 0:
                 groups -= 1
             self.num_groups = groups
+
+    def __deepcopy__(self, memo: dict):
+        from msid_tpu_torch.parallel.collectives import deepcopy_sharing_groups
+
+        return deepcopy_sharing_groups(self, memo, "data_group")
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Eval-mode BN as ``x * a + b`` (fp32)."""
@@ -71,14 +84,35 @@ class Norm(nn.Module):
             a, b = self.folded()
             return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self.data_group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            from msid_tpu_torch.parallel.collectives import all_reduce_sum
+
+            c = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() // c)
+            sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                             (xf * xf).sum(dim=(0, 2, 3)), count]),
+                                  self.data_group)
+            mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = (mean_sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, BN_MOMENTUM)
             self.running_var.lerp_(var, BN_MOMENTUM)
         scale = self.weight.float() * torch.rsqrt(var + BN_EPS)
         shift = self.bias.float() - mean * scale
         return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
+
+
+def set_data_group(model: nn.Module, group) -> nn.Module:
+    """Make every batch ``Norm`` of ``model`` take its train-mode moments
+    over the process group ``group`` (None: over the local batch, as on
+    one device). Returns the model."""
+    for m in model.modules():
+        if isinstance(m, Norm) and m.kind == "batch":
+            m.data_group = group
+    return model
 
 
 class ResidualBlock(nn.Module):

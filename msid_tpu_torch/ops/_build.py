@@ -21,6 +21,7 @@ After the first call neither takes a lock.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -89,7 +90,10 @@ def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     ``defines``) unless its build exists; returns the path.
 
     The compiler writes to a temporary file that is renamed into place, so
-    processes that build at the same time never load a partial library.
+    no process loads a partial library, and one build of a target runs at
+    a time: processes that need it together (the ranks of a process group)
+    wait on a lock file beside it, which the system releases with its
+    holder, and the later ones load the first one's build.
     """
     target = library_path(name, defines)
     if target.exists():
@@ -98,6 +102,14 @@ def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     if not Path(nvcc).exists():
         raise RuntimeError(f"nvcc not found (looked for {nvcc}); set CUDA_HOME")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(target.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not target.exists():
+            _compile(name, defines, nvcc, target)
+    return target
+
+
+def _compile(name: str, defines: tuple[str, ...], nvcc: str, target: Path) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
@@ -112,7 +124,6 @@ def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return target
 
 
 def load_library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:

@@ -12,7 +12,10 @@ clamp to [-3, 3]. Its random numbers are not the TPU's: both versions here
 draw the same counter-based Philox4x32-10 stream, keyed by the seed, with
 counters ``(index, sub-stream, sample, stream)``, so the plain version
 reproduces the kernel's draws and every draw depends on (seed, sample,
-position) only.
+position) only. ``sample_offset`` makes local sample b draw as sample
+``b + sample_offset`` of a global batch, so a data-parallel rank holding
+rows ``[offset, offset + B)`` corrupts them as one device corrupts those
+rows of the whole batch.
 
 The plain version builds Philox from int64 tensor ops: torch has no
 uint32 multiply and a 32x32-bit product overflows int64, so each
@@ -40,7 +43,7 @@ _THREADS = 256
 _TARGET_CTAS = 1056          # 8 per SM of an H100's 132
 _SMEM_LIMIT = 227 * 1024     # bytes a CTA may use on Hopper
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-             + [ctypes.c_uint] * 2 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+             + [ctypes.c_uint] * 3 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
 
 
 def seed_key(seed: int) -> tuple[int, int]:
@@ -94,11 +97,13 @@ def box_muller(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 
 
 def kernel_draws(seed: int, batch: int, n: int, wc: int, channels: int,
-                 device: torch.device | str = "cpu") -> dict:
+                 device: torch.device | str = "cpu", sample_offset: int = 0) -> dict:
     """The kernel's random draws for a batch of ``batch`` samples of ``n``
-    elements: ``u_dead`` [B, C] and ``u_gate`` [B] uniforms, stripe normals
-    ``stripe`` [B, wc], and per-element normals ``n1``, ``n2`` [B, n]."""
-    b = torch.arange(batch, device=device, dtype=torch.int64)[:, None]
+    elements, sample b drawn as sample ``b + sample_offset``: ``u_dead``
+    [B, C] and ``u_gate`` [B] uniforms, stripe normals ``stripe`` [B, wc],
+    and per-element normals ``n1``, ``n2`` [B, n]."""
+    b = torch.arange(sample_offset, sample_offset + batch, device=device,
+                     dtype=torch.int64)[:, None]
     q = torch.arange((channels + 4) // 4, device=device, dtype=torch.int64)
     words = philox4x32(q[None, :], 0, b, 0, seed)
     u = uniform(torch.stack(words, dim=-1).reshape(batch, -1))
@@ -145,12 +150,22 @@ def stripe_probability(cfg: NoiseConfig) -> float:
 
 def apply_sensor_noise_kernel_reference(seed: int, x: torch.Tensor,
                                         cfg: NoiseConfig = NoiseConfig(),
-                                        return_masks: bool = False):
+                                        return_masks: bool = False,
+                                        sample_offset: int = 0):
     """Plain PyTorch version of the kernel: the same Philox draws, the same
     composition. x is NHWC, any float dtype."""
     bsz, h, w, c = x.shape
-    draws = kernel_draws(seed, bsz, h * w * c, w * c, c, x.device)
+    check_sample_offset(sample_offset, bsz)
+    draws = kernel_draws(seed, bsz, h * w * c, w * c, c, x.device, sample_offset)
     return compose(x, cfg, draws, return_masks)
+
+
+def check_sample_offset(sample_offset: int, batch: int) -> None:
+    """The global sample indices ``[offset, offset + batch)`` must be 32-bit
+    Philox counters."""
+    if int(sample_offset) < 0 or int(sample_offset) + batch >= 2 ** 32:
+        raise ValueError(f"sample_offset {sample_offset} + batch {batch} must lie "
+                         f"in [0, 2**32)")
 
 
 def launch_shape(batch: int, n: int) -> tuple[int, int]:
@@ -172,17 +187,19 @@ def smem_bytes(channels: int, wc: int) -> int:
 
 def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
                               cfg: NoiseConfig = NoiseConfig(),
-                              return_masks: bool = False):
+                              return_masks: bool = False, sample_offset: int = 0):
     """Corrupt an NHWC batch with the fused kernel. Returns the corrupted
     batch in x's dtype (and, with ``return_masks``, the ``[B, C+1]`` fp32
-    alive mask and gate).
+    alive mask and gate). Sample b draws as sample ``b + sample_offset``
+    of a global batch.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
     (fp32 or bf16) or raise.
     """
     global launches
     if x.device.type == "cpu":
-        return apply_sensor_noise_kernel_reference(seed, x, cfg, return_masks)
+        return apply_sensor_noise_kernel_reference(seed, x, cfg, return_masks,
+                                                   sample_offset)
     if x.device.type != "cuda":
         raise ValueError(f"the noise kernel needs a CUDA tensor, got one on {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -196,6 +213,7 @@ def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
         raise ValueError(f"W*C = {w * c} stripes do not fit in shared memory")
     if bsz * n >= 2 ** 31 or bsz >= 2 ** 16:
         raise ValueError(f"batch {tuple(x.shape)} too large for one launch")
+    check_sample_offset(sample_offset, bsz)
     k0, k1 = seed_key(seed)
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -208,7 +226,7 @@ def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
     err = _build.call(fn, x.device, x.data_ptr(), out.data_ptr(),
                       masks.data_ptr() if masks is not None else None,
                       0 if x.dtype == torch.float32 else 1, int(vec), bsz, n, w * c, c,
-                      chunks, per_cta, k0, k1,
+                      chunks, per_cta, k0, k1, int(sample_offset),
                       cfg.dead_band_prob, cfg.speckle_sigma, cfg.gaussian_sigma ** 2,
                       cfg.thermal_scale ** 2, stripe_probability(cfg), cfg.stripe_sigma)
     if err != 0:

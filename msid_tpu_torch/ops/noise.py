@@ -22,6 +22,12 @@ the card the one-pass kernel is the default; ``PERF.md`` has both impls'
 times inside the train step. The two impls draw different streams with
 the same distributions.
 
+Under data parallelism a rank holds rows ``[offset, offset + B)`` of a
+global batch of ``global_batch`` samples, and ``corrupt`` gives those rows
+what one device corrupting the whole batch gives them: ``pallas`` keys its
+draws by the global sample (K2's ``sample_offset``), ``jnp`` draws at the
+global shape and keeps the rank's rows.
+
 Seeds replace JAX's key threading: ``fold_in(seed, value)`` derives a
 64-bit seed from a seed and an integer, so the trainer's per-(epoch,
 batch) seeds and the fixed per-batch validation seeds are pure functions
@@ -155,15 +161,30 @@ def default_noise_impl(device: torch.device | str) -> str:
 
 
 def corrupt(seed: int, x: torch.Tensor, cfg: NoiseConfig = NoiseConfig(),
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", sample_offset: int = 0,
+            global_batch: int | None = None) -> torch.Tensor:
     """Corrupt ``x`` with the ``impl`` the config names: ``auto``, ``jnp``
-    (reference composition) or ``pallas`` (the fused kernel K2)."""
+    (reference composition) or ``pallas`` (the fused kernel K2). ``x`` is
+    rows ``[sample_offset, sample_offset + B)`` of a batch of
+    ``global_batch`` samples (default: x is the whole batch)."""
     if impl not in IMPLS:
         raise ValueError(f"noise impl must be one of {IMPLS}, got {impl!r}")
+    b = x.shape[0]
+    if global_batch is None:
+        if sample_offset:
+            raise ValueError("a sample_offset needs the global_batch it is an offset in")
+        global_batch = b
+    if not 0 <= sample_offset <= global_batch - b:
+        raise ValueError(f"rows [{sample_offset}, {sample_offset + b}) are not in a "
+                         f"batch of {global_batch}")
     if impl == "auto":
         impl = default_noise_impl(x.device)
     if impl == "pallas":
         from msid_tpu_torch.ops.cuda_noise import apply_sensor_noise_kernel
 
-        return apply_sensor_noise_kernel(seed, x, cfg)
-    return apply_sensor_noise(seed, x, cfg)
+        return apply_sensor_noise_kernel(seed, x, cfg, sample_offset=sample_offset)
+    if global_batch == b:
+        return apply_sensor_noise(seed, x, cfg)
+    draws = sensor_noise_draws(seed, (global_batch, *x.shape[1:]), cfg, x.device)
+    rows = slice(sample_offset, sample_offset + b)
+    return apply_sensor_noise_from_draws(x, cfg, {k: v[rows] for k, v in draws.items()})

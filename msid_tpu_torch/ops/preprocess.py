@@ -52,17 +52,26 @@ def from_model_range(x: torch.Tensor) -> torch.Tensor:
 
 
 def random_band_permutation(x: torch.Tensor, prob: float,
-                            generator: torch.Generator) -> torch.Tensor:
+                            generator: torch.Generator, sample_offset: int = 0,
+                            global_batch: int | None = None) -> torch.Tensor:
     """Permute the band axis of each sample with probability ``prob``
     (spectral augmentation). The gates and permutations are drawn from
-    ``generator`` on its own device and moved to x's."""
+    ``generator`` on its own device and moved to x's. ``x`` is rows
+    ``[sample_offset, sample_offset + B)`` of a batch of ``global_batch``
+    (default: the whole batch): the draws are the whole batch's, and x
+    takes its rows of them."""
     b, _, _, c = x.shape
+    n = b if global_batch is None else int(global_batch)
+    if not 0 <= sample_offset <= n - b:
+        raise ValueError(f"rows [{sample_offset}, {sample_offset + b}) are not in a "
+                         f"batch of {n}")
     device = generator.device
-    gate = torch.rand(b, generator=generator, device=device) < prob
+    gate = torch.rand(n, generator=generator, device=device) < prob
     perms = torch.stack([torch.randperm(c, generator=generator, device=device)
-                         for _ in range(b)])
+                         for _ in range(n)])
     identity = torch.arange(c, device=device)
-    idx = torch.where(gate[:, None], perms, identity[None, :]).to(x.device)
+    rows = slice(sample_offset, sample_offset + b)
+    idx = torch.where(gate[rows, None], perms[rows], identity[None, :]).to(x.device)
     return torch.take_along_dim(x, idx[:, None, None, :].expand_as(x), dim=3)
 
 

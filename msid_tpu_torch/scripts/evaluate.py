@@ -16,6 +16,11 @@ hybrid`` scores through the module's encoder and the folded-BN decoder
 (``deployment/fastpath.py``); it raises ``ValueError`` for models with an
 ``input_fill`` stage or without batch norm. Results go to
 ``<output-dir>/evaluation_results.json``.
+
+Under torchrun (``torchrun --nproc_per_node N -m msid_tpu_torch.scripts.evaluate
+... [--device cpu]``) the ranks split each validation batch, every rank
+loads the checkpoints, the metric sums are reduced over the ranks (the
+same numbers as one process), and rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -61,7 +66,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                   "(matplotlib), not ported")
     if args.ensemble and not args.checkpoint:
         raise SystemExit("--ensemble extends --checkpoint; pass --checkpoint too")
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s: %(message)s")
+    from msid_tpu_torch.parallel.distributed import joined_from_env, shutdown
+
+    device, joined = joined_from_env(args.device)
+    try:
+        return _evaluate(args, device)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _evaluate(args: argparse.Namespace, device) -> dict:
+    import torch.distributed as dist
+
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
+                        format="%(asctime)s %(levelname)s: %(message)s")
     logger = logging.getLogger("evaluate")
 
     from msid_tpu_torch.data.pipeline import get_dataloaders
@@ -72,7 +92,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from msid_tpu_torch.training.losses import LossConfig
     from msid_tpu_torch.training.optim import build_optimizer_from_config
     from msid_tpu_torch.training.train_state import TrainState
-    from msid_tpu_torch.training.trainer import compute_dtype_from_config
+    from msid_tpu_torch.training.trainer import compute_dtype_from_config, mesh_from_process_group
     from msid_tpu_torch.utils.checkpointing import CheckpointManager
     from msid_tpu_torch.utils.config import coerce_scheduler_params, load_config
     from msid_tpu_torch.utils.setup_helpers import create_model_from_config
@@ -83,7 +103,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     orbit_prefix(args.tta, image_size, image_size)      # before any checkpoint is read
     if args.synthetic:
         config.setdefault("data", {})["root_dir"] = "/nonexistent-forces-synthetic"
-    device = resolve_device(args.device)
+    mesh = mesh_from_process_group(config, device)
+    device = resolve_device(device)
     compute_dtype = compute_dtype_from_config(config)
     model, _ = create_model_from_config(config, int(config.get("seed", 42)), device)
 
@@ -115,12 +136,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             variables = tuple(members)
             logger.info("Ensembling %d checkpoints (mean restoration)", len(members))
 
-    _, val_loader = get_dataloaders(config, device)
+    _, val_loader = get_dataloaders(config, device, mesh)
     results = evaluate_model(
         model, variables, val_loader, loss_cfg=LossConfig.from_config(config),
         noise_cfg=NoiseConfig.from_config(config), image_size=image_size, tta=args.tta,
         forward_impl=args.forward, compute_dtype=compute_dtype,
-        noise_impl=str(config.get("noise", {}).get("impl", "auto")))
+        noise_impl=str(config.get("noise", {}).get("impl", "auto")), mesh=mesh,
+        verbose=main_rank)
     if args.tta > 1:
         results["tta"] = args.tta
         logger.info("Metrics above use %d-view dihedral self-ensembling", args.tta)
@@ -140,9 +162,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "date_utc": datetime.datetime.now(datetime.timezone.utc).strftime(
             "%Y-%m-%dT%H:%M:%SZ"),
     }
-    out_dir = Path(args.output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "evaluation_results.json").write_text(json.dumps(results, indent=2) + "\n")
+    if main_rank:
+        out_dir = Path(args.output_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "evaluation_results.json").write_text(json.dumps(results, indent=2) + "\n")
     return results
 
 

@@ -9,6 +9,17 @@ cpu``; checkpoints go to ``<output-dir>/checkpoints`` and the history to
 the latest checkpoint there (or under ``--checkpoint``); ``--init-from``
 is a weights-only warm start from another run's checkpoints, with a fresh
 optimizer and schedule.
+
+Under torchrun it trains data-parallel, one rank per device (the global
+batch is the config's, split over the ranks; every rank ends with the
+same weights):
+
+    torchrun --nproc_per_node 2 -m msid_tpu_torch.scripts.train \
+        --config configs/experiments/tiny_cpu.yaml --synthetic --device cpu --output-dir /tmp/t
+
+Each rank joins the process group (NCCL on cards, rank r on ``cuda:r``;
+gloo with ``--device cpu``), and only rank 0 logs and writes checkpoints
+and the history. Run without torchrun it is one process, as before.
 """
 
 from __future__ import annotations
@@ -44,7 +55,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.init_from and (args.resume or args.checkpoint):
         raise SystemExit("--init-from is a weights-only warm start; it cannot be "
                          "combined with --resume/--checkpoint")
-    logging.basicConfig(level=logging.INFO,
+    from msid_tpu_torch.parallel.distributed import joined_from_env, shutdown
+
+    device, joined = joined_from_env(args.device)
+    try:
+        return _train(args, device)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _train(args: argparse.Namespace, device) -> dict:
+    import torch.distributed as dist
+
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     logger = logging.getLogger("train")
 
@@ -53,7 +78,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     session = setup_training_session(args.config, output_dir=args.output_dir,
                                      epochs=args.epochs, synthetic=args.synthetic,
-                                     device=args.device)
+                                     device=device)
     config, trainer = session["config"], session["trainer"]
     logger.info("train batches/epoch: %d, val batches: %d",
                 len(session["train_loader"]), len(session["val_loader"]))
@@ -75,9 +100,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                           int(config["training"]["epochs"]), start_epoch=start_epoch)
     session["checkpoint_manager"].close()
 
-    hist_path = Path(args.output_dir) / "logs" / "training_history.json"
-    hist_path.parent.mkdir(parents=True, exist_ok=True)
-    hist_path.write_text(json.dumps(history, indent=2))
+    if main_rank:
+        hist_path = Path(args.output_dir) / "logs" / "training_history.json"
+        hist_path.parent.mkdir(parents=True, exist_ok=True)
+        hist_path.write_text(json.dumps(history, indent=2))
     logger.info("Training complete. Best val PSNR: %.2f dB",
                 max(history["val_psnr"]) if history["val_psnr"] else float("nan"))
     return history

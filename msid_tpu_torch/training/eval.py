@@ -48,7 +48,7 @@ def evaluate_model(model, variables, loader, loss_cfg: Optional[LossConfig] = No
                    image_size: Optional[int] = None, eval_seed: int = 1234,
                    verbose: bool = True, tta: int = 1, forward_impl: str = "auto",
                    compute_dtype: torch.dtype = torch.float32,
-                   noise_impl: str = "auto") -> dict:
+                   noise_impl: str = "auto", mesh=None) -> dict:
     """Evaluate over a loader with one host transfer; returns the metric
     dict of :func:`run_eval_loop`.
 
@@ -57,7 +57,9 @@ def evaluate_model(model, variables, loader, loss_cfg: Optional[LossConfig] = No
     scores the mean restoration of the ensemble. ``tta`` > 1 averages over
     that many dihedral views of each noisy input. ``noise_impl`` must be
     the one the trainer's validation used (``noise.impl``) for the numbers
-    to reproduce its validation line.
+    to reproduce its validation line. With a data-parallel ``mesh`` the
+    loader yields this rank's shard of each batch (``get_dataloaders(...,
+    mesh=mesh)``) and the sums are the whole batches'.
     """
     from msid_tpu_torch.training.train_state import ensemble_members, make_eval_step
 
@@ -66,7 +68,7 @@ def evaluate_model(model, variables, loader, loss_cfg: Optional[LossConfig] = No
         model, loss_cfg or LossConfig(), noise_cfg or NoiseConfig(),
         image_size=image_size or model.image_size, noise_impl=noise_impl, tta=tta,
         forward_impl=forward_impl, ensemble_size=ensemble_size,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, mesh=mesh)
     results = run_eval_loop(
         lambda batch, seed, count: eval_step(batch, seed, count, variables),
         loader, eval_seed)

@@ -11,6 +11,10 @@ encoder: AdamW at encoder_lr_scale x LR, decoder: AdamW at 1x LR)``. Here:
   * the clip is optax's: ``g / norm * max_norm`` only when
     ``norm >= max_norm`` (``clip_grad_norm_`` divides by ``norm + 1e-6``
     and always scales);
+  * under tensor parallelism (``parallel/tp.py`` sets ``model_group`` and
+    ``sharded``) the global norm counts each sharded gradient's shards
+    once, their squares summed over the model group, and each replicated
+    one once;
   * ``torch.optim.AdamW`` updates the two groups (the JAX package computes
     AdamW in XLA, not in a kernel); each group's LR is set from
     ``schedule(count)`` before the update, ``count`` being the number of
@@ -70,6 +74,8 @@ class GroupedAdamW:
             for label, scale in (("encoder", float(encoder_lr_scale)), ("decoder", 1.0))
         ]
         groups = [g for g in groups if g["params"]]
+        self.model_group = None     # tensor parallelism: see parallel/tp.py
+        self.sharded: list[bool] | None = None
         self.adamw = torch.optim.AdamW(
             groups, lr=schedule(0), betas=(float(betas[0]), float(betas[1])),
             eps=1e-8, weight_decay=float(weight_decay))
@@ -87,8 +93,15 @@ class GroupedAdamW:
 
     def global_norm(self) -> torch.Tensor:
         """sqrt of the sum of squares of every gradient, frozen ones too."""
-        norms = torch._foreach_norm(self.grads())
-        return torch.linalg.vector_norm(torch.stack(norms))
+        norms = torch.stack(torch._foreach_norm(self.grads()))
+        if self.model_group is None:
+            return torch.linalg.vector_norm(norms)
+        from msid_tpu_torch.parallel.collectives import all_reduce_sum
+
+        squares = norms * norms
+        sharded = torch.tensor(self.sharded, device=squares.device)
+        shards = all_reduce_sum(squares[sharded].sum(), self.model_group)
+        return torch.sqrt(squares[~sharded].sum() + shards)
 
     def clip_(self, norm: torch.Tensor) -> None:
         """optax ``clip_by_global_norm`` in place, with no host sync:

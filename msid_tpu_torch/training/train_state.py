@@ -20,6 +20,19 @@ skipped step leaves the parameters, the AdamW moments, the update count
 and the EMA as they were, restores the BatchNorm statistics the forward
 updated, and counts one ``nan_skips``.
 
+Under a ``mesh`` (``parallel/mesh.py``, one process per device) each
+rank's step takes its rows of a global batch and gives the single-device
+step's result on that batch, as the JAX mesh step does under GSPMD: the
+corruption and the band permutation draw as for the global batch
+(sample offsets); train-mode BatchNorm takes global moments (its norms'
+``data_group``, set by ``parallel.set_data_group``); after the
+accumulation loop one bucketed all-reduce averages every gradient over
+the data group (the frozen blocks' and ``fill_gram``'s too: they count in
+the clip norm); the loss and mse are averaged over it before the
+non-finite test, so every rank skips or applies the same steps. Under
+tensor parallelism (``parallel/tp.py``) the ViT's sharded blocks carry
+their own collectives and the clip norm counts each shard once.
+
 The eval step scores the live weights, one set of weights given as a
 dict (``torch.func.functional_call``, the counterpart of
 ``model.apply(variables, ...)``), or the mean restoration of an ensemble
@@ -30,10 +43,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -42,12 +56,16 @@ from msid_tpu_torch.ops.metrics import batch_metric_sums
 from msid_tpu_torch.ops.noise import NoiseConfig, corrupt, fold_in
 from msid_tpu_torch.ops.preprocess import preprocess_tiles, random_band_permutation
 from msid_tpu_torch.ops.tta import dihedral_ensemble, orbit_prefix
+from msid_tpu_torch.parallel.collectives import all_reduce_mean_
 from msid_tpu_torch.training.losses import (
     LossConfig,
     combined_loss,
     combined_loss_per_sample,
 )
 from msid_tpu_torch.training.optim import GroupedAdamW
+
+if TYPE_CHECKING:
+    from msid_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -133,6 +151,16 @@ def _clean_batch(batch: torch.Tensor, image_size: int,
     return batch.float()
 
 
+def _rows(mesh: Optional["Mesh"], local_batch: int) -> tuple[int, int]:
+    """``(offset, global_batch)`` of a rank's rows (the whole batch without
+    a mesh)."""
+    return (0, local_batch) if mesh is None else mesh.rows(local_batch)
+
+
+def _reduced(mesh: Optional["Mesh"]) -> bool:
+    return mesh is not None and mesh.distributed
+
+
 def make_train_step(
     model: nn.Module,
     loss_cfg: LossConfig = LossConfig(),
@@ -145,6 +173,7 @@ def make_train_step(
     vgg_params=None,
     ema_decay: float = 0.0,
     compute_dtype: torch.dtype = torch.float32,
+    mesh: Optional["Mesh"] = None,
 ) -> Callable:
     """The train step ``(state, batch, seed) -> (state, metrics)``.
 
@@ -154,6 +183,11 @@ def make_train_step(
     and the band permutation. ``metrics`` holds ``loss``, ``mse`` and
     ``grad_norm`` as device scalars and ``skipped`` as an int. ``vgg_params``
     (on the model's device) makes the perceptual term the VGG16 loss.
+
+    With ``mesh`` the batch is this rank's rows of the global batch
+    (``mesh.data`` times as many) and the metrics are the global batch's
+    (see the module docstring). ``train_step.prepare(batch, seed)`` is the
+    step's ``(clean, noisy)`` input, for checks.
     """
     device = next(model.parameters()).device
     buffers = [b for b in model.buffers() if b.is_floating_point()]
@@ -162,17 +196,24 @@ def make_train_step(
         with exact_fp32(compute_dtype):
             return _train_step(state, batch, seed)
 
+    @torch.no_grad()
+    def prepare(batch, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+        clean = _clean_batch(_to_device(batch, device), image_size, preprocess_on_device)
+        offset, global_batch = _rows(mesh, clean.shape[0])
+        noise_seed = seed
+        if band_permutation_prob > 0.0:
+            g = torch.Generator().manual_seed(fold_in(seed, 1) % 2 ** 63)
+            clean = random_band_permutation(clean, band_permutation_prob, g,
+                                            offset, global_batch)
+            noise_seed = fold_in(seed, 0)
+        noisy = corrupt(noise_seed, clean, noise_cfg, impl=noise_impl,
+                        sample_offset=offset, global_batch=global_batch)
+        return clean, noisy
+
     def _train_step(state: TrainState, batch, seed: int):
         optimizer = state.optimizer
         model.train()
-        with torch.no_grad():
-            clean = _clean_batch(_to_device(batch, device), image_size, preprocess_on_device)
-            noise_seed = seed
-            if band_permutation_prob > 0.0:
-                g = torch.Generator().manual_seed(fold_in(seed, 1) % 2 ** 63)
-                clean = random_band_permutation(clean, band_permutation_prob, g)
-                noise_seed = fold_in(seed, 0)
-            noisy = corrupt(noise_seed, clean, noise_cfg, impl=noise_impl)
+        clean, noisy = prepare(batch, seed)
         n = clean.shape[0]
         if n % accum_steps:
             raise ValueError(f"batch {n} not divisible by accum_steps {accum_steps}")
@@ -194,6 +235,11 @@ def make_train_step(
             torch._foreach_mul_(grads, 1.0 / accum_steps)
             loss_sum = loss_sum * (1.0 / accum_steps)
             mse_sum = mse_sum * (1.0 / accum_steps)
+        if _reduced(mesh):
+            all_reduce_mean_(grads, mesh.data_group, mesh.data)
+            means = torch.stack([loss_sum, mse_sum])
+            all_reduce_mean_([means], mesh.data_group, mesh.data)
+            loss_sum, mse_sum = means[0], means[1]
         grad_norm = optimizer.global_norm()
 
         finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss_sum))  # host sync
@@ -217,6 +263,7 @@ def make_train_step(
         return state, {"loss": loss_sum, "mse": mse_sum, "grad_norm": grad_norm,
                        "skipped": int(not finite)}
 
+    train_step.prepare = prepare
     return train_step
 
 
@@ -232,6 +279,7 @@ def make_eval_step(
     forward_impl: str = "auto",
     ensemble_size: int = 1,
     compute_dtype: torch.dtype = torch.float32,
+    mesh: Optional["Mesh"] = None,
 ) -> Callable:
     """The eval step ``(batch, seed, count, variables=None) -> sums``:
     corrupt with the batch's fixed seed, run the eval-mode forward in the
@@ -253,6 +301,11 @@ def make_eval_step(
     validation can score the graph that serving ships. It is opt-in, raises
     ``ValueError`` for models the folded graphs do not support, and does
     not combine with an ensemble. ``vgg_params`` is the train step's.
+
+    With ``mesh`` the batch is this rank's rows of a global batch whose
+    first ``count`` samples are real; the rank corrupts its rows as the
+    global batch's, masks the ones past ``count`` and returns the sums over
+    the whole global batch (all-reduced over the data group).
     """
     orbit_prefix(tta, image_size, image_size)
     if forward_impl not in ("auto", "apply", "hybrid"):
@@ -292,12 +345,21 @@ def make_eval_step(
         model.eval()
         with torch.no_grad(), exact_fp32(compute_dtype):
             clean = _clean_batch(_to_device(batch, device), image_size, preprocess_on_device)
-            noisy = corrupt(seed, clean, noise_cfg, impl=noise_impl)
+            b = clean.shape[0]
+            offset, global_batch = _rows(mesh, b)
+            noisy = corrupt(seed, clean, noise_cfg, impl=noise_impl,
+                            sample_offset=offset, global_batch=global_batch)
             out = dihedral_ensemble(forward, noisy, tta).float()
-            mask = (torch.arange(clean.shape[0], device=device) < count).float()
+            local_count = min(max(int(count) - offset, 0), b)
+            mask = (torch.arange(b, device=device) < local_count).float()
             loss_ps = combined_loss_per_sample(out, clean, loss_cfg, vgg_params)
             sums = batch_metric_sums(out, clean, mask=mask)
             sums["loss"] = torch.sum(loss_ps * mask)
+            if _reduced(mesh):
+                keys = sorted(sums)
+                stacked = torch.stack([sums[k].float() for k in keys])
+                dist.all_reduce(stacked, group=mesh.data_group)
+                sums = dict(zip(keys, stacked.unbind()))
         return sums
 
     return eval_step

@@ -9,7 +9,23 @@ transfer at its end. Corruption seeds are ``fold_in(fold_in(seed, epoch),
 batch)`` for training and ``fold_in(eval_seed, batch)`` for validation,
 so validation sees the same corruption every epoch.
 
-One card; the multi-device mesh is a later slice of the port.
+Data parallelism (the JAX trainer's mesh branches): with a ``mesh``, or
+when a process group of more than one rank is up and ``parallel.enabled``
+is not false, every rank runs this trainer on its rows of each global
+batch (``parallel/mesh.py``): its batch norms take global moments, its
+weights start as data rank 0's, and its steps reduce over the data group,
+so every rank holds the same state and the same numbers, and the steps
+are the one-device steps on the global batches. ``parallel.num_devices``
+may only be -1 or the world size (a launched world cannot be shrunk).
+Gradient accumulation collapses to 1 unless ``parallel.keep_grad_accum``.
+A rank gets its rows in one of two ways. The loaders of
+``data/pipeline.py`` (``get_dataloaders`` under a mesh) are sharded over
+the data axis and yield them, and never a batch the axis does not
+divide. From a loader the user builds, which yields global batches, the
+trainer cuts them: it refuses a global train batch the data axis does not
+divide, and trims (or, below the data size, skips) such a validation
+batch as the JAX trainer does.
+Only rank 0 logs, and only data rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -19,10 +35,19 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from msid_tpu_torch.models.blocks import set_data_group
 from msid_tpu_torch.models.restoration import resolve_device
 from msid_tpu_torch.ops.noise import IMPLS, NoiseConfig, fold_in
-from msid_tpu_torch.training.eval import run_eval_loop
+from msid_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    on_mesh_device,
+    replicate,
+    shard_batch,
+)
+from msid_tpu_torch.training.eval import run_eval_loop, split_batch_item
 from msid_tpu_torch.training.losses import LossConfig
 from msid_tpu_torch.training.perceptual import resolve_perceptual
 from msid_tpu_torch.training.train_state import TrainState, make_eval_step, make_train_step
@@ -38,8 +63,28 @@ def compute_dtype_from_config(config: dict) -> torch.dtype:
     return torch.bfloat16 if mixed else torch.float32
 
 
+def mesh_from_process_group(config: dict,
+                            device: Optional[str | torch.device] = None) -> Optional[Mesh]:
+    """The trainer's data-parallel mesh over the process group that is up,
+    or None: no group, one rank, or ``parallel.enabled: false``. Its
+    device is this rank's (``make_mesh``), named by ``device`` when
+    given. Raises when ``parallel.num_devices`` asks for another world
+    size, and when the rank's device is unknown or not ``device``."""
+    par = config.get("parallel", {})
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() < 2:
+        return None
+    if not par.get("enabled", True):
+        return None
+    requested = int(par.get("num_devices", -1))
+    if requested not in (-1, dist.get_world_size()):
+        raise ValueError(f"parallel.num_devices={requested} but {dist.get_world_size()} "
+                         f"ranks were launched: a launched world cannot be shrunk")
+    return make_mesh(devices=None if device is None else [device])
+
+
 class Trainer:
-    """Drives training of a restoration model on one device."""
+    """Drives training of a restoration model on one device, or on this
+    rank's device of a data-parallel mesh."""
 
     def __init__(self, model, state: TrainState, config: Optional[dict] = None,
                  loss_cfg: Optional[LossConfig] = None,
@@ -48,11 +93,21 @@ class Trainer:
                  train_step: Optional[Callable] = None,
                  eval_step: Optional[Callable] = None, seed: int = 42,
                  eval_seed: int = 1234, log_every: int = 50,
-                 device: str | torch.device = "cuda"):
-        self.device = resolve_device(device)
+                 device: str | torch.device = "cuda", mesh: Optional[Mesh] = None):
         config = config or {}
         training = config.get("training", {})
+        self.mesh = mesh if mesh is not None else mesh_from_process_group(config, device)
+        self.device = resolve_device(device if self.mesh is None
+                                     else on_mesh_device(self.mesh, device))
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.model = model.to(self.device)
+        if self.mesh is not None:
+            if self.mesh.model > 1:
+                raise ValueError("the trainer is data-parallel: a mesh with a model axis "
+                                 "> 1 is for the steps with parallel.shard_train_state")
+            set_data_group(self.model, self.mesh.data_group)
+            replicate(self.model, self.mesh)
+            self._log("data-parallel mesh over %d ranks", self.mesh.data)
         self.state = state
         self.config = config
         self.ckpt = checkpoint_manager
@@ -71,10 +126,15 @@ class Trainer:
         if accum > 1 and bool(training.get("auto_accum", True)):
             num_params = sum(p.numel() for p in model.parameters())
             if self._memory_fits(config, accum, num_params, device=self.device):
-                logger.info("collapsing gradient accumulation %dx -> 1 (fits in "
+                self._log("collapsing gradient accumulation %dx -> 1 (fits in "
                             "device memory; set training.auto_accum: false to "
                             "keep)", accum)
                 accum = 1
+        # On a mesh the batch shards over the data axis instead of
+        # accumulating; keep the configured accumulation only if forced.
+        if self.mesh is not None and not config.get("parallel", {}).get("keep_grad_accum",
+                                                                         False):
+            accum = 1
         self.accum_steps = accum
 
         noise_impl = str(config.get("noise", {}).get("impl", "auto"))
@@ -84,7 +144,7 @@ class Trainer:
         self.ema_decay = float(training.get("ema_decay", 0.0))
         if self.ema_decay > 0.0 and self.state.ema is None:
             self.state.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
-            logger.info("EMA of params enabled (decay %.5g); validation uses the "
+            self._log("EMA of params enabled (decay %.5g); validation uses the "
                         "shadow weights", self.ema_decay)
 
         # The perceptual term: the reference's VGG16 feature MSE when usable
@@ -99,14 +159,16 @@ class Trainer:
             image_size=image_size, noise_impl=noise_impl,
             band_permutation_prob=float(augment.get("band_permutation_prob", 0.0)),
             vgg_params=vgg_params, ema_decay=self.ema_decay,
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype, mesh=self.mesh,
         )
         self.eval_step = eval_step or make_eval_step(
             model, self.loss_cfg, self.noise_cfg, image_size=image_size,
             noise_impl=noise_impl, vgg_params=vgg_params,
             forward_impl=str(training.get("eval_forward", "auto")),
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype, mesh=self.mesh,
         )
+        if self.mesh is not None and self.ckpt is not None:
+            self.ckpt.mesh = self.mesh      # data rank 0 writes, the others wait
 
         es = config.get("early_stopping", {})
         self.early_stopping_enabled = bool(es.get("enabled", False))
@@ -140,13 +202,31 @@ class Trainer:
                         if device.type == "cuda" else 8.0)
         return est < safety * limit_gb
 
+    def _log(self, *args) -> None:
+        if self.is_main:
+            logger.info(*args)
+
+    def _sharded(self, loader) -> bool:
+        """Whether ``loader`` yields this rank's rows of each batch (a
+        sharded loader of ``data/pipeline.py``), not global batches (a
+        loader the user built) from which the trainer cuts them."""
+        shards = getattr(loader, "num_shards", 1)
+        if self.mesh is None or shards == 1:
+            return self.mesh is None or self.mesh.data == 1
+        if shards != self.mesh.data:
+            raise ValueError(f"loader in {shards} shards on a {self.mesh.data}-way data axis")
+        return True
+
     def train_epoch(self, loader, epoch: int) -> Dict[str, float]:
         """One epoch; returns ``{'loss', 'skipped', 'steps'}``."""
         base_seed = fold_in(self.seed, epoch)
         skips_at_start = self.state.nan_skips
         losses = []
         t0 = time.time()
+        sharded = self._sharded(loader)
         for i, batch in enumerate(loader):
+            if not sharded:
+                batch = shard_batch(batch, self.mesh)
             self.state, metrics = self.train_step(self.state, batch, fold_in(base_seed, i))
             losses.append(metrics["loss"])
             skipped = self.state.nan_skips - skips_at_start
@@ -155,7 +235,7 @@ class Trainer:
                     f"Aborting epoch {epoch}: {skipped} non-finite batches "
                     f"(> {MAX_NAN_SKIPS_PER_EPOCH}). Check LR / data health.")
             if self.log_every and (i + 1) % self.log_every == 0:
-                logger.info("epoch %d batch %d/%d loss=%.5f (%.2f batch/s)",
+                self._log("epoch %d batch %d/%d loss=%.5f (%.2f batch/s)",
                             epoch, i + 1, len(loader), float(metrics["loss"]),
                             (i + 1) / (time.time() - t0))
         host = torch.stack(losses).tolist() if losses else []
@@ -167,11 +247,31 @@ class Trainer:
 
     def validate(self, loader) -> Dict[str, float]:
         """Deterministically corrupted validation over every sample; the
-        padded trailing batch counts only its real samples."""
+        padded trailing batch counts only its real samples. On a mesh a
+        global batch from an unsharded loader that the data axis does not
+        divide is trimmed to a multiple of it, or skipped when smaller."""
+        batches = loader if self._sharded(loader) else self._mesh_sized(loader)
         with self.state.eval_weights(self.model):
-            results = run_eval_loop(self.eval_step, loader, self.eval_seed)
+            results = run_eval_loop(self.eval_step, batches, self.eval_seed)
         results.pop("num_samples", None)
         return results
+
+    def _mesh_sized(self, loader):
+        """This rank's rows of each global validation batch of a loader the
+        user built, after the JAX trainer's trim or skip."""
+        n = self.mesh.data
+        for item in loader:
+            batch, count = split_batch_item(item)
+            rem = batch.shape[0] % n
+            if rem:
+                if batch.shape[0] < n:
+                    logger.warning("val batch of %d smaller than the %d-way data axis — "
+                                   "skipped", batch.shape[0], n)
+                    continue
+                logger.warning("trimming val batch %d -> %d for the %d-way data axis",
+                               batch.shape[0], batch.shape[0] - rem, n)
+                batch = batch[:batch.shape[0] - rem]
+            yield shard_batch(batch, self.mesh), min(count, batch.shape[0])
 
     def fit(self, train_loader, val_loader, epochs: int,
             start_epoch: int = 0) -> Dict[str, list]:
@@ -193,7 +293,7 @@ class Trainer:
                 self.history["val_rmse"].append(val_m["rmse"])
                 self.history["lr"].append(lr)
                 self.history["epoch_time"].append(dt)
-                logger.info(
+                self._log(
                     "epoch %d/%d: train_loss=%.5f val_loss=%.5f val_psnr=%.2fdB "
                     "val_ssim=%.4f val_sam=%.2f° lr=%.2e skipped=%d (%.1fs)",
                     epoch + 1, epochs, train_m["loss"], val_m["loss"], val_m["psnr"],
@@ -218,7 +318,7 @@ class Trainer:
                     else:
                         self.epochs_without_improvement += 1
                         if self.epochs_without_improvement >= self.patience:
-                            logger.info("Early stopping at epoch %d (no val_psnr "
+                            self._log("Early stopping at epoch %d (no val_psnr "
                                         "improvement > %.3f for %d epochs)",
                                         epoch + 1, self.min_delta, self.patience)
                             break
@@ -249,7 +349,7 @@ class Trainer:
         if self.ema_decay <= 0.0 and state.ema is not None:
             # A shadow this run never updates would freeze validation at the
             # restored weights: drop it, so validation scores the live ones.
-            logger.info("checkpoint carries an EMA shadow but training.ema_decay "
+            self._log("checkpoint carries an EMA shadow but training.ema_decay "
                         "is 0 — dropping the shadow; validation serves live params")
             state.ema = None
         self.state = state

@@ -27,6 +27,13 @@ from a worker thread, one save in flight at a time; a failure is raised at
 the next sync point (the next save, a load, ``wait_until_finished`` or
 ``close``). Orbax's own formats are not read: weights cross from the JAX
 package through ``models/from_jax.py``.
+
+Under data parallelism (``mesh``, set by the trainer) every rank keeps the
+same bookkeeping but only data rank 0 writes and prunes; after each save
+(at the join of its thread, with ``background_transfer``) every rank
+waits at a barrier, so a rank that goes on to read finds the step whole.
+Every rank loads. A tensor-parallel state is refused: its ranks hold
+shards (``parallel.tp.gather_state_dict`` makes whole weights).
 """
 
 from __future__ import annotations
@@ -106,6 +113,8 @@ class CheckpointManager:
         self.background_transfer = background_transfer
         self._save_thread: Optional[threading.Thread] = None
         self._save_error: Optional[BaseException] = None
+        self.mesh = None                 # a data-parallel mesh: data rank 0 writes
+        self._barrier_due = False
         # {step: metrics or None}, in save order; steps on disk are read in
         # step order, as a reopened Orbax manager reads them.
         self._steps: dict[int, Optional[dict]] = {}
@@ -134,7 +143,8 @@ class CheckpointManager:
         keep = set(self._ranked()[-self.keep_top_k:] if self.keep_top_k else [])
         keep |= {s for s, m in self._steps.items() if m is None}
         for step in [s for s in self._steps if s not in keep]:
-            shutil.rmtree(self.directory / str(step), ignore_errors=True)
+            if self._writes():
+                shutil.rmtree(self.directory / str(step), ignore_errors=True)
             del self._steps[step]
 
     def all_steps(self) -> list[int]:
@@ -174,9 +184,17 @@ class CheckpointManager:
             self._steps[step] = metrics
             self._prune()
 
+        if not self._writes():
+            finish()                             # the writer's bookkeeping, no files
+            self._barrier_due = True
+            if not self.background_transfer:
+                self._barrier()
+            return True
         if not self.background_transfer:
             _write_step(path, sd, metadata, metrics)
             finish()
+            self._barrier_due = True
+            self._barrier()
             return True
 
         # Snapshot on the device (a copy per tensor), then hand the
@@ -193,7 +211,25 @@ class CheckpointManager:
         self._save_thread = threading.Thread(target=worker, name=f"ckpt-save-{step}",
                                              daemon=True)
         self._save_thread.start()
+        self._barrier_due = True
         return True
+
+    def _writes(self) -> bool:
+        if self.mesh is not None and self.mesh.model > 1:
+            raise ValueError("a tensor-parallel state is sharded; save the weights of "
+                             "parallel.tp.gather_state_dict instead")
+        return self.mesh is None or self.mesh.data_rank == 0
+
+    def _barrier(self) -> None:
+        """Every rank waits here until the writer's save is on disk."""
+        if self._barrier_due and self.mesh is not None and self.mesh.distributed:
+            import torch.distributed as dist
+
+            if dist.get_backend() == "nccl":
+                dist.barrier(device_ids=[self.mesh.device.index])
+            else:
+                dist.barrier()
+        self._barrier_due = False
 
     def _join_save_thread(self) -> None:
         if self._save_thread is not None:
@@ -202,6 +238,7 @@ class CheckpointManager:
         if self._save_error is not None:
             err, self._save_error = self._save_error, None
             raise err
+        self._barrier()
 
     def wait_until_finished(self) -> None:
         self._join_save_thread()

@@ -8,7 +8,11 @@ from a SatMAE checkpoint when ``model.encoder.pretrained_path`` exists
 (``models/convert.py``), then fits the dead-band fill's Gram matrix over
 the train split when the model has ``input_fill``, and builds the
 checkpoint manager under ``output_dir/checkpoints`` (``outputs`` by
-default, as in the reference) from the ``checkpoint:`` section.
+default, as in the reference) from the ``checkpoint:`` section. Under a
+data-parallel mesh (given, or the one ``Trainer`` would make over a
+process group that is up) the model goes to the rank's device, the
+loaders yield the rank's shard of each batch, and the trainer gives the
+norms the data group and rank 0's weights.
 """
 
 from __future__ import annotations
@@ -122,7 +126,7 @@ def setup_training_session(config_path: str | Path | dict,
                            output_dir: str | Path = "outputs",
                            seed: Optional[int] = None,
                            epochs: Optional[int] = None, synthetic: bool = False,
-                           device: str | torch.device = "cuda") -> dict:
+                           device: str | torch.device = "cuda", mesh=None) -> dict:
     """Everything ``Trainer.fit`` needs, in one call: a dict with
     ``config``, ``model``, ``state``, ``trainer``, ``train_loader``,
     ``val_loader``, ``checkpoint_manager`` and ``param_counts``. The
@@ -131,24 +135,30 @@ def setup_training_session(config_path: str | Path | dict,
 
     ``config_path`` may be a loaded config dict (deep-copied). ``epochs``
     overrides ``training.epochs``; ``synthetic`` forces the synthetic
-    dataset whatever ``data.root_dir`` says.
+    dataset whatever ``data.root_dir`` says. ``mesh`` (default: the
+    trainer's mesh over a process group, if one is up) places the session
+    on this rank's device, which ``device`` must name (else it raises),
+    and shards its loaders.
     """
     from msid_tpu_torch.data.pipeline import get_dataloaders
     from msid_tpu_torch.models.restoration import resolve_device
     from msid_tpu_torch.ops.fill import fit_gram_from_config
+    from msid_tpu_torch.parallel.mesh import on_mesh_device
     from msid_tpu_torch.training.train_state import TrainState
-    from msid_tpu_torch.training.trainer import Trainer
+    from msid_tpu_torch.training.trainer import Trainer, mesh_from_process_group
 
-    device = resolve_device(device)
     config = (copy.deepcopy(config_path) if isinstance(config_path, dict)
               else setup_config(config_path))
+    if mesh is None:
+        mesh = mesh_from_process_group(config, device)
+    device = resolve_device(device if mesh is None else on_mesh_device(mesh, device))
     if epochs is not None:
         config.setdefault("training", {})["epochs"] = int(epochs)
     if synthetic:
         config.setdefault("data", {})["root_dir"] = "/nonexistent-forces-synthetic"
     seed = int(config.get("seed", 42)) if seed is None else seed
 
-    train_loader, val_loader = get_dataloaders(config, device)
+    train_loader, val_loader = get_dataloaders(config, device, mesh)
     model, counts = create_model_from_config(config, seed, device)
 
     pretrained = config.get("model", {}).get("encoder", {}).get("pretrained_path")
@@ -171,7 +181,7 @@ def setup_training_session(config_path: str | Path | dict,
     state = TrainState.create(model, optimizer)
     manager = build_checkpoint_manager(config, Path(output_dir) / "checkpoints")
     trainer = Trainer(model, state, config=config, checkpoint_manager=manager,
-                      lr_schedule=schedule, seed=seed, device=device)
+                      lr_schedule=schedule, seed=seed, device=device, mesh=mesh)
     return {
         "config": config,
         "model": model,
@@ -181,4 +191,5 @@ def setup_training_session(config_path: str | Path | dict,
         "val_loader": val_loader,
         "checkpoint_manager": manager,
         "param_counts": counts,
+        "mesh": mesh,
     }

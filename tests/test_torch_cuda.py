@@ -543,3 +543,42 @@ def test_vgg_perceptual_loss_on_the_card_matches_the_cpu():
     with exact_fp32(torch.float32):
         got = vgg_perceptual_per_sample(init_vgg16_params(0, "cuda"), p.cuda(), t.cuda())
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_with_a_sample_offset_draws_the_rows_of_the_whole_batch_on_the_card(dtype):
+    need_card()
+    from msid_tpu_torch.ops.cuda_noise import (
+        apply_sensor_noise_kernel,
+        apply_sensor_noise_kernel_reference,
+    )
+    from msid_tpu_torch.ops.noise import NoiseConfig
+
+    cfg = NoiseConfig(enable_striping=True, stripe_prob=0.5)
+    x = (torch.rand(6, 24, 20, 13, device="cuda") * 4 - 2).to(dtype)
+    whole, masks = apply_sensor_noise_kernel(3, x, cfg, return_masks=True)
+    rows, row_masks = apply_sensor_noise_kernel(3, x[2:5].contiguous(), cfg,
+                                                return_masks=True, sample_offset=2)
+    assert torch.equal(rows, whole[2:5]) and torch.equal(row_masks, masks[2:5])
+    plain = apply_sensor_noise_kernel_reference(3, x[2:5], cfg, sample_offset=2)
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -7 * 3 + 1e-6
+    assert float((rows.float() - plain.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_mesh_session_replicas_serve_their_halves_on_the_card():
+    need_card()
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.parallel import make_mesh
+
+    model = flagship_like(torch.bfloat16)
+    x = np.random.default_rng(4).normal(0, 0.5, (4, 32, 32, 13)).astype(np.float32)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    session = InferenceSession(model, batch_size=4, image_size=32, mesh=mesh)
+    half = InferenceSession(model, batch_size=2, image_size=32)
+    got = session.predict(x)
+    assert session.compiled == "cuda_graph"
+    assert session.captured_launches == 2 * half.captured_launches == 16
+    assert np.array_equal(got[:2], half.predict(x[:2]))
+    assert np.array_equal(got[2:], half.predict(x[2:]))
