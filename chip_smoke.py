@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py                  # every phase, the result lines
     python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise, probe, hybrid,
-                                               # scene, data_cache, export, perceptual,
-                                               # pretrained, parallel, nccl_shared), no
-                                               # result lines
+                                               # scene, train, data_cache, export,
+                                               # decoders, perceptual, pretrained,
+                                               # parallel, nccl_shared), no result lines
 
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
@@ -77,7 +77,11 @@ network. Phases, each of which must pass:
    every other parameter moved, one K2 launch per train step and per
    validation batch and 8 K1 launches per validation batch; then step
    times with the kernel and with the plain composition (``noise.impl:
-   jnp``) in turns, peak memory, and a profiler breakdown of one step;
+   jnp``) in turns, peak memory, a profiler breakdown of one step, and
+   one step under ``utils.profiling.trace`` (with Python frames) whose ten
+   costliest kernels are printed with their owners: the ATen op and the
+   port's Python frame around each launch (a backward kernel's through its
+   forward op's autograd sequence number);
 9. data_cache: 1024 uint16 EuroSAT-shaped tiles written as TIFFs by the
    port's ``write_tiff`` under ``data.root_dir``: ``get_dataloaders`` with
    ``data.device_cache`` caches both splits on the card as uint16 (1024 x
@@ -139,7 +143,10 @@ network. Phases, each of which must pass:
    against the live ``tta=8`` session (64 K1 a replay), the ``unet_light``
    fastpath artifact at B=16 against the live fastpath session; then
    ``python -m msid_tpu_torch.scripts.export --verify --int8`` on the
-   flagship in a child process, with its seconds;
+   flagship in a child process, with its seconds. The bf16 B=1 artifact
+   session also serves a batch of 3: it captures a second graph (8 K1),
+   replays it with no tensor-map encode, within 1e-3 of a live B=3
+   session. The host seconds of every sub-step are printed;
 14. perceptual: VGG16 weights written to an ``.npz`` and resolved by
    ``resolve_perceptual``; the flagship's bf16 train step at B=64 with the
    edge stand-in and with the VGG16 term (weight 0.1), in turns, its cost
@@ -163,9 +170,18 @@ network. Phases, each of which must pass:
    rank's BatchNorm moments over its own rows, outside those bounds; (d) a bf16
    ``InferenceSession`` over a mesh of two replicas on the card at B=16:
    each half bit-equal to a B=8 session, 16 K1 launches captured and
-   profiled per call. Run alone, ``nccl_shared`` starts two NCCL ranks on
-   the one card and prints what NCCL says (it refuses them, which is why
-   (c) is gloo).
+   profiled per call, and its ``benchmark`` at B=16 (per call and
+   pipelined) with the reference's keys, both replicas replayed in every
+   timed call. Run alone, ``nccl_shared`` starts two NCCL ranks on the one
+   card and prints what NCCL says (it refuses them, which is why (c) is
+   gloo);
+17. decoders (run after export): the flagship's configuration with the
+   ``unet`` and then the ``attention`` decoder (cuDNN convs, no fused
+   block), seeded weights, served by ``InferenceSession`` in bf16 at B=16
+   (relative RMS 2e-2 of the fp32 CPU forward) and in fp32 at B=1 (1e-4):
+   the module's forward (``optimized`` False, ``optimize=True`` refused),
+   no K1 or K4 launch counted or seen by the profiler, device p50 and busy
+   time.
 
 A launch count in the kernels line is a count of device launches. A
 wrapper counts its launch when it runs eagerly and when a graph is
@@ -187,6 +203,7 @@ directories that are removed at the end.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import functools
@@ -292,6 +309,10 @@ PARALLEL_TIMEOUT_S = 300          # two ranks sharing the card: start, build, on
 PARALLEL_DP_LOSS_RTOL = 1e-3
 PARALLEL_LOSS_RTOL = 1e-4
 PARALLEL_GNORM_RTOL = 1e-3
+# The reference's benchmark keys (msid_tpu/deployment/inference.py)
+BENCHMARK_KEYS = {"mean_ms", "fps", "images_per_sec", "batch_size", "iterations",
+                  "std_ms", "min_ms", "max_ms", "p50_ms", "p99_ms"}
+TRACE_TOP = 10                    # kernels of the traced train step named with their owners
 
 
 def load_flagship() -> dict:
@@ -309,6 +330,22 @@ def card_line() -> str:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class Stopwatch:
+    """Host seconds of named sub-steps (``with clock("name"):``), summed per
+    name, in ``seconds``."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1019,6 +1056,104 @@ def train_step_parity(torch, cfg: dict, failures: list) -> dict:
     return result
 
 
+def enclosing_spans(spans: list, queries: list) -> dict:
+    """For host spans of one thread (properly nested, ``ts``/``dur`` in us)
+    and ``(key, ts)`` queries, ``{key: [spans open at ts, outermost
+    first]}``, by one sweep over both in time order."""
+    spans = sorted(spans, key=lambda e: (e["ts"], -e["dur"]))
+    out, stack, j = {}, [], 0
+    for key, ts in sorted(queries, key=lambda q: q[1]):
+        while j < len(spans) and spans[j]["ts"] <= ts:
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] < spans[j]["ts"]:
+                stack.pop()
+            stack.append(spans[j])
+            j += 1
+        while stack and stack[-1]["ts"] + stack[-1]["dur"] < ts:
+            stack.pop()
+        out[key] = [e for e in stack if e["ts"] + e["dur"] >= ts]
+    return out
+
+
+def kernel_owners(trace_path: Path, top: int = TRACE_TOP) -> dict:
+    """The device records of a Chrome trace (``utils.profiling.trace`` with
+    ``with_stack``), grouped by kernel name, the ``top`` by time, each with
+    the owners of its time: the outermost and innermost ATen op around
+    the launch, the innermost Python frame of the port around it, and for
+    a backward kernel the backward node, whose forward op (linked by its
+    autograd sequence number) gives the op and frame instead."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    host: dict = {}
+    for e in events:
+        if e.get("cat") in ("cpu_op", "python_function", "user_annotation"):
+            host.setdefault((e["pid"], e["tid"]), []).append(e)
+
+    def chains(points: list) -> dict:
+        by_thread: dict = {}
+        for key, e in points:
+            by_thread.setdefault((e["pid"], e["tid"]), []).append((key, e["ts"]))
+        out = {}
+        for thread, queries in by_thread.items():
+            out.update(enclosing_spans(host.get(thread, []), queries))
+        return out
+
+    def owner(chain: list) -> dict:
+        aten = [e["name"] for e in chain if e["name"].startswith("aten::")]
+        frames = [e["name"] for e in chain if e.get("cat") == "python_function"
+                  and not e["name"].startswith(("torch/", "<built-in"))]
+        ours = [f for f in frames if "msid_tpu_torch/" in f]
+        frame = (ours or frames or [None])[-1]
+        return {"op": aten[0] if aten else None,
+                "inner_op": aten[-1] if len(aten) > 1 else None,
+                "frame": frame and frame.split("msid_tpu_torch/")[-1]}
+
+    launched = chains([(c, e) for c, e in launch.items()])
+    forward_ops = {}                         # autograd sequence number -> forward op
+    for e in events:
+        seq = e.get("args", {}).get("Sequence number")
+        if (e.get("cat") == "cpu_op" and seq is not None
+                and e.get("args", {}).get("Fwd thread id") == 0
+                and (seq not in forward_ops
+                     or (e["ts"], -e["dur"]) < (forward_ops[seq]["ts"], -forward_ops[seq]["dur"]))):
+            forward_ops[seq] = e                 # the outermost forward op of that number
+    backward = {}
+    for corr, chain in launched.items():
+        node = next((e for e in chain if e["name"].startswith(
+            "autograd::engine::evaluate_function: ")), None)
+        if node is not None:
+            backward[corr] = node
+    forward_chain = chains([(seq, forward_ops[seq]) for seq in
+                            {n.get("args", {}).get("Sequence number") for n in backward.values()}
+                            if seq in forward_ops])
+    groups: dict = {}
+    for e in device:
+        g = groups.setdefault(e["name"], {"us": 0.0, "launches": 0, "owners": {}})
+        g["us"] += e["dur"]
+        g["launches"] += 1
+        corr = e.get("args", {}).get("correlation")
+        who = owner(launched.get(corr, []))
+        node = backward.get(corr)
+        if node is not None:
+            seq = node.get("args", {}).get("Sequence number")
+            fwd = owner(forward_chain.get(seq, []))
+            who = {"backward_of": node["name"].split(": ", 1)[-1],
+                   "op": fwd["op"], "frame": fwd["frame"], "backward_op": who["op"]}
+        label = json.dumps(who, sort_keys=True)
+        g["owners"][label] = g["owners"].get(label, 0.0) + e["dur"]
+    busy = sum(g["us"] for g in groups.values())
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1]["us"])[:top]
+    return {"device_busy_ms": busy / 1e3, "device_records": len(device),
+            "kernels": [{"kernel": name[:120], "ms": g["us"] / 1e3, "launches": g["launches"],
+                         "share_of_busy": g["us"] / busy,
+                         "owners": [dict(json.loads(k), ms=v / 1e3) for k, v in sorted(
+                             g["owners"].items(), key=lambda kv: -kv[1])[:3]]}
+                        for name, g in ranked]}
+
+
 def phase_train(torch, failures: list, card: str) -> dict:
     """The flagship trains on the card: parity, a 1-epoch Trainer.fit with
     the launch counts, then step times, memory and a profiler breakdown."""
@@ -1103,6 +1238,21 @@ def phase_train(torch, failures: list, card: str) -> dict:
                                   "tiles_per_s": batch.shape[0] * 1e3 / host,
                                   "steps": len(pairs)}
     result["step_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # one step under the port's trace, its kernels named with their owners
+    from msid_tpu_torch.utils.profiling import trace
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        with trace(logdir, with_stack=True):
+            steps_by_impl["pallas"](trainer.state, batch, 8)
+        trace_file = next(Path(logdir).glob("*.json"))
+        trace_mb = trace_file.stat().st_size / 1e6
+        owners = kernel_owners(trace_file)
+    owners.update(trace_mb=trace_mb, seconds=time.perf_counter() - t0)
+    result["traced_step"] = owners
+    print(json.dumps({"train_step_top_kernels": owners["kernels"]}), flush=True)
+    if not (owners["kernels"] and owners["device_busy_ms"] > 0):
+        failures.append(f"train: the traced step shows no kernel: {owners}")
     prof = device_profile(torch, lambda: steps_by_impl["pallas"](trainer.state, batch, 7),
                           iters=2, tags={"noise_ms": "noise_"})
     prof["noise_share_of_busy"] = prof["noise_ms"] / prof["device_busy_ms"]
@@ -2032,18 +2182,21 @@ def artifact_turns(torch, artifact, live, x, tag: str, iters: int) -> dict:
     (``benchmark``); then the tensor maps K1's libraries encode over
     ``iters`` artifact replays and a profiler breakdown of one artifact
     replay (the live session's is the serve phases')."""
+    clock = Stopwatch()
     turns: dict = {"live": [], "artifact": []}
-    for form in ("live", "artifact", "artifact", "live"):
-        session = artifact if form == "artifact" else live
-        turns[form].append(session.benchmark(warmup_runs=3,
-                                             benchmark_iterations=iters)["p50_ms"])
+    with clock("turns"):
+        for form in ("live", "artifact", "artifact", "live"):
+            session = artifact if form == "artifact" else live
+            turns[form].append(session.benchmark(warmup_runs=3,
+                                                 benchmark_iterations=iters)["p50_ms"])
     xd = torch.from_numpy(x).cuda()
     encodes = resblock_encodes()
     for _ in range(iters):
         artifact.forward(xd)
     torch.cuda.synchronize()
-    prof = device_profile(torch, lambda: artifact.forward(xd), tags={"block": tag},
-                          expect={"block": artifact.captured_launches})
+    with clock("profile"):
+        prof = device_profile(torch, lambda: artifact.forward(xd), tags={"block": tag},
+                              expect={"block": artifact.captured_launches})
     live_ms, artifact_ms = (float(np.mean(turns[k])) for k in ("live", "artifact"))
     return {"turns_device_p50_ms": turns, "live_device_p50_ms": live_ms,
             "device_p50_ms": artifact_ms, "artifact_over_live": artifact_ms / live_ms,
@@ -2054,17 +2207,50 @@ def artifact_turns(torch, artifact, live, x, tag: str, iters: int) -> dict:
             "device_busy_ms": prof["device_busy_ms"],
             "device_idle_share": 1 - prof["device_busy_ms"] / artifact_ms,
             "profiler_sessions_full": prof["sessions_full"],
-            "profiler_sessions_over": prof["sessions_over"]}
+            "profiler_sessions_over": prof["sessions_over"], "seconds": clock.seconds}
+
+
+def artifact_new_batch(torch, artifact, model, b: int, size: int, bands: int) -> dict:
+    """A B=1 artifact session serving a batch of ``b``: the first call
+    captures a second graph (``artifact.graphs[b]``), later calls replay it
+    with no tensor-map encode, and its output is held against a live
+    session of batch ``b`` on the same weights. K1's device launches: the
+    new graph's warmup (the capture only records) and its replays."""
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.ops import cuda_decoder
+
+    x = noisy_tiles(b, size, bands, seed=500)
+    counted = cuda_decoder.launches
+    first = artifact.predict(x)                          # captures the graph at b
+    counted = cuda_decoder.launches - counted
+    encodes = resblock_encodes()
+    again = [artifact.predict(x) for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    encodes = resblock_encodes() - encodes
+    graph = artifact.graphs.get(b)
+    live = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
+    row = {"batch": b, "graphs": sorted(artifact.graphs),
+           "captured_launches": artifact.captured_launches,
+           "new_graph_launches": None if graph is None else graph.launches,
+           "new_graph_replays": None if graph is None else graph.replays,
+           "encodes_per_replay": encodes / REQUESTS,
+           "replays_equal": all(np.array_equal(first, y) for y in again),
+           "rel_rms_vs_live": rel_rms(first, live.predict(x)),
+           "finite": bool(np.isfinite(first).all()),
+           "k1_device_launches": 0 if graph is None else
+           counted - graph.launches + graph.replays * graph.launches}
+    del live
+    return row
 
 
 def phase_export(torch, failures: list, card: str) -> dict:
     """The flagship exported on the card in bf16 and fp32 and served from
     the artifacts (``InferenceSession(artifact_path=...)``) beside the live
     sessions: layout, custom-op nodes, verification, agreement, launches
-    and device times; an int8 artifact, a ``tta=8`` one, the ``unet_light``
-    fastpath, and the export CLI in a child process."""
-    import dataclasses
-
+    and device times; the bf16 B=1 artifact serving a batch of 3 (a graph
+    captured for it); an int8 artifact, a ``tta=8`` one, the ``unet_light``
+    fastpath, and the export CLI in a child process. ``seconds`` holds the
+    host seconds of each sub-step."""
     from msid_tpu_torch.deployment.export import (
         MODULE_FILE,
         PARAMS_FILE,
@@ -2078,20 +2264,22 @@ def phase_export(torch, failures: list, card: str) -> dict:
     from msid_tpu_torch.models.restoration import SatMAERestoration
     from msid_tpu_torch.ops import cuda_decoder
 
+    clock = Stopwatch()
     cfg = load_flagship()
-    cpu_model = SatMAERestoration.from_config(cfg, device="cpu").eval()
-    randomize_(torch, cpu_model, seed=0)
-    size, bands = cpu_model.image_size, cpu_model.in_channels
-    shape = (1, size, size, bands)
-    x0 = noisy_tiles(1, size, bands, seed=100)
-    torch.set_num_threads(8)
-    with torch.no_grad():
-        ref = cpu_model(torch.from_numpy(x0)).numpy()
+    with clock("cpu_reference"):
+        cpu_model = SatMAERestoration.from_config(cfg, device="cpu").eval()
+        randomize_(torch, cpu_model, seed=0)
+        size, bands = cpu_model.image_size, cpu_model.in_channels
+        shape = (1, size, size, bands)
+        x0 = noisy_tiles(1, size, bands, seed=100)
+        torch.set_num_threads(8)
+        with torch.no_grad():
+            ref = cpu_model(torch.from_numpy(x0)).numpy()
     params = list(cpu_model.parameters())
     result = {"check": "export", "config": str(CONFIG.relative_to(ROOT)), "card": card,
               "parameters": sum(p.numel() for p in params),
               "parameters_2d": sum(p.numel() for p in params if p.dim() >= 2)}
-    launches = {"export": 0, "export_fp32": 0}
+    launches = {"export": 0, "export_fp32": 0, "export_new_batch": 0}
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_export_")
     models = {}
     for name, dtype, counter, tag in (
@@ -2100,38 +2288,44 @@ def phase_export(torch, failures: list, card: str) -> dict:
         model = SatMAERestoration.from_config(cfg, dtype=dtype).eval()
         model.load_state_dict(cpu_model.state_dict())
         models[name] = model
-        t0 = time.perf_counter()
-        path = export_program(model, Path(tmp.name) / name, input_shape=shape)
+        with clock(f"{name}_export"):
+            t0 = time.perf_counter()
+            path = export_program(model, Path(tmp.name) / name, input_shape=shape)
         row = {"export_seconds": time.perf_counter() - t0,
                "module_bytes": (path / MODULE_FILE).stat().st_size,
                "payload_bytes": (path / PARAMS_FILE).stat().st_size,
-               "block_nodes": count_block_nodes(torch, path),
-               "verify_b1_b3": verify_exported_model(path, shape, (1, 3))}
+               "block_nodes": count_block_nodes(torch, path)}
+        with clock(f"{name}_verify_b1_b3"):
+            row["verify_b1_b3"] = verify_exported_model(path, shape, (1, 3))
         if not (row["module_bytes"] < max(2e6, row["payload_bytes"] / 2)
                 and row["block_nodes"] == 8 and row["verify_b1_b3"]):
             failures.append(f"export {name}: {row}")
         if dtype == torch.float32:
-            cmp = compare_live_vs_exported(model, None, path, shape)
+            with clock("float32_live_vs_exported"):
+                cmp = compare_live_vs_exported(model, None, path, shape)
             row["live_vs_exported"] = dataclasses.asdict(cmp)
             if not cmp.allclose:
                 failures.append(f"export float32: live vs exported {cmp}")
         for b in BATCHES:
             setattr(cuda_decoder, counter, 0)
-            artifact = InferenceSession(artifact_path=path, batch_size=b, image_size=size,
-                                        num_bands=bands)
+            with clock(f"{name}_b{b}_artifact_session"):
+                artifact = InferenceSession(artifact_path=path, batch_size=b, image_size=size,
+                                            num_bands=bands)
             requests = [x0] if b == 1 else [noisy_tiles(b, size, bands, seed=400 + i)
                                              for i in range(REQUESTS)]
             outs = [artifact.predict(r) for r in requests]
             counted = getattr(cuda_decoder, counter)
-            live = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
-            want = [live.predict(r) for r in requests]
-            b_row = artifact_turns(torch, artifact, live, requests[0], tag, 20)
+            with clock(f"{name}_b{b}_live_session"):
+                live = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
+                want = [live.predict(r) for r in requests]
+            with clock(f"{name}_b{b}_turns"):
+                b_row = artifact_turns(torch, artifact, live, requests[0], tag, 20)
             b_row["rel_rms_vs_live"] = max(rel_rms(o, w) for o, w in zip(outs, want))
             b_row["finite"] = all(np.isfinite(o).all() for o in outs)
             if b == 1:
                 b_row["rel_rms_vs_cpu_fp32"] = rel_rms(outs[0], ref)
             launches["export" if dtype == torch.bfloat16 else "export_fp32"] += (
-                counted + (artifact.replays - 1) * artifact.captured_launches)
+                counted + (artifact.graphs[b].replays - 1) * artifact.captured_launches)
             bound = (ARTIFACT_VS_LIVE_BF16 if dtype == torch.bfloat16
                      else FP32_FORWARD_REL_RMS)
             cpu_bound = MAX_REL_RMS if dtype == torch.bfloat16 else FP32_FORWARD_REL_RMS
@@ -2143,6 +2337,17 @@ def phase_export(torch, failures: list, card: str) -> dict:
                     and b_row.get("rel_rms_vs_cpu_fp32", 0.0) <= cpu_bound):
                 failures.append(f"export {name} B={b}: {b_row}")
             row[f"b{b}"] = b_row
+            if dtype == torch.bfloat16 and b == 1:
+                # the B=1 artifact serves a batch of 3 from a graph of its own
+                with clock("bfloat16_b1_serves_b3"):
+                    new = row["b1_serves_b3"] = artifact_new_batch(
+                        torch, artifact, model, 3, size, bands)
+                launches["export_new_batch"] += new["k1_device_launches"]
+                if not (new["graphs"] == [1, 3] and new["captured_launches"] == 8
+                        and new["new_graph_launches"] == 8 and new["encodes_per_replay"] == 0
+                        and new["replays_equal"] and new["finite"]
+                        and new["rel_rms_vs_live"] <= ARTIFACT_VS_LIVE_BF16):
+                    failures.append(f"export bf16 B=1 artifact at B=3: {new}")
             del artifact, live
             torch.cuda.empty_cache()
         result[name] = row
@@ -2150,10 +2355,14 @@ def phase_export(torch, failures: list, card: str) -> dict:
     # int8 weights (bf16 compute), and a tta=8 artifact against the live tta=8 session
     model = models["bfloat16"]
     t0 = time.perf_counter()
-    path = export_program(model, Path(tmp.name) / "int8", input_shape=shape, int8_weights=True)
-    state = {k: v.float().cpu().numpy() for k, v in model.state_dict().items()}
-    report = quantization_report(state, model, torch.from_numpy(x0).cuda())
-    cmp = compare_live_vs_exported(model, None, path, shape, rtol=0.1, atol=0.05)
+    with clock("int8_export"):
+        path = export_program(model, Path(tmp.name) / "int8", input_shape=shape,
+                              int8_weights=True)
+    with clock("int8_report"):
+        state = {k: v.float().cpu().numpy() for k, v in model.state_dict().items()}
+        report = quantization_report(state, model, torch.from_numpy(x0).cuda())
+    with clock("int8_live_vs_exported"):
+        cmp = compare_live_vs_exported(model, None, path, shape, rtol=0.1, atol=0.05)
     result["int8"] = dict(report, export_seconds=time.perf_counter() - t0,
                           payload_bytes=(path / QPARAMS_FILE).stat().st_size,
                           payload_ratio=result["bfloat16"]["payload_bytes"]
@@ -2161,12 +2370,17 @@ def phase_export(torch, failures: list, card: str) -> dict:
                           live_vs_exported=dataclasses.asdict(cmp))
     if not cmp.cosine_similarity > INT8_COSINE:
         failures.append(f"export int8: {result['int8']}")
-    path = export_program(model, Path(tmp.name) / "tta8", input_shape=shape, tta=8)
-    artifact = InferenceSession(artifact_path=path, batch_size=1, image_size=size,
-                                num_bands=bands)
-    live = InferenceSession(model, batch_size=1, image_size=size, num_bands=bands, tta=8)
-    result["tta8_b1"] = tta = artifact_turns(torch, artifact, live, x0, "resblock_kernel", 10)
-    tta["rel_rms_vs_live"] = rel_rms(artifact.predict(x0), live.predict(x0))
+    with clock("tta8_export"):
+        path = export_program(model, Path(tmp.name) / "tta8", input_shape=shape, tta=8)
+    with clock("tta8_artifact_session"):
+        artifact = InferenceSession(artifact_path=path, batch_size=1, image_size=size,
+                                    num_bands=bands)
+    with clock("tta8_live_session"):
+        live = InferenceSession(model, batch_size=1, image_size=size, num_bands=bands, tta=8)
+    with clock("tta8_turns"):
+        result["tta8_b1"] = tta = artifact_turns(torch, artifact, live, x0, "resblock_kernel",
+                                                 10)
+        tta["rel_rms_vs_live"] = rel_rms(artifact.predict(x0), live.predict(x0))
     if not (artifact.captured_launches == 64 and tta["block_kernels_per_replay"] == 64
             and tta["rel_rms_vs_live"] <= ARTIFACT_VS_LIVE_BF16):
         failures.append(f"export tta=8: {tta}")
@@ -2174,19 +2388,24 @@ def phase_export(torch, failures: list, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the unet_light fastpath (optimize=True) at B=16, against the live fastpath session
-    light = SatMAERestoration().eval()
-    randomize_(torch, light, seed=2)
-    light = light.set_compute_dtype(torch.bfloat16).cuda()
-    path = export_program(light, Path(tmp.name) / "light", input_shape=shape, optimize=True)
-    artifact = InferenceSession(artifact_path=path, batch_size=16, image_size=size,
-                                num_bands=bands)
-    live = InferenceSession(light, batch_size=16, image_size=size, num_bands=bands,
-                            optimize=True)
-    x16 = noisy_tiles(16, size, bands, seed=300)
-    result["unet_light_fastpath_b16"] = fast = artifact_turns(
-        torch, artifact, live, x16, "resblock_kernel", 10)
-    fast["rel_rms_vs_live"] = rel_rms(artifact.predict(x16), live.predict(x16))
-    fast["block_nodes"] = count_block_nodes(torch, path)
+    with clock("light_model"):
+        light = SatMAERestoration().eval()
+        randomize_(torch, light, seed=2)
+        light = light.set_compute_dtype(torch.bfloat16).cuda()
+    with clock("light_export"):
+        path = export_program(light, Path(tmp.name) / "light", input_shape=shape,
+                              optimize=True)
+    with clock("light_sessions"):
+        artifact = InferenceSession(artifact_path=path, batch_size=16, image_size=size,
+                                    num_bands=bands)
+        live = InferenceSession(light, batch_size=16, image_size=size, num_bands=bands,
+                                optimize=True)
+    with clock("light_turns"):
+        x16 = noisy_tiles(16, size, bands, seed=300)
+        result["unet_light_fastpath_b16"] = fast = artifact_turns(
+            torch, artifact, live, x16, "resblock_kernel", 10)
+        fast["rel_rms_vs_live"] = rel_rms(artifact.predict(x16), live.predict(x16))
+        fast["block_nodes"] = count_block_nodes(torch, path)
     if not (artifact.captured_launches == 0 and fast["block_nodes"] == 0
             and fast["rel_rms_vs_live"] <= ARTIFACT_VS_LIVE_BF16):
         failures.append(f"export unet_light fastpath: {fast}")
@@ -2194,17 +2413,91 @@ def phase_export(torch, failures: list, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the export CLI, as a user runs it: seeded flagship weights, int8, verified
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "msid_tpu_torch.scripts.export", "--model-config",
-         str(CONFIG), "--output", str(Path(tmp.name) / "cli"), "--verify", "--int8"],
-        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    with clock("cli"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "msid_tpu_torch.scripts.export", "--model-config",
+             str(CONFIG), "--output", str(Path(tmp.name) / "cli"), "--verify", "--int8"],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
     result["cli"] = {"seconds": time.perf_counter() - t0, "rc": proc.returncode,
-                     "log_tail": proc.stderr.strip().splitlines()[-3:]}
+                     "log_tail": proc.stderr.strip().splitlines()[-12:]}
     if proc.returncode != 0:
         failures.append(f"export CLI: rc {proc.returncode}: {proc.stderr[-2000:]}")
     tmp.cleanup()
     result["launches"] = launches
+    result["seconds"] = clock.seconds
+    emit(result)
+    return result
+
+
+def phase_decoders(torch, failures: list, card: str) -> dict:
+    """The flagship's configuration with the ``unet`` and then the
+    ``attention`` decoder, full width, seeded random weights: served in
+    bf16 at B=16 against the fp32 CPU forward, and in fp32 at B=1 against
+    it, through ``InferenceSession``, which serves the module's forward
+    (no folded graph, cuDNN convs, no fused-block kernel); device p50,
+    busy time and the block kernels the profiler sees per replay."""
+    import copy
+
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_decoder
+
+    cfg = load_flagship()
+    result = {"check": "decoders", "config": str(CONFIG.relative_to(ROOT)), "card": card}
+    torch.set_num_threads(8)
+    for arch in ("unet", "attention"):
+        t0 = time.perf_counter()
+        arch_cfg = copy.deepcopy(cfg)
+        arch_cfg["model"]["decoder"]["architecture"] = arch
+        cpu_model = SatMAERestoration.from_config(arch_cfg, device="cpu").eval()
+        randomize_(torch, cpu_model, seed=6)
+        size, bands = cpu_model.image_size, cpu_model.in_channels
+        x16 = noisy_tiles(16, size, bands, seed=600)
+        with torch.no_grad():
+            ref16 = cpu_model(torch.from_numpy(x16)).numpy()
+            ref1 = cpu_model(torch.from_numpy(x16[:1])).numpy()
+        row = {"parameters": sum(p.numel() for p in cpu_model.parameters())}
+        for dtype, b, ref, bound in ((torch.bfloat16, 16, ref16, MAX_REL_RMS),
+                                     (torch.float32, 1, ref1, FP32_FORWARD_REL_RMS)):
+            model = SatMAERestoration.from_config(arch_cfg, dtype=dtype).eval()
+            model.load_state_dict(cpu_model.state_dict())
+            before = (cuda_decoder.launches, cuda_decoder.launches_fp32)
+            session = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
+            out = session.predict(x16[:b])
+            bench = session.benchmark(warmup_runs=3, benchmark_iterations=20)
+            xd = torch.from_numpy(x16[:b]).cuda()
+            prof = device_profile(torch, lambda: session.forward(xd),
+                                  tags={"k1": "resblock_kernel", "k4": "resblock_fp32_kernel"})
+            try:
+                InferenceSession(model, batch_size=b, image_size=size, num_bands=bands,
+                                 optimize=True)
+                refused = False
+            except ValueError:
+                refused = True
+            d_row = {"batch": b, "optimized": session.optimized,
+                     "captured_launches": session.captured_launches,
+                     "block_launches_counted": [cuda_decoder.launches - before[0],
+                                                cuda_decoder.launches_fp32 - before[1]],
+                     "rel_rms_vs_cpu_fp32": rel_rms(out, ref),
+                     "finite": bool(np.isfinite(out).all()),
+                     "device_p50_ms": bench["p50_ms"], "tiles_per_s": bench["images_per_sec"],
+                     "device_busy_ms": prof["device_busy_ms"],
+                     "device_idle_share": 1 - prof["device_busy_ms"] / bench["p50_ms"],
+                     "device_launches": prof["device_launches"],
+                     "k1_per_replay": prof["k1_launches"], "k4_per_replay": prof["k4_launches"],
+                     "top_ms": prof["top_ms"][:5], "optimize_true_refused": refused}
+            row[str(dtype).removeprefix("torch.")] = d_row
+            if not (d_row["optimized"] is False and d_row["captured_launches"] == 0
+                    and d_row["block_launches_counted"] == [0, 0]
+                    and d_row["k1_per_replay"] == 0 and d_row["k4_per_replay"] == 0
+                    and d_row["finite"] and d_row["rel_rms_vs_cpu_fp32"] <= bound
+                    and refused):
+                failures.append(f"decoders {arch} {dtype} B={b}: {d_row}")
+            del session, model
+            torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t0
+        result[arch] = row
     emit(result)
     return result
 
@@ -2544,6 +2837,20 @@ def parallel_mesh_session(torch, failures: list, cfg: dict, weights: dict) -> di
     if not (halves_equal and row["finite"] and session.compiled == "cuda_graph"
             and session.captured_launches == 16 and profile_complete(prof, "block_ms", 16)):
         failures.append(f"parallel (d) mesh session: {row}")
+    # benchmark at the whole batch: every timed call replays both replicas
+    bench = {}
+    for pipelined in (False, True):
+        before = [r.replays for r in session.replicas]
+        out = session.benchmark(warmup_runs=3, benchmark_iterations=20, pipelined=pipelined)
+        out["replays_by_replica"] = [r.replays - n for r, n in zip(session.replicas, before)]
+        bench["pipelined" if pipelined else "per_call"] = out
+    row["benchmark"] = bench
+    row["k1_benchmark_device_launches"] = sum(
+        8 * n for out in bench.values() for n in out["replays_by_replica"])
+    if not all(set(out) >= BENCHMARK_KEYS and out["batch_size"] == b
+               and out["replays_by_replica"] == [23, 23] and out["mean_ms"] > 0
+               for out in bench.values()):
+        failures.append(f"parallel (d) mesh benchmark: {bench}")
     del session, single
     torch.cuda.empty_cache()
     return row
@@ -2579,7 +2886,8 @@ def phase_parallel(torch, failures: list, card: str) -> dict:
     result["launches"] = {
         "train_dp": (result["dp_world_one"]["k2_launches"]
                      + sum(result["two_ranks_one_card"]["k2_launches_by_rank"])),
-        "serve_mesh": result["mesh_session"]["k1_device_launches"]}
+        "serve_mesh": result["mesh_session"]["k1_device_launches"],
+        "serve_mesh_benchmark": result["mesh_session"]["k1_benchmark_device_launches"]}
     result["seconds"] = time.perf_counter() - t0
     emit(result)
     return result
@@ -2656,8 +2964,10 @@ def main() -> int:
                    "scene": lambda: phase_scene(torch, failures, card),
                    "data_cache": lambda: phase_data_cache(torch, failures, card),
                    "export": lambda: phase_export(torch, failures, card),
+                   "decoders": lambda: phase_decoders(torch, failures, card),
                    "perceptual": lambda: phase_perceptual(torch, failures, card),
                    "pretrained": lambda: phase_pretrained(torch, failures, card),
+                   "train": lambda: phase_train(torch, failures, card),
                    "parallel": lambda: phase_parallel(torch, failures, card),
                    "nccl_shared": lambda: phase_nccl_shared(torch, failures)}
         for name in only:
@@ -2692,6 +3002,7 @@ def main() -> int:
     probe = timed("probe", phase_probe, torch, F, failures)
     hybrid = timed("hybrid", phase_hybrid, torch, failures, card)
     export = timed("export", phase_export, torch, failures, card)
+    timed("decoders", phase_decoders, torch, failures, card)
     timed("perceptual", phase_perceptual, torch, failures, card)
     timed("pretrained", phase_pretrained, torch, failures, card)
     parallel = timed("parallel", phase_parallel, torch, failures, card)
@@ -2717,7 +3028,9 @@ def main() -> int:
                         "probe": probe["launches"]["resblock"],
                         "hybrid": hybrid["launches"]["resblock"],
                         "export": export["launches"]["export"],
-                        "serve_mesh": parallel["launches"]["serve_mesh"]}
+                        "export_new_batch": export["launches"]["export_new_batch"],
+                        "serve_mesh": parallel["launches"]["serve_mesh"],
+                        "serve_mesh_benchmark": parallel["launches"]["serve_mesh_benchmark"]}
     noise_by_path = {"serve": serve["noise_launches"], "train": train["launches"]["noise"],
                      "train_cache": data_cache["launches"]["noise"],
                      "evaluate": evaluate["launches"]["noise"],

@@ -51,6 +51,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from msid_tpu_torch.models.blocks import sharing_weight_operands
 from msid_tpu_torch.models.restoration import exact_fp32, resolve_device
 from msid_tpu_torch.ops import cuda_decoder  # noqa: F401  registers msid::fused_residual_block
 from msid_tpu_torch.ops.tta import wrap_forward
@@ -152,8 +153,9 @@ class _Program(nn.Module):
 
     def forward(self, flat: dict, x: torch.Tensor) -> torch.Tensor:
         tree = _unflatten_variables(flat)
-        return wrap_forward(functools.partial(self.infer, tree), self.tta,
-                            self.height, self.width)(x)
+        with sharing_weight_operands():          # once for all the TTA views
+            return wrap_forward(functools.partial(self.infer, tree), self.tta,
+                                self.height, self.width)(x)
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -258,7 +260,9 @@ def load_exported(path: str | Path, device: str | torch.device = "cuda") -> Call
     any device, or numpy), y a float32 tensor on ``device``. The payload is
     cast to the dtype of each program input (dequantized first when it is
     int8) and bound. An artifact exported on another device type raises
-    ``ValueError``; an fp32 artifact runs inside ``exact_fp32``."""
+    ``ValueError``; an fp32 artifact runs inside ``exact_fp32``. The
+    callable's ``static_batch`` is the batch a static-batch artifact takes
+    (None for a dynamic batch)."""
     path = Path(path)
     device = resolve_device(device)
     meta = read_meta(path)
@@ -289,12 +293,14 @@ def load_exported(path: str | Path, device: str | torch.device = "cuda") -> Call
                  for (k, v), spec in zip(flat.items(), inputs)}
     module = exported.module()
     dtype = getattr(torch, meta.get("dtype", "float32"))
+    batch = inputs[-1].shape[0]
 
     def call(x) -> torch.Tensor:
         x = torch.as_tensor(x).to(device, torch.float32)
         with torch.inference_mode(), exact_fp32(dtype):
             return module(variables, x)
 
+    call.static_batch = batch if isinstance(batch, int) else None
     return call
 
 

@@ -52,7 +52,7 @@ from torch import nn
 from torch.func import functional_call
 
 from msid_tpu_torch.models.blocks import BN_EPS, gelu
-from msid_tpu_torch.models.decoder import same_pad
+from msid_tpu_torch.models.blocks import same_pad
 from msid_tpu_torch.models.encoder import LN_EPS
 from msid_tpu_torch.models.restoration import exact_fp32
 

@@ -39,20 +39,31 @@ is (inside ``exact_fp32`` for an fp32 artifact); its decoder blocks are
 ``msid::fused_residual_block`` nodes, which launch K1 or K4. Such a session
 has no ``model`` and refuses ``tta`` > 1 (an artifact bakes its own views).
 
+An artifact session serves any batch of an artifact exported with a
+dynamic batch, as the reference's artifact session does: on the CPU the
+loaded program runs at the batch it is given; on the card a batch other
+than ``batch_size`` is captured into one more graph at its first call and
+kept (``self.graphs``, keyed by batch), so it is never served eagerly. An
+artifact exported at a static batch refuses every other batch with the
+reference's message. A session with a model serves its ``batch_size`` only.
+
 Mesh serving (``InferenceSession(model, mesh=...)``, with a serving mesh
 of ``parallel.make_mesh(devices=...)``, builds a ``MeshSession``): the
 counterpart of the reference's data-parallel session, whose batch is
-sharded over the mesh's data axis. It holds one ``InferenceSession`` per
-device of ``mesh.devices``, of ``batch_size / data`` rows on that device,
-each with its own copy of the model and, on a card, its own captured
-graph; a call splits the batch in order, runs each replica on its rows
-(the replays on several cards overlap) and gathers the outputs on
+sharded over the mesh's data axis. The graph (``optimize``) is chosen once,
+at the session's whole batch, as the reference's one program over the mesh
+is (``resolve_graph``). It holds one ``InferenceSession`` per device of
+``mesh.devices``, of ``batch_size / data`` rows on that device, each with
+its own copy of the model, built with that choice and, on a card, its own
+captured graph; a call splits the batch in order, runs each replica on its
+rows (the replays on several cards overlap) and gathers the outputs on
 ``devices[0]``. ``batch_size`` must divide by the data axis; an artifact
 cannot be served over a mesh (it is one device's program).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import threading
@@ -123,6 +134,32 @@ class CapturedForward:
         return self.output
 
 
+def resolve_graph(model: torch.nn.Module, batch_size: int,
+                  optimize: bool | str) -> bool | str:
+    """The inference graph that ``optimize`` picks for ``model`` at
+    ``batch_size``: ``"fastpath"``, ``"hybrid"`` or False (the module's own
+    forward). ``"auto"`` picks by batch size (see ``InferenceSession``) and
+    takes the module's forward for a model the folded graphs do not support;
+    True is ``"fastpath"``, which such a model refuses when it is built;
+    ``"fastpath"``, ``"hybrid"`` and False name the graph."""
+    if optimize is False or optimize in ("fastpath", "hybrid"):
+        return optimize
+    if optimize is True:
+        return "fastpath"
+    if optimize != "auto":
+        raise ValueError(f"optimize must be 'auto', True, False, 'fastpath' or 'hybrid', "
+                         f"got {optimize!r}")
+    from msid_tpu_torch.deployment.fastpath import supports_fastpath
+
+    if batch_size <= FASTPATH_AUTO_MAX_BATCH:
+        choice = "fastpath"
+    elif batch_size < HYBRID_AUTO_MIN_BATCH:
+        return False                  # below the hybrid switch point: the raw graph
+    else:
+        choice = "hybrid"
+    return choice if supports_fastpath(model) else False
+
+
 class InferenceSession:
     """Restoration inference at a fixed batch size on one device; with
     ``mesh``, a ``MeshSession`` over the mesh's devices."""
@@ -143,7 +180,8 @@ class InferenceSession:
         the module's forward, from there up the hybrid graph (the full
         fastpath only up to ``FASTPATH_AUTO_MAX_BATCH``, i.e. never).
         ``True`` forces the full fastpath and raises ``ValueError`` for
-        unsupported models; ``False`` always uses the module's forward.
+        unsupported models; ``False`` always uses the module's forward;
+        ``"fastpath"`` and ``"hybrid"`` name a graph (``resolve_graph``).
         ``self.optimized`` records the choice: ``"fastpath"``, ``"hybrid"``
         or ``False``. ``donate_input`` is the reference's: the caller gives
         up each input, so ``benchmark`` uploads a fresh host batch in every
@@ -152,10 +190,10 @@ class InferenceSession:
         (see the module's docstring); ``self.compiled`` names the compiled form
         (``"cuda_graph"``, or None on the CPU) and
         ``self.captured_launches`` counts the hand-written kernel launches
-        of one captured forward. With ``artifact_path`` (and no model) the
-        session serves that exported artifact, loaded for its device.
-        ``mesh`` makes the call build a ``MeshSession`` instead (see the
-        module's docstring)."""
+        of one captured forward at ``batch_size``. With ``artifact_path``
+        (and no model) the session serves that exported artifact, loaded
+        for its device. ``mesh`` makes the call build a ``MeshSession``
+        instead (see the module's docstring)."""
         self.tta = int(tta)
         self.donate_input = bool(donate_input)
         self.device = resolve_device(device)
@@ -163,6 +201,7 @@ class InferenceSession:
         self.input_shape = (batch_size, image_size, image_size, num_bands)
         self.optimized: bool | str = False
         self.model: torch.nn.Module | None = None
+        self._static_batch: int | None = None
         if artifact_path is not None:
             if self.tta > 1:
                 raise ValueError("tta ensembling needs model+variables, "
@@ -171,21 +210,25 @@ class InferenceSession:
 
             self.dtype = getattr(torch, read_meta(artifact_path).get("dtype", "float32"))
             infer = load_exported(artifact_path, self.device)
+            self._static_batch = infer.static_batch
         elif model is None:
             raise ValueError("Provide model or artifact_path")
         else:
             self.model = copy.deepcopy(model).to(self.device).eval()
             self.dtype = getattr(model, "dtype", torch.float32)
-            infer = self._model_graph(optimize)
+            self.optimized = resolve_graph(self.model, batch_size, optimize)
+            infer = self._model_graph(self.optimized)
         self._infer = wrap_forward(infer, self.tta, image_size, image_size)
         self.compiled: str | None = None
         self.captured_launches: int | None = None
         self._graph: CapturedForward | None = None
+        # Captured graphs by batch: batch_size's, and for an artifact each
+        # other batch it has served.
+        self.graphs: dict[int, CapturedForward] = {}
         self._captured_operands: list[tuple] = []
         self._lock = threading.Lock()            # one replay at a time
         if self.device.type == "cuda":
-            self._graph = CapturedForward(
-                self.forward_eager, torch.zeros(self.input_shape, device=self.device))
+            self._graph = self._graph_for(batch_size)
             self.compiled = "cuda_graph"
             self.captured_launches = self._graph.launches
             # What the warmup prepared and the capture read by address.
@@ -195,16 +238,24 @@ class InferenceSession:
 
     @property
     def replays(self) -> int:
-        """Replays of the captured graph so far (0 on the CPU)."""
-        return 0 if self._graph is None else self._graph.replays
+        """Replays of the captured graphs so far (0 on the CPU)."""
+        return sum(g.replays for g in self.graphs.values())
 
-    def _model_graph(self, optimize: bool | str) -> Callable[[torch.Tensor], torch.Tensor]:
-        """The model's inference graph that ``optimize`` picks (see
-        ``__init__``); sets ``self.optimized``."""
-        if optimize is False:
+    def _graph_for(self, batch: int) -> CapturedForward:
+        """The graph captured at ``batch``, captured at its first use."""
+        graph = self.graphs.get(batch)
+        if graph is None:
+            graph = self.graphs[batch] = CapturedForward(
+                self.forward_eager,
+                torch.zeros((batch, *self.input_shape[1:]), device=self.device))
+        return graph
+
+    def _model_graph(self, choice: bool | str) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The model's inference graph named by ``resolve_graph``'s
+        ``choice``; a model the folded graphs do not support raises
+        ``ValueError`` for ``"fastpath"`` or ``"hybrid"``."""
+        if choice is False:
             return self._model_forward
-        if optimize is not True and optimize != "auto":
-            raise ValueError(f"optimize must be 'auto', True or False, got {optimize!r}")
         from msid_tpu_torch.deployment.fastpath import (
             make_fast_inference_fn,
             make_hybrid_inference_fn,
@@ -212,31 +263,33 @@ class InferenceSession:
             optimize_for_inference,
         )
 
-        small = self.batch_size <= FASTPATH_AUTO_MAX_BATCH
-        try:
-            if optimize == "auto" and not small and self.batch_size < HYBRID_AUTO_MIN_BATCH:
-                return self._model_forward     # below the hybrid switch point: the raw graph
-            if optimize is True or small:
-                # The JAX package's choice of upsample form: matmul +
-                # depth-to-space for unet_light, conv-transpose for unet_skip.
-                mm = self.model.decoder_arch != "unet_skip"
-                with torch.no_grad():
-                    weights = optimize_for_inference(
-                        self.model, dtype=self.dtype, upsample="matmul" if mm else "ct")
-                self.optimized = "fastpath"
-                return functools.partial(
-                    make_fast_inference_fn(self.model, matmul_upsample=mm), weights)
+        if choice == "fastpath":
+            # The JAX package's choice of upsample form: matmul +
+            # depth-to-space for unet_light, conv-transpose for unet_skip.
+            mm = self.model.decoder_arch != "unet_skip"
             with torch.no_grad():
-                weights = optimize_for_hybrid(self.model, dtype=self.dtype)
-            self.optimized = "hybrid"
-            return functools.partial(make_hybrid_inference_fn(self.model), weights)
-        except ValueError:
-            if optimize is True:
-                raise
-            return self._model_forward
+                weights = optimize_for_inference(
+                    self.model, dtype=self.dtype, upsample="matmul" if mm else "ct")
+            return functools.partial(make_fast_inference_fn(self.model, matmul_upsample=mm),
+                                     weights)
+        with torch.no_grad():
+            weights = optimize_for_hybrid(self.model, dtype=self.dtype)
+        return functools.partial(make_hybrid_inference_fn(self.model), weights)
 
     def _model_forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x.to(self.dtype))
+
+    def _checked_batch(self, batch: int) -> None:
+        """A session with a model serves its ``batch_size`` only, an
+        artifact session any batch its program takes (one exported at a
+        static batch refuses the others with the reference's message)."""
+        if self.model is not None:
+            if batch != self.batch_size:
+                raise ValueError(f"session built for batch {self.batch_size}, got {batch}")
+        elif self._static_batch not in (None, batch):
+            raise ValueError(f"Shape mismatch for args[1].shape[0] (expected same constant): "
+                             f"expected {(self._static_batch, *self.input_shape[1:])} and "
+                             f"called with {(batch, *self.input_shape[1:])}")
 
     def forward_eager(self, x: torch.Tensor) -> torch.Tensor:
         """The session's forward run eagerly on a tensor on its device: what
@@ -248,18 +301,20 @@ class InferenceSession:
         """The restored batch of a float32 tensor of the session's input
         shape: a replay of the graph on the card (a new tensor, never the
         graph's own buffer), the eager forward on the CPU."""
+        self._checked_batch(x.shape[0])
         if self._graph is None:
             return self.forward_eager(x)
         with self._lock:
-            return self._graph(x).clone()
+            return self._graph_for(x.shape[0])(x).clone()
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Restore a noisy NHWC float32 batch; checks rank, shape and batch."""
         xt = checked_input(x, self.input_shape)
+        self._checked_batch(xt.shape[0])
         if self._graph is None:
             return self.forward_eager(xt.to(self.device)).cpu().numpy()
         with self._lock:
-            return self._graph(xt).cpu().numpy()       # a host copy of the output
+            return self._graph_for(xt.shape[0])(xt).cpu().numpy()   # a host copy
 
     def benchmark(self, warmup_runs: int = 10, benchmark_iterations: int = 100,
                   seed: int = 0, pipelined: bool = False) -> dict:
@@ -276,8 +331,7 @@ class InferenceSession:
         if self._graph is None:
             raise RuntimeError("benchmark times the GPU with CUDA events; "
                                f"this session runs on {self.device}")
-        x_host = torch.from_numpy(np.random.default_rng(seed).uniform(
-            -2.0, 2.0, self.input_shape).astype(np.float32))
+        x_host = benchmark_batch(self.input_shape, seed)
         with self._lock:
             self._graph.input.copy_(x_host)
 
@@ -295,11 +349,11 @@ class MeshSession:
     """An ``InferenceSession`` over a serving mesh (see the module's
     docstring), built by ``InferenceSession(model, ..., mesh=mesh)``:
     ``replicas`` are the per-device sessions; ``predict`` and ``forward``
-    split the batch over them and gather on the first replica's device.
-    The replicas' attributes that describe the whole (``tta``, ``dtype``,
+    split the batch over them and gather on the first replica's device,
+    and ``benchmark`` times them together at the whole batch. The
+    replicas' attributes that describe the whole (``tta``, ``dtype``,
     ``optimized``, ``compiled``, ``model``) are the first's, and
-    ``captured_launches`` and ``replays`` their sums. It has no
-    ``benchmark``: time a replica (``replicas[i].benchmark()``)."""
+    ``captured_launches`` and ``replays`` their sums."""
 
     def __init__(self, model: torch.nn.Module | None, batch_size: int = 1,
                  image_size: int = 192, num_bands: int = 13,
@@ -317,12 +371,14 @@ class MeshSession:
         if batch_size % mesh.data != 0:
             raise ValueError(f"batch_size {batch_size} must divide by the mesh data axis "
                              f"({mesh.data})")
+        choice = resolve_graph(model, batch_size, optimize)     # at the whole batch
         self.replicas = [InferenceSession(model, batch_size // mesh.data, image_size,
-                                          num_bands, device=d, tta=tta, optimize=optimize,
+                                          num_bands, device=d, tta=tta, optimize=choice,
                                           donate_input=donate_input)
                          for d in mesh.devices]
         first = self.replicas[0]
         self.device, self.batch_size = first.device, batch_size
+        self.donate_input = first.donate_input
         self.input_shape = (batch_size, *first.input_shape[1:])
         self.tta, self.dtype, self.model = first.tta, first.dtype, first.model
         self.optimized, self.compiled = first.optimized, first.compiled
@@ -352,12 +408,59 @@ class MeshSession:
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Restore a noisy NHWC float32 batch; checks rank, shape and batch."""
-        return self.forward(checked_input(x, self.input_shape)).cpu().numpy()
+        xt = checked_input(x, self.input_shape)
+        if xt.shape[0] != self.batch_size:
+            raise ValueError(f"session built for batch {self.batch_size}, got {xt.shape[0]}")
+        return self.forward(xt).cpu().numpy()
+
+    def benchmark(self, warmup_runs: int = 10, benchmark_iterations: int = 100,
+                  seed: int = 0, pipelined: bool = False) -> dict:
+        """``InferenceSession.benchmark`` at the whole batch: each replica's
+        graph input holds its rows of one seeded host batch (uploaded inside
+        every timed call with ``donate_input``), and a timed call replays
+        every replica. The other replicas' streams start after the first
+        replica's and are joined back to it before the call ends, so one
+        pair of CUDA events on the first replica's stream times each call
+        (one pair in all with ``pipelined``). A CPU mesh raises, as a CPU
+        session does."""
+        first = self.replicas[0]
+        if first._graph is None:
+            raise RuntimeError("benchmark times the GPU with CUDA events; "
+                               f"this session runs on {self.device}")
+        rows = benchmark_batch(self.input_shape, seed).chunk(len(self.replicas))
+        others = sorted({r.device for r in self.replicas if r.device != self.device}, key=str)
+        locks = [r._lock for r in self.replicas]
+        for lock in locks:
+            lock.acquire()
+        try:
+            for r, part in zip(self.replicas, rows):
+                r._graph.input.copy_(part)
+
+            def call():
+                main = torch.cuda.current_stream(self.device) if others else None
+                for d in others:
+                    torch.cuda.current_stream(d).wait_stream(main)
+                for r, part in zip(self.replicas, rows):
+                    with (torch.cuda.device(r.device) if r.device in others
+                          else contextlib.nullcontext()):
+                        r._graph(part if self.donate_input else None)
+                for d in others:
+                    main.wait_stream(torch.cuda.current_stream(d))
+
+            for _ in range(warmup_runs):
+                call()
+            times_ms = _timed_ms(call, benchmark_iterations, pipelined, self.device)
+        finally:
+            for lock in locks:
+                lock.release()
+        return benchmark_summary(times_ms, self.batch_size, benchmark_iterations, pipelined,
+                                 torch.cuda.get_device_name(self.device))
 
 
 def checked_input(x: np.ndarray, input_shape: tuple) -> torch.Tensor:
-    """A host tensor of the float32 batch ``x``, after checking its rank,
-    shape and batch against a session's ``input_shape``."""
+    """A host tensor of the float32 batch ``x``, after checking its rank and
+    its shape past the batch against a session's ``input_shape`` (the
+    batch is the session's to check)."""
     x = np.asarray(x)
     if x.ndim != 4:
         raise ValueError(f"Expected 4D NHWC input, got ndim={x.ndim}")
@@ -365,27 +468,33 @@ def checked_input(x: np.ndarray, input_shape: tuple) -> torch.Tensor:
         raise ValueError(f"Expected shape [*,{input_shape[1:]}], got {x.shape}")
     if x.dtype != np.float32:
         x = x.astype(np.float32)
-    if x.shape[0] != input_shape[0]:
-        raise ValueError(f"session built for batch {input_shape[0]}, got {x.shape[0]}")
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def benchmark_batch(shape: tuple, seed: int) -> torch.Tensor:
+    """The seeded host batch that ``benchmark`` serves."""
+    return torch.from_numpy(np.random.default_rng(seed).uniform(
+        -2.0, 2.0, shape).astype(np.float32))
 
 
 def _timed_ms(call: Callable[[], object], iterations: int, pipelined: bool,
              device: torch.device) -> np.ndarray:
-    """ms per ``call()`` by CUDA events: one pair per call, or with
-    ``pipelined`` one pair around all of them (the mean per call)."""
+    """ms per ``call()`` by CUDA events on ``device``'s current stream: one
+    pair per call, or with ``pipelined`` one pair around all of them (the
+    mean per call)."""
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(1 if pipelined else iterations)]
+    stream = torch.cuda.current_stream(device)
     if pipelined:
-        pairs[0][0].record()
+        pairs[0][0].record(stream)
         for _ in range(iterations):
             call()
-        pairs[0][1].record()
+        pairs[0][1].record(stream)
     else:
         for start, end in pairs:
-            start.record()
+            start.record(stream)
             call()
-            end.record()
+            end.record(stream)
     torch.cuda.synchronize(device)
     times_ms = np.asarray([start.elapsed_time(end) for start, end in pairs])
     return times_ms / iterations if pipelined else times_ms

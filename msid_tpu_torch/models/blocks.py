@@ -1,13 +1,20 @@
 """Convolutional building blocks of the decoder (PyTorch, NCHW channels-last).
 
-Counterparts of ``msid_tpu/models/blocks.py``: ``Norm``, ``ResidualBlock``
-and ``UpsampleBlock``. Tensors are NCHW in shape and channels-last in
-memory, so that ``x.permute(0, 2, 3, 1)`` is the contiguous NHWC view the
-fused ResidualBlock kernel takes. GELU is the tanh approximation throughout
-(flax ``nn.gelu``'s default).
+Counterparts of ``msid_tpu/models/blocks.py``: ``Norm``, ``ConvBlock``,
+``ResidualBlock``, ``UpsampleBlock``, ``DepthwiseSeparableConv``,
+``SqueezeExcitation`` and ``SpatialAttention``. Tensors are NCHW in shape
+and channels-last in memory, so that ``x.permute(0, 2, 3, 1)`` is the
+contiguous NHWC view the fused ResidualBlock kernel takes. GELU is the tanh
+approximation throughout (flax ``nn.gelu``'s default), and every conv pads
+as XLA's ``SAME`` does (``SameConv2d``). Only the eval-mode batch-norm
+``ResidualBlock`` reaches a hand-written kernel; the other blocks are
+library convs, as their JAX counterparts reach no Pallas kernel.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +32,70 @@ BN_MOMENTUM = 0.1   # torch convention: flax momentum 0.9 keeps 0.9 of the old v
 GN_EPS = 1e-6       # flax GroupNorm default
 
 
+# The weight-only operands (folded norms, kernel-layout weights) made in one
+# call of an exported program, by module, shared by that call's TTA views;
+# None outside such a call (``sharing_weight_operands``).
+_SHARED = contextvars.ContextVar("msid_shared_weight_operands", default=None)
+
+
+@contextlib.contextmanager
+def sharing_weight_operands():
+    """Inside the block, each module makes its weight-only operands once and
+    every later forward of it reuses them: one exported program computes
+    them once for all its dihedral views, not once a view."""
+    token = _SHARED.set({})
+    try:
+        yield
+    finally:
+        _SHARED.reset(token)
+
+
+def _shared(module: nn.Module, key, make):
+    memo = _SHARED.get()
+    if memo is None:
+        return make()
+    if (id(module), key) not in memo:
+        memo[id(module), key] = make()
+    return memo[id(module), key]
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, cast only when it is not (an exported graph
+    records even a cast to the same dtype)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """XLA 'SAME' padding: the odd pixel goes after (an even size padded
+    for a stride-2 3x3 conv gets (0, 1), not torch's (1, 1))."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):
+        out = -(-size // stride)
+        total = max((out - 1) * stride + kernel - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+class SameConv2d(nn.Conv2d):
+    """A square ``nn.Conv2d`` padded as XLA's ``SAME`` at any kernel size and
+    stride (flax ``nn.Conv``'s default): symmetric ``k // 2`` for an odd
+    kernel at stride 1, else ``same_pad`` before an unpadded conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, bias: bool = True, groups: int = 1):
+        self.same = stride == 1 and kernel_size % 2 == 1
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding=kernel_size // 2 if self.same else 0, bias=bias,
+                         groups=groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.same:
+            x = same_pad(x, self.kernel_size[0], self.stride[0])
+        return super().forward(x)
 
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -72,8 +141,10 @@ class Norm(nn.Module):
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Eval-mode BN as ``x * a + b`` (fp32)."""
-        a = self.weight.float() * torch.rsqrt(self.running_var.float() + BN_EPS)
-        return a, self.bias.float() - self.running_mean.float() * a
+        weight, bias, mean, var = (_as(t, torch.float32) for t in (
+            self.weight, self.bias, self.running_mean, self.running_var))
+        a = weight * torch.rsqrt(var + BN_EPS)
+        return a, bias - mean * a
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "group":
@@ -81,8 +152,9 @@ class Norm(nn.Module):
                              self.bias.float(), GN_EPS)
             return y.to(x.dtype)
         if not self.training:
-            a, b = self.folded()
-            return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+            a, b = _shared(self, x.dtype, lambda: [t.to(x.dtype)[:, None, None]
+                                                   for t in self.folded()])
+            return x * a + b
         xf = x.float()
         if self.data_group is None:
             mean = xf.mean(dim=(0, 2, 3))
@@ -113,6 +185,30 @@ def set_data_group(model: nn.Module, group) -> nn.Module:
         if isinstance(m, Norm) and m.kind == "batch":
             m.data_group = group
     return model
+
+
+class ConvBlock(nn.Module):
+    """Conv-Norm-GELU-Conv-Norm plus a residual, GELU out. The residual is a
+    1x1 conv (no bias, at the block's stride) when the width or the
+    stride changes, else the input. No conv has a bias. flax names the
+    convs in creation order: ``Conv_0`` is the 1x1 residual when there is
+    one, then the two kxk convs (``conv0``, ``conv1`` here)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, norm: str = "batch"):
+        super().__init__()
+        self.residual = (SameConv2d(in_features, features, 1, stride, bias=False)
+                         if in_features != features or stride != 1 else None)
+        self.conv0 = SameConv2d(in_features, features, kernel_size, stride, bias=False)
+        self.norm0 = Norm(features, norm)
+        self.conv1 = SameConv2d(features, features, kernel_size, bias=False)
+        self.norm1 = Norm(features, norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.residual is None else self.residual(x)
+        y = gelu(self.norm0(self.conv0(x)))
+        y = self.norm1(self.conv1(y))
+        return gelu(y + residual)
 
 
 class ResidualBlock(nn.Module):
@@ -177,7 +273,7 @@ class ResidualBlock(nn.Module):
 
     def _operands(self, dtype: torch.dtype, device: torch.device) -> tuple:
         affines = torch.stack([*self.norm0.folded(), *self.norm1.folded()])
-        weights = [w.to(dtype).permute(2, 3, 1, 0)
+        weights = [_as(w, dtype).permute(2, 3, 1, 0)
                    for w in (self.conv0.weight, self.conv1.weight)]
         if device.type == "cuda" and dtype == torch.bfloat16 \
                 and weights[0].shape[-1] in SUPPORTED_WIDTHS:
@@ -195,7 +291,7 @@ class ResidualBlock(nn.Module):
         if torch.is_autocast_enabled(x.device.type):
             dtype = torch.get_autocast_dtype(x.device.type)
         if torch.compiler.is_exporting():
-            w1, w2, affines = self._operands(dtype, x.device)
+            w1, w2, affines = _shared(self, dtype, lambda: self._operands(dtype, x.device))
             block = fused_residual_block_op
         else:
             w1, w2, affines = self.prepared_operands(dtype, x.device)
@@ -228,3 +324,47 @@ class UpsampleBlock(nn.Module):
             y = y.view(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2)
             y = channels_last(y.reshape(b, c, h * 2, w * 2))
         return gelu(self.norm(y))
+
+
+class DepthwiseSeparableConv(nn.Module):
+    """Depthwise kxk conv (``groups=in_features``, at the stride), pointwise
+    1x1 conv, Norm, GELU; neither conv has a bias."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, norm: str = "batch"):
+        super().__init__()
+        self.depthwise = SameConv2d(in_features, in_features, kernel_size, stride,
+                                    bias=False, groups=in_features)
+        self.pointwise = SameConv2d(in_features, features, 1, bias=False)
+        self.norm = Norm(features, norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu(self.norm(self.pointwise(self.depthwise(x))))
+
+
+class SqueezeExcitation(nn.Module):
+    """Channel attention: the spatial mean through a 1x1 conv down to
+    ``max(C // reduction, 8)`` channels, GELU, a 1x1 conv back to C and a
+    sigmoid scale the input (both convs with a bias)."""
+
+    def __init__(self, channels: int, reduction: int = 4):
+        super().__init__()
+        reduced = max(channels // reduction, 8)
+        self.conv0 = SameConv2d(channels, reduced, 1)
+        self.conv1 = SameConv2d(reduced, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(2, 3), keepdim=True)
+        return x * torch.sigmoid(self.conv1(gelu(self.conv0(s))))
+
+
+class SpatialAttention(nn.Module):
+    """Spatial gate: a 7x7 conv (with a bias) to one channel, a sigmoid,
+    times the input."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = SameConv2d(channels, 1, 7)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.conv(x))

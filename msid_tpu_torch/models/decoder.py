@@ -1,31 +1,28 @@
 """Progressive-upsampling CNN decoders (PyTorch, NCHW channels-last).
 
 Counterparts of ``msid_tpu/models/decoder.py``: ``LightweightDecoder``
-(``unet_light``), ``InputPyramid`` (the skip stem) and ``SkipDecoder``
+(``unet_light``), ``UNetDecoder`` (``unet``), ``AttentionDecoder``
+(``attention``), ``InputPyramid`` (the skip stem) and ``SkipDecoder``
 (``unet_skip``). Module attribute names follow the flax names so that the
 weight converter (``models/from_jax.py``) maps one to one.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from msid_tpu_torch.models.blocks import Norm, ResidualBlock, UpsampleBlock, gelu
-
-
-def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """XLA 'SAME' padding: the odd pixel goes after (an even size padded
-    for a stride-2 3x3 conv gets (0, 1), not torch's (1, 1))."""
-    pads = []
-    for size in (x.shape[3], x.shape[2]):
-        out = -(-size // stride)
-        total = max((out - 1) * stride + kernel - size, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
+from msid_tpu_torch.models.blocks import (
+    ConvBlock,
+    Norm,
+    ResidualBlock,
+    SameConv2d,
+    SpatialAttention,
+    UpsampleBlock,
+    gelu,
+)
 
 
 class _Head(nn.Module):
@@ -71,6 +68,60 @@ class LightweightDecoder(_Head):
         return self.head(x)
 
 
+class UNetDecoder(nn.Module):
+    """Per stage a 2x ConvTranspose (``up_i``, with a bias) and a
+    ``ConvBlock`` (``conv_i``), plus the optional additive skip feature
+    ``skip_features[-(i + 1)]``; a 1x1 conv ``head`` (with a bias) to the
+    bands (``unet``)."""
+
+    def __init__(self, in_channels: int = 768,
+                 channels: Sequence[int] = (384, 192, 96, 48),
+                 out_channels: int = 13, norm: str = "batch"):
+        super().__init__()
+        self.up = nn.ModuleList()
+        self.conv = nn.ModuleList()
+        prev = in_channels
+        for ch in channels:
+            self.up.append(nn.ConvTranspose2d(prev, ch, 2, stride=2))
+            self.conv.append(ConvBlock(ch, ch, norm=norm))
+            prev = ch
+        self.head = nn.Conv2d(channels[-1], out_channels, 1)
+
+    def forward(self, x: torch.Tensor,
+                skip_features: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        for i, (up, block) in enumerate(zip(self.up, self.conv)):
+            x = block(up(x))
+            if skip_features is not None and i < len(skip_features):
+                x = x + skip_features[-(i + 1)]
+        return self.head(x)
+
+
+class AttentionDecoder(nn.Module):
+    """Per stage an ``UpsampleBlock`` (``up_i``), a ``SpatialAttention`` gate
+    (``sa_i``) and a ``ConvBlock`` (``conv_i``); a 1x1 conv ``head`` (with a
+    bias) to the bands (``attention``)."""
+
+    def __init__(self, in_channels: int = 768,
+                 channels: Sequence[int] = (384, 192, 96, 48),
+                 out_channels: int = 13, norm: str = "batch"):
+        super().__init__()
+        self.up = nn.ModuleList()
+        self.sa = nn.ModuleList()
+        self.conv = nn.ModuleList()
+        prev = in_channels
+        for ch in channels:
+            self.up.append(UpsampleBlock(prev, ch, False, norm))
+            self.sa.append(SpatialAttention(ch))
+            self.conv.append(ConvBlock(ch, ch, norm=norm))
+            prev = ch
+        self.head = nn.Conv2d(channels[-1], out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for up, gate, block in zip(self.up, self.sa, self.conv):
+            x = block(gate(up(x)))
+        return self.head(x)
+
+
 class InputPyramid(nn.Module):
     """Multi-scale conv features of the raw input, ordered coarse -> fine."""
 
@@ -80,7 +131,7 @@ class InputPyramid(nn.Module):
         self.stem = nn.Conv2d(in_channels, width, 3, padding=1, bias=False)
         self.stem_norm = Norm(width, norm)
         self.down = nn.ModuleList(
-            nn.Conv2d(width, width, 3, stride=2, bias=False)
+            SameConv2d(width, width, 3, stride=2, bias=False)
             for _ in range(num_levels - 1))
         self.down_norm = nn.ModuleList(Norm(width, norm) for _ in range(num_levels - 1))
 
@@ -88,7 +139,7 @@ class InputPyramid(nn.Module):
         f = gelu(self.stem_norm(self.stem(x)))
         feats = [f]
         for conv, norm in zip(self.down, self.down_norm):
-            f = gelu(norm(conv(same_pad(f, 3, 2))))
+            f = gelu(norm(conv(f)))
             feats.append(f)
         return feats[::-1]
 
@@ -135,5 +186,9 @@ class SkipDecoder(_Head):
 
 DECODER_REGISTRY = {
     "unet_light": LightweightDecoder,
+    "unet": UNetDecoder,
+    "attention": AttentionDecoder,
     "unet_skip": SkipDecoder,
 }
+# The decoders whose head the model zero-inits under a global residual head.
+ZERO_INIT_HEAD = ("unet_light", "unet_skip")

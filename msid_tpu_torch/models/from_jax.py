@@ -21,8 +21,21 @@ import numpy as np
 import torch
 from torch import nn
 
-from msid_tpu_torch.models.blocks import Norm, ResidualBlock, UpsampleBlock
-from msid_tpu_torch.models.decoder import InputPyramid, SkipDecoder
+from msid_tpu_torch.models.blocks import (
+    ConvBlock,
+    DepthwiseSeparableConv,
+    Norm,
+    ResidualBlock,
+    SpatialAttention,
+    SqueezeExcitation,
+    UpsampleBlock,
+)
+from msid_tpu_torch.models.decoder import (
+    AttentionDecoder,
+    InputPyramid,
+    SkipDecoder,
+    UNetDecoder,
+)
 
 
 def _set(t: torch.Tensor, value, name: str) -> None:
@@ -89,7 +102,51 @@ def load_upsample(m: UpsampleBlock, p: dict, s: dict | None,
     _norm(m.norm, p["Norm_0"], _stats(s, "Norm_0"), f"{name}/Norm_0")
 
 
+def load_conv_block(m: ConvBlock, p: dict, s: dict | None, name: str = "conv") -> None:
+    """flax numbers the convs in creation order: the 1x1 residual, when
+    the block has one, is ``Conv_0``."""
+    first = 0
+    if m.residual is not None:
+        _conv(m.residual, p["Conv_0"], f"{name}/Conv_0")
+        first = 1
+    _conv(m.conv0, p[f"Conv_{first}"], f"{name}/Conv_{first}")
+    _norm(m.norm0, p["Norm_0"], _stats(s, "Norm_0"), f"{name}/Norm_0")
+    _conv(m.conv1, p[f"Conv_{first + 1}"], f"{name}/Conv_{first + 1}")
+    _norm(m.norm1, p["Norm_1"], _stats(s, "Norm_1"), f"{name}/Norm_1")
+
+
+def load_depthwise_separable(m: DepthwiseSeparableConv, p: dict, s: dict | None,
+                             name: str = "dsconv") -> None:
+    _conv(m.depthwise, p["Conv_0"], f"{name}/Conv_0")
+    _conv(m.pointwise, p["Conv_1"], f"{name}/Conv_1")
+    _norm(m.norm, p["Norm_0"], _stats(s, "Norm_0"), f"{name}/Norm_0")
+
+
+def load_squeeze_excitation(m: SqueezeExcitation, p: dict, name: str = "se") -> None:
+    _conv(m.conv0, p["Conv_0"], f"{name}/Conv_0")
+    _conv(m.conv1, p["Conv_1"], f"{name}/Conv_1")
+
+
+def load_spatial_attention(m: SpatialAttention, p: dict, name: str = "sa") -> None:
+    _conv(m.conv, p["Conv_0"], f"{name}/Conv_0")
+
+
+def _stage_decoder(m, p: dict, s: dict | None) -> None:
+    """``UNetDecoder`` or ``AttentionDecoder``."""
+    for i, block in enumerate(m.conv):
+        if isinstance(m, UNetDecoder):
+            _conv_transpose(m.up[i], p[f"up_{i}"], f"decoder/up_{i}")
+        else:
+            load_upsample(m.up[i], p[f"up_{i}"], _stats(s, f"up_{i}"), f"decoder/up_{i}")
+            load_spatial_attention(m.sa[i], p[f"sa_{i}"], f"decoder/sa_{i}")
+        load_conv_block(block, p[f"conv_{i}"], _stats(s, f"conv_{i}"), f"decoder/conv_{i}")
+    _conv(m.head, p["head"], "decoder/head")
+
+
 def _decoder(m, p: dict, s: dict | None) -> None:
+    if isinstance(m, (UNetDecoder, AttentionDecoder)):
+        _stage_decoder(m, p, s)
+        return
     for i, up in enumerate(m.up):
         load_upsample(up, p[f"up_{i}"], _stats(s, f"up_{i}"), f"decoder/up_{i}")
         if isinstance(m, SkipDecoder):

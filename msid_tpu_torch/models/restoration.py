@@ -24,7 +24,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from msid_tpu_torch.models.decoder import DECODER_REGISTRY, InputPyramid
+from msid_tpu_torch.models.decoder import DECODER_REGISTRY, ZERO_INIT_HEAD, InputPyramid
 from msid_tpu_torch.models.encoder import SatMAEEncoder
 from msid_tpu_torch.ops.fill import DEFAULT_RMS_THRESH, detect_and_fill
 
@@ -81,7 +81,7 @@ class SatMAERestoration(nn.Module):
                  gradient_checkpointing: bool = False):
         super().__init__()
         if decoder_arch not in DECODER_REGISTRY:
-            raise ValueError(f"decoder {decoder_arch!r} is not ported; have "
+            raise ValueError(f"Unknown decoder {decoder_arch!r}; have "
                              f"{sorted(DECODER_REGISTRY)}")
         if (residual_output or input_fill) and out_channels != in_channels:
             raise ValueError(
@@ -104,10 +104,12 @@ class SatMAERestoration(nn.Module):
         self.encoder = SatMAEEncoder(image_size, patch_size, in_channels,
                                      embed_dim, depth, num_heads, mlp_ratio,
                                      gradient_checkpointing)
+        # Under a global residual head the JAX model zero-inits the head of
+        # unet_light and unet_skip only.
+        head = {"zero_init_head": residual_output} if decoder_arch in ZERO_INIT_HEAD else {}
         self.decoder = DECODER_REGISTRY[decoder_arch](
             in_channels=embed_dim, channels=tuple(decoder_channels),
-            out_channels=out_channels, norm=norm,
-            zero_init_head=residual_output)
+            out_channels=out_channels, norm=norm, **head)
         if decoder_arch == "unet_skip":
             self.skip_stem = InputPyramid(in_channels, len(decoder_channels),
                                           norm=norm)

@@ -15,7 +15,11 @@ and ``--tta N`` averages N dihedral views; both compose. ``--forward
 hybrid`` scores through the module's encoder and the folded-BN decoder
 (``deployment/fastpath.py``); it raises ``ValueError`` for models with an
 ``input_fill`` stage or without batch norm. Results go to
-``<output-dir>/evaluation_results.json``.
+``<output-dir>/evaluation_results.json``. ``--save_visualizations`` then
+writes a triptych and the spectra of each of the first 5 samples of the
+first validation batch under ``<output-dir>/visualizations`` (corrupted
+with the eval seed, restored by the first checkpoint of an ensemble only,
+as in the JAX script; it needs matplotlib).
 
 Under torchrun (``torchrun --nproc_per_node N -m msid_tpu_torch.scripts.evaluate
 ... [--device cpu]``) the ranks split each validation batch, every rank
@@ -61,9 +65,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI; returns what it writes to ``evaluation_results.json``."""
     args = parse_args(argv)
-    if args.save_visualizations:
-        raise NotImplementedError("--save_visualizations needs utils/visualization.py "
-                                  "(matplotlib), not ported")
     if args.ensemble and not args.checkpoint:
         raise SystemExit("--ensemble extends --checkpoint; pass --checkpoint too")
     from msid_tpu_torch.parallel.distributed import joined_from_env, shutdown
@@ -166,6 +167,19 @@ def _evaluate(args: argparse.Namespace, device) -> dict:
         out_dir = Path(args.output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "evaluation_results.json").write_text(json.dumps(results, indent=2) + "\n")
+        if args.save_visualizations:
+            from msid_tpu_torch.utils.visualization import save_restoration_triptychs
+
+            if args.ensemble:
+                logger.info("--save_visualizations renders the first checkpoint (%s) alone, "
+                            "not the ensemble's mean restoration", args.checkpoint)
+            save_restoration_triptychs(
+                model, variables[0] if isinstance(variables, tuple) else variables,
+                val_loader, out_dir / "visualizations",
+                noise_cfg=NoiseConfig.from_config(config), image_size=image_size,
+                num_samples=5, compute_dtype=compute_dtype,
+                noise_impl=str(config.get("noise", {}).get("impl", "auto")))
+            logger.info("Saved visualizations to %s", out_dir / "visualizations")
     return results
 
 

@@ -1,7 +1,8 @@
 """YAML configuration loading with inheritance, for the PyTorch port.
 
 The port's own copy of ``load_config`` / ``merge_configs``,
-``validate_config`` and ``coerce_scheduler_params`` of the JAX package
+``save_config``, ``validate_config``, ``print_config``,
+``get_project_root`` and ``coerce_scheduler_params`` of the JAX package
 (``msid_tpu/utils/config.py``), so both packages read the same
 ``configs/`` files. Two inheritance mechanisms are accepted:
 
@@ -83,6 +84,14 @@ def merge_configs(base: Dict, override: Dict) -> Dict:
     return merged
 
 
+def save_config(config: Dict, filepath: str | Path) -> None:
+    """Save a config dictionary to a YAML file, creating parent dirs."""
+    filepath = Path(filepath)
+    filepath.parent.mkdir(parents=True, exist_ok=True)
+    with open(filepath, "w") as f:
+        yaml.dump(config, f, default_flow_style=False, sort_keys=False)
+
+
 def validate_config(config: Dict) -> bool:
     """Check the required sections and keys; raises ValueError on the
     first gap."""
@@ -98,6 +107,27 @@ def validate_config(config: Dict) -> bool:
         if key not in config["training"]:
             raise ValueError(f"Missing required training config: {key}")
     return True
+
+
+def print_config(config: Dict, indent: int = 0) -> None:
+    """Pretty-print a nested config dictionary."""
+    for key, value in config.items():
+        if isinstance(value, dict):
+            print(" " * indent + f"{key}:")
+            print_config(value, indent + 2)
+        else:
+            print(" " * indent + f"{key}: {value}")
+
+
+def get_project_root() -> Path:
+    """The nearest ancestor of this file that holds ``setup.py``,
+    ``pyproject.toml`` or ``.git`` (the working directory if none does)."""
+    p = Path(__file__).resolve()
+    for parent in [p] + list(p.parents):
+        if ((parent / "setup.py").exists() or (parent / "pyproject.toml").exists()
+                or (parent / ".git").exists()):
+            return parent
+    return Path.cwd()
 
 
 def coerce_scheduler_params(config: Dict) -> Dict:

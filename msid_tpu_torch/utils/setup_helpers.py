@@ -1,6 +1,7 @@
-"""Session bootstrap (PyTorch): counterpart of ``create_model_from_config``,
-``estimate_memory``, ``create_training_components`` and
-``setup_training_session`` of ``msid_tpu/utils/setup_helpers.py``.
+"""Session bootstrap (PyTorch): counterpart of ``setup_device``,
+``create_model_from_config``, ``estimate_memory``, ``device_memory_stats``,
+``create_training_components``, ``setup_training_session`` and
+``print_config_summary`` of ``msid_tpu/utils/setup_helpers.py``.
 
 ``setup_training_session`` returns everything ``Trainer.fit`` needs on one
 device, the GPU unless ``device="cpu"`` is passed. It loads the encoder
@@ -38,6 +39,23 @@ def setup_config(config_path: str | Path) -> dict:
     config = coerce_scheduler_params(load_config(config_path))
     validate_config(config)
     return config
+
+
+def setup_device(platform: Optional[str] = None) -> list[torch.device]:
+    """The devices to run on: the CUDA cards (``platform`` None, ``"cuda"``
+    or ``"gpu"``; raises when there is none), or the CPU when asked for
+    (``"cpu"``). The port never falls back to the CPU by itself."""
+    if platform == "cpu":
+        devices = [torch.device("cpu")]
+    elif platform in (None, "cuda", "gpu"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; the port runs on the GPU "
+                               "unless platform='cpu' is passed")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        raise ValueError(f"platform must be 'cuda', 'gpu' or 'cpu', got {platform!r}")
+    logger.info("platform=%s devices=%d", devices[0].type, len(devices))
+    return devices
 
 
 def estimate_memory(config: dict, num_params: int) -> dict:
@@ -91,6 +109,19 @@ def create_model_from_config(config: dict, seed: int = 0,
                 "est. training memory %.2f GB", counts["encoder"] / 1e6,
                 counts["decoder"] / 1e6, counts["total"] / 1e6, mem["total_gb"])
     return model, counts
+
+
+def device_memory_stats() -> dict:
+    """Live per-card memory from ``torch.cuda``, under the JAX package's
+    keys: ``bytes_in_use`` and ``peak_bytes_in_use`` of torch's allocator
+    and the card's ``bytes_limit``; ``{}`` without a card."""
+    if not torch.cuda.is_available():
+        return {}
+    return {f"cuda:{i}": {
+        "bytes_in_use": torch.cuda.memory_allocated(i),
+        "peak_bytes_in_use": torch.cuda.max_memory_allocated(i),
+        "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
+    } for i in range(torch.cuda.device_count())}
 
 
 def create_training_components(config: dict, model, steps_per_epoch: int = 1):
@@ -193,3 +224,23 @@ def setup_training_session(config_path: str | Path | dict,
         "param_counts": counts,
         "mesh": mesh,
     }
+
+
+def print_config_summary(config: dict) -> None:
+    """A human-readable summary of a config's key facts."""
+    data = config.get("data", {})
+    enc = config.get("model", {}).get("encoder", {})
+    training = config.get("training", {})
+    print("=" * 56)
+    print("msid_tpu configuration")
+    print("-" * 56)
+    print(f"  data:    {data.get('root_dir')}  {data.get('image_size')}px "
+          f"x{data.get('num_bands')} bands")
+    print(f"  encoder: dim={enc.get('embed_dim')} depth={enc.get('depth')} "
+          f"heads={enc.get('num_heads')} frozen={enc.get('freeze_layers')}")
+    print(f"  train:   epochs={training.get('epochs')} "
+          f"eff_batch={training.get('effective_batch_size')} "
+          f"micro={training.get('micro_batch_size')} "
+          f"lr={training.get('optimizer', {}).get('lr')}")
+    print(f"  loss:    {training.get('loss')}")
+    print("=" * 56)

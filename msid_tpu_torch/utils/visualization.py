@@ -1,0 +1,269 @@
+"""Visualization (PyTorch): counterpart of ``msid_tpu/utils/visualization.py``.
+
+RGB composites, noisy/restored/clean triptychs, spectra, band comparisons
+and training curves, drawn on host numpy after one device-to-host copy per
+figure. Tensors arrive in model range (about [-2, 2]), NHWC.
+
+matplotlib is imported lazily (``_plt``, the Agg backend) so that training
+and serving never need it; the machines that only serve or train may not
+have it.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+# Sentinel-2 band centres (nm) and names
+SENTINEL2_WAVELENGTHS = (
+    443, 490, 560, 665, 705, 740, 783, 842, 865, 945, 1375, 1610, 2190,
+)
+SENTINEL2_BAND_NAMES = (
+    "B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B8A", "B9", "B10",
+    "B11", "B12",
+)
+# True-color composite: B4 (red), B3 (green), B2 (blue) = indices 3, 2, 1
+RGB_BAND_INDICES = (3, 2, 1)
+
+
+def _plt():
+    import matplotlib
+
+    matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def _finish(fig, save_path: Optional[str | Path], dpi: int):
+    """Save and close the figure when a path is given (returns None), else
+    return it."""
+    if not save_path:
+        return fig
+    Path(save_path).parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(save_path, dpi=dpi, bbox_inches="tight")
+    _plt().close(fig)
+    return None
+
+
+def normalize_for_display(
+    img: np.ndarray, lower: float = 2.0, upper: float = 98.0
+) -> np.ndarray:
+    """Percentile contrast stretch to [0, 1]."""
+    img = np.asarray(img, dtype=np.float32)
+    lo, hi = np.percentile(img, [lower, upper])
+    if hi - lo < 1e-8:
+        return np.zeros_like(img)
+    return np.clip((img - lo) / (hi - lo), 0.0, 1.0)
+
+
+def extract_rgb(img_hwc: np.ndarray) -> np.ndarray:
+    """[H, W, 13] -> display-normalized [H, W, 3] true-color composite
+    (bands 4/3/2)."""
+    img_hwc = np.asarray(img_hwc)
+    rgb = img_hwc[..., list(RGB_BAND_INDICES)]
+    return normalize_for_display(rgb)
+
+
+def plot_sample_grid(
+    images: np.ndarray,
+    save_path: Optional[str | Path] = None,
+    max_samples: int = 8,
+    title: str = "Samples",
+):
+    """Grid of RGB composites from an NHWC batch."""
+    plt = _plt()
+    images = np.asarray(images)[:max_samples]
+    n = len(images)
+    cols = min(4, n)
+    rows = (n + cols - 1) // cols
+    fig, axes = plt.subplots(rows, cols, figsize=(3 * cols, 3 * rows), squeeze=False)
+    for i in range(rows * cols):
+        ax = axes[i // cols][i % cols]
+        ax.axis("off")
+        if i < n:
+            ax.imshow(extract_rgb(images[i]))
+            ax.set_title(f"sample {i}", fontsize=8)
+    fig.suptitle(title)
+    fig.tight_layout()
+    return _finish(fig, save_path, 120)
+
+
+def plot_restoration_triptych(
+    noisy: np.ndarray,
+    clean: np.ndarray,
+    restored: np.ndarray,
+    save_path: Optional[str | Path] = None,
+    metrics: Optional[dict] = None,
+):
+    """Noisy | restored | clean RGB panels for one sample."""
+    plt = _plt()
+    fig, axes = plt.subplots(1, 3, figsize=(12, 4))
+    for ax, img, name in zip(
+        axes, (noisy, restored, clean), ("noisy input", "restored", "clean target")
+    ):
+        ax.imshow(extract_rgb(np.asarray(img)))
+        ax.set_title(name)
+        ax.axis("off")
+    if metrics:
+        fig.suptitle("  ".join(f"{k}={v:.3f}" for k, v in metrics.items()), fontsize=10)
+    fig.tight_layout()
+    return _finish(fig, save_path, 120)
+
+
+def plot_spectral_signatures(
+    clean: np.ndarray,
+    restored: np.ndarray,
+    noisy: Optional[np.ndarray] = None,
+    pixels: Sequence[tuple] = ((32, 32), (96, 96), (160, 160)),
+    save_path: Optional[str | Path] = None,
+):
+    """Per-pixel 13-band spectra, clean against restored (and noisy)."""
+    plt = _plt()
+    clean, restored = np.asarray(clean), np.asarray(restored)
+    h, w = clean.shape[:2]
+    pixels = [(min(y, h - 1), min(x, w - 1)) for y, x in pixels]
+    fig, axes = plt.subplots(1, len(pixels), figsize=(4 * len(pixels), 3.2))
+    if len(pixels) == 1:
+        axes = [axes]
+    wl = SENTINEL2_WAVELENGTHS
+    for ax, (y, x) in zip(axes, pixels):
+        ax.plot(wl, clean[y, x], "o-", label="clean", lw=1.5)
+        ax.plot(wl, restored[y, x], "s--", label="restored", lw=1.5)
+        if noisy is not None:
+            ax.plot(wl, np.asarray(noisy)[y, x], "^:", label="noisy", lw=1, alpha=0.6)
+        ax.set_title(f"pixel ({y},{x})", fontsize=9)
+        ax.set_xlabel("wavelength (nm)")
+        ax.legend(fontsize=7)
+    fig.tight_layout()
+    return _finish(fig, save_path, 120)
+
+
+def plot_band_comparison(
+    clean: np.ndarray,
+    restored: np.ndarray,
+    save_path: Optional[str | Path] = None,
+):
+    """All 13 bands side by side, clean against restored."""
+    plt = _plt()
+    clean, restored = np.asarray(clean), np.asarray(restored)
+    fig, axes = plt.subplots(2, 13, figsize=(26, 4.4))
+    for c in range(13):
+        for row, img in ((0, clean), (1, restored)):
+            ax = axes[row][c]
+            ax.imshow(normalize_for_display(img[..., c]), cmap="gray")
+            ax.axis("off")
+            if row == 0:
+                ax.set_title(SENTINEL2_BAND_NAMES[c], fontsize=8)
+    fig.tight_layout()
+    return _finish(fig, save_path, 100)
+
+
+def plot_training_curves(history: dict, save_path: Optional[str | Path] = None):
+    """2x2 loss / PSNR / SSIM / learning-rate panels from a Trainer's history."""
+    plt = _plt()
+    fig, axes = plt.subplots(2, 2, figsize=(11, 7))
+    epochs = np.arange(1, len(history.get("train_loss", [])) + 1)
+
+    ax = axes[0][0]
+    ax.plot(epochs, history.get("train_loss", []), label="train")
+    ax.plot(epochs, history.get("val_loss", []), label="val")
+    ax.set_title("loss")
+    ax.legend()
+
+    ax = axes[0][1]
+    ax.plot(epochs, history.get("val_psnr", []), color="tab:green")
+    ax.set_title("val PSNR (dB)")
+
+    ax = axes[1][0]
+    ax.plot(epochs, history.get("val_ssim", []), color="tab:orange")
+    ax.set_title("val SSIM")
+
+    ax = axes[1][1]
+    ax.plot(epochs, history.get("lr", []), color="tab:red")
+    ax.set_yscale("log")
+    ax.set_title("learning rate")
+
+    for row in axes:
+        for ax in row:
+            ax.set_xlabel("epoch")
+            ax.grid(alpha=0.3)
+    fig.tight_layout()
+    return _finish(fig, save_path, 120)
+
+
+def restore_batch(model, variables, batch, noise_cfg=None, image_size: int = 192,
+                  seed: int = 0, compute_dtype: torch.dtype = torch.float32,
+                  noise_impl: str = "auto") -> tuple:
+    """The eval path on one raw NHWC batch, on the model's device:
+    ``preprocess_tiles``, ``corrupt`` seeded by ``seed`` (K2 on the card),
+    the eval-mode forward in ``compute_dtype`` with ``variables`` (None:
+    the module's own weights), and the per-sample PSNR and SSIM. Returns
+    host arrays ``(clean, noisy, restored, psnr, ssim)``."""
+    from torch.func import functional_call
+
+    from msid_tpu_torch.models.restoration import exact_fp32
+    from msid_tpu_torch.ops.metrics import psnr_per_sample
+    from msid_tpu_torch.ops.noise import NoiseConfig, corrupt
+    from msid_tpu_torch.ops.preprocess import preprocess_tiles
+    from msid_tpu_torch.ops.ssim import ssim_per_sample
+
+    device = next(model.parameters()).device
+    batch = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(batch))
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad(), exact_fp32(compute_dtype), torch.autocast(
+                device.type, dtype=compute_dtype, enabled=compute_dtype != torch.float32):
+            clean = preprocess_tiles(batch.to(device), image_size)
+            noisy = corrupt(seed, clean, noise_cfg or NoiseConfig(), impl=noise_impl)
+            z = noisy.to(compute_dtype)
+            restored = (model(z) if variables is None
+                        else functional_call(model, variables, (z,))).float()
+            psnr, ssim = psnr_per_sample(restored, clean), ssim_per_sample(restored, clean)
+    finally:
+        model.train(training)
+    return tuple(t.float().cpu().numpy() for t in (clean, noisy, restored, psnr, ssim))
+
+
+def save_restoration_triptychs(
+    model,
+    variables,
+    loader,
+    out_dir: str | Path,
+    noise_cfg=None,
+    image_size: int = 192,
+    num_samples: int = 5,
+    eval_seed: int = 1234,
+    compute_dtype: torch.dtype = torch.float32,
+    noise_impl: str = "auto",
+):
+    """Run the first batch of ``loader`` through the eval path
+    (``restore_batch``, corrupted with ``eval_seed``) and save a triptych
+    and the spectra of each of its first ``num_samples`` samples; returns
+    how many were saved."""
+    from msid_tpu_torch.training.eval import split_batch_item
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # padding loaders yield (batch, true_count): drop the padding
+    batch, count = split_batch_item(next(iter(loader)))
+    clean, noisy, restored, psnr, ssim = restore_batch(
+        model, variables, batch[:count], noise_cfg, image_size, eval_seed, compute_dtype,
+        noise_impl)
+    n = min(num_samples, clean.shape[0])
+    for i in range(n):
+        plot_restoration_triptych(
+            noisy[i], clean[i], restored[i],
+            save_path=out_dir / f"sample_{i:02d}.png",
+            metrics={"PSNR": float(psnr[i]), "SSIM": float(ssim[i])},
+        )
+        plot_spectral_signatures(
+            clean[i], restored[i], noisy[i],
+            save_path=out_dir / f"sample_{i:02d}_spectra.png",
+        )
+    return n

@@ -582,3 +582,70 @@ def test_mesh_session_replicas_serve_their_halves_on_the_card():
     assert session.captured_launches == 2 * half.captured_launches == 16
     assert np.array_equal(got[:2], half.predict(x[:2]))
     assert np.array_equal(got[2:], half.predict(x[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_mesh_session_benchmark_replays_every_replica_on_the_card(pipelined):
+    """Two replicas on one card: ``benchmark`` returns the reference's keys
+    at the whole batch, and each timed call replays both replicas."""
+    need_card()
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.parallel import make_mesh
+
+    session = InferenceSession(flagship_like(torch.bfloat16), batch_size=4, image_size=32,
+                               mesh=make_mesh(devices=["cuda:0", "cuda:0"]))
+    before = [r.replays for r in session.replicas]
+    result = session.benchmark(warmup_runs=2, benchmark_iterations=5, pipelined=pipelined)
+    assert [r.replays - n for r, n in zip(session.replicas, before)] == [7, 7]
+    assert result["batch_size"] == 4 and result["iterations"] == 5
+    assert result["mean_ms"] > 0 and (result["p50_ms"] is None) == pipelined
+    assert result["images_per_sec"] == pytest.approx(4e3 / result["mean_ms"])
+
+
+@pytest.mark.cuda
+def test_artifact_session_captures_a_graph_per_new_batch_on_the_card(tmp_path):
+    """A B=1 artifact session serves a batch of 3 from a second captured
+    graph (never eagerly), close to a live B=3 session; ``captured_launches``
+    stays B=1's and a static artifact refuses the batch."""
+    need_card()
+    from msid_tpu_torch.deployment.export import export_program
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    model = flagship_like(torch.bfloat16)
+    session = InferenceSession(artifact_path=export_program(
+        model, tmp_path / "a", input_shape=(1, 32, 32, 13)), batch_size=1, image_size=32)
+    x = np.random.default_rng(5).normal(0, 0.5, (3, 32, 32, 13)).astype(np.float32)
+    got = session.predict(x)
+    assert sorted(session.graphs) == [1, 3] and session.captured_launches == 8
+    assert session.graphs[3].launches == 8 and session.graphs[3].replays == 1
+    again = session.predict(x)
+    assert session.graphs[3].replays == 2 and np.array_equal(got, again)
+    want = InferenceSession(model, batch_size=3, image_size=32).predict(x)
+    assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 1e-3
+    static = InferenceSession(artifact_path=export_program(
+        model, tmp_path / "s", input_shape=(1, 32, 32, 13), dynamic_batch=False),
+        batch_size=1, image_size=32)
+    with pytest.raises(ValueError, match="expected same constant"):
+        static.predict(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["unet", "attention"])
+def test_new_decoders_in_bf16_on_the_card_match_the_cpu(arch):
+    """The ``unet`` and ``attention`` decoders (cuDNN convs, no fused block)
+    served in bf16 on the card against fp32 on the CPU."""
+    need_card()
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    model = flagship_like(torch.float32, decoder_arch=arch).cpu()
+    x = np.random.default_rng(6).normal(0, 0.5, (2, 32, 32, 13)).astype(np.float32)
+    with torch.no_grad():
+        want = model(torch.from_numpy(x)).numpy()
+    before = cuda_decoder.launches
+    session = InferenceSession(model.set_compute_dtype(torch.bfloat16).cuda(), batch_size=2,
+                               image_size=32)
+    got = session.predict(x)
+    assert session.optimized is False and session.captured_launches == 0
+    assert cuda_decoder.launches == before
+    assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 2e-2

@@ -172,7 +172,8 @@ def test_resume_continues_at_the_saved_epoch(trained, tmp_path):
     ("evaluate", ["--tta", "9"], ValueError, "num_transforms"),
     ("evaluate", ["--ensemble", "/nonexistent"], SystemExit, "--checkpoint"),
     ("evaluate", ["--forward", "hybrid", "--config", "FILL"], ValueError, "input_fill models"),
-    ("evaluate", ["--save_visualizations"], NotImplementedError, "utils/visualization.py"),
+    ("evaluate", ["--save_visualizations", "--ensemble", "/nonexistent"], SystemExit,
+     "--checkpoint"),
     ("train", ["--init-from", "/a", "--resume"], SystemExit, "--init-from"),
     ("train", ["--init-from", "/a", "--checkpoint", "/b"], SystemExit, "--init-from"),
 ])

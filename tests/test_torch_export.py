@@ -34,7 +34,7 @@ from msid_tpu_torch.deployment.export import (
     verify_exported_model,
 )
 from msid_tpu_torch.deployment.inference import InferenceSession
-from msid_tpu_torch.models.blocks import ResidualBlock
+from msid_tpu_torch.models.blocks import Norm, ResidualBlock
 from msid_tpu_torch.models.from_jax import load_jax_variables
 from msid_tpu_torch.models.restoration import SatMAERestoration
 from msid_tpu_torch.ops import cuda_decoder
@@ -269,6 +269,19 @@ def test_tta_export_matches_live_ensemble(tmp_path):
     program = torch.export.load(path / MODULE_FILE)
     assert sum(n.target is OP for n in program.graph.nodes) == 8 * 8
     assert compare_live_vs_exported(model, None, path, input_shape=(2, 64, 64, 13)).allclose
+
+
+def test_tta_views_share_the_weight_operands(tmp_path):
+    """The dihedral views of a tta artifact share their weight-only
+    operands: each batch norm is folded once in the program (one rsqrt a
+    norm), not once a view, while each view runs its 8 fused blocks."""
+    _, _, model = models(SMALL_BN)
+    norms = sum(isinstance(m, Norm) and m.kind == "batch" for m in model.modules())
+    for tta in (1, 8):
+        path = export_program(model, tmp_path / f"tta{tta}", input_shape=SHAPE, tta=tta)
+        nodes = torch.export.load(path / MODULE_FILE).graph.nodes
+        assert sum(n.target is torch.ops.aten.rsqrt.default for n in nodes) == norms == 21
+        assert sum(n.target is OP for n in nodes) == 8 * tta
 
 
 def test_optimized_export_unet_skip_roundtrip(tmp_path):
