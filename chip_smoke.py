@@ -5,7 +5,8 @@
     python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise, probe, hybrid,
                                                # scene, train, data_cache, export,
                                                # decoders, perceptual, pretrained,
-                                               # parallel, nccl_shared), no result lines
+                                               # parallel, nccl_shared, examples),
+                                               # no result lines
 
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
@@ -181,7 +182,23 @@ network. Phases, each of which must pass:
    (relative RMS 2e-2 of the fp32 CPU forward) and in fp32 at B=1 (1e-4):
    the module's forward (``optimized`` False, ``optimize=True`` refused),
    no K1 or K4 launch counted or seen by the profiler, device p50 and busy
-   time.
+   time;
+18. examples: the port's three walkthroughs (``msid_tpu_torch/examples``)
+   run in this process as ``__main__`` at full width on synthetic tiles,
+   each into a temporary ``--output-dir``: ``00_quick_start`` and
+   ``03_evaluation_and_export`` with ``--config long_skip_fill.yaml``,
+   ``02_two_stage_training`` on its own stage configurations (ViT-Base,
+   ``unet_light``) with ``--epochs 1``, stage B resuming stage A's
+   checkpoint under another freeze set. Every launch counter is set to 0
+   before each and read after (a session's replays added), beside
+   ``_build``'s count of the same launches, with the example's seconds:
+   K1 must launch in all three (8 times in 00's one forward) and K2 in 02
+   and 03, K4 is recorded, K3 and K5 must not launch. Then the files: 00's
+   preview PNG, 02's curves PNG and history (one finite epoch a stage),
+   03's evaluation results (finite PSNR/SSIM/SAM), its three triptychs and
+   spectra as PNGs, its bf16 artifact on the card verified at B=1 and 3
+   and ``compare_live_vs_exported(...).allclose`` against the same seeded
+   model built here, and its session compiled as a CUDA graph.
 
 A launch count in the kernels line is a count of device launches. A
 wrapper counts its launch when it runs eagerly and when a graph is
@@ -310,6 +327,8 @@ PARALLEL_DP_LOSS_RTOL = 1e-3
 PARALLEL_LOSS_RTOL = 1e-4
 PARALLEL_GNORM_RTOL = 1e-3
 # The reference's benchmark keys (msid_tpu/deployment/inference.py)
+EXAMPLES_DIR = ROOT / "msid_tpu_torch" / "examples"
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 BENCHMARK_KEYS = {"mean_ms", "fps", "images_per_sec", "batch_size", "iterations",
                   "std_ms", "min_ms", "max_ms", "p50_ms", "p99_ms"}
 TRACE_TOP = 10                    # kernels of the traced train step named with their owners
@@ -2922,6 +2941,157 @@ def phase_nccl_shared(torch, failures: list) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def sessions_built():
+    """The ``InferenceSession``s built inside the block, in a list: their
+    replays are device launches that no wrapper counts."""
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    built, init = [], InferenceSession.__init__
+
+    def tracked(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    InferenceSession.__init__ = tracked
+    try:
+        yield built
+    finally:
+        InferenceSession.__init__ = init
+
+
+def run_example(torch, name: str, argv: list) -> dict:
+    """``msid_tpu_torch/examples/<name>`` run in this process as
+    ``__main__`` with ``argv`` and the card as its device: its seconds and
+    the launches of each kernel over the run, every wrapper's count set to
+    0 just before and read just after (the replays of a session it built
+    added: bf16 ones to K1, fp32 to K4), beside the launches
+    ``_build.call`` counted (the wrappers' sum)."""
+    import runpy
+
+    from msid_tpu_torch.ops import _build, cuda_decoder, cuda_noise, cuda_probe
+
+    path = EXAMPLES_DIR / name
+    saved_argv, saved_path = sys.argv, list(sys.path)
+    sys.argv = [str(path), *map(str, argv)]
+    cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
+    cuda_noise.launches = cuda_probe.launches_any_dma = 0
+    build_before = _build.launches
+    t0 = time.perf_counter()
+    try:
+        with sessions_built() as sessions:
+            runpy.run_path(str(path), run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv, sys.path[:] = saved_argv, saved_path
+    seconds = time.perf_counter() - t0
+    counted = {"resblock": cuda_decoder.launches, "noise": cuda_noise.launches,
+               "resblock_fp32": cuda_decoder.launches_fp32,
+               "resblock_v2": cuda_decoder.launches_v2, "any_dma": cuda_probe.launches_any_dma}
+    launches = dict(counted)
+    for session in sessions:
+        if session.compiled:
+            key = "resblock" if session.dtype == torch.bfloat16 else "resblock_fp32"
+            launches[key] += (session.replays - 1) * session.captured_launches
+    row = {"seconds": seconds, "launches": launches,
+           "build_launches": _build.launches - build_before,
+           "sessions": [{"compiled": s.compiled, "optimized": s.optimized,
+                         "captured_launches": s.captured_launches, "replays": s.replays}
+                        for s in sessions]}
+    row["counts_agree"] = sum(counted.values()) == row["build_launches"]
+    del sessions
+    torch.cuda.empty_cache()
+    return row
+
+
+def is_png(path: Path) -> bool:
+    return path.is_file() and path.read_bytes()[:8] == PNG_SIGNATURE
+
+
+def phase_examples(torch, failures: list, card: str) -> dict:
+    """The port's three walkthroughs (``msid_tpu_torch/examples``), each run
+    in this process on the card at full width into a temporary directory:
+    00 and 03 on the flagship (``long_skip_fill.yaml``), 02 on its two
+    stage configurations (ViT-Base, ``unet_light``) for one epoch each, all
+    on synthetic tiles. K1 must launch in all three (00's forward, 02's
+    validation, 03's evaluation, export and session) and K2 in 02 and 03;
+    K4 is recorded. Then each one's files: the PNGs, 02's history with one
+    epoch a stage, 03's results with finite PSNR/SSIM/SAM, its artifact
+    verified and held against the same seeded model, allclose."""
+    from msid_tpu_torch.deployment import compare_live_vs_exported, verify_exported_model
+    from msid_tpu_torch.training.trainer import compute_dtype_from_config
+    from msid_tpu_torch.utils.setup_helpers import create_model_from_config, setup_config
+
+    result = {"check": "examples", "config": str(CONFIG.relative_to(ROOT)), "card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        tmp = Path(tmp)
+        flagship = ["--config", str(CONFIG), "--synthetic"]
+        runs = {"00_quick_start": ("00_quick_start.py", [*flagship, "--output-dir", tmp / "00"]),
+                "02_two_stage_training": ("02_two_stage_training.py", [
+                    "--synthetic", "--epochs", "1", "--output-dir", tmp / "02"]),
+                "03_evaluation_and_export": ("03_evaluation_and_export.py", [
+                    *flagship, "--output-dir", tmp / "03"])}
+        for key, (name, argv) in runs.items():
+            result[key] = run_example(torch, name, argv)
+            print(f"example {name}: {result[key]['seconds']:.1f} s, launches "
+                  f"{result[key]['launches']}", flush=True)
+
+        history = json.loads((tmp / "02" / "logs" / "training_history.json").read_text())
+        result["02_two_stage_training"]["history"] = history
+        results = json.loads((tmp / "03" / "evaluation_results.json").read_text())
+        result["03_evaluation_and_export"]["results"] = results
+        figures = sorted(p.name for p in (tmp / "03" / "figures").iterdir())
+
+        config = setup_config(CONFIG)
+        size, bands = config["data"]["image_size"], config["data"]["num_bands"]
+        shape = (1, size, size, bands)
+        artifact = tmp / "03" / "model"
+        verified = verify_exported_model(artifact, input_shape=shape, batch_sizes=(1, 3))
+        model, _ = create_model_from_config(config)        # the example's seed, on the card
+        model.set_compute_dtype(compute_dtype_from_config(config))
+        comparison = compare_live_vs_exported(model, None, artifact, input_shape=shape)
+        meta = json.loads((artifact / "meta.json").read_text())
+        result["03_evaluation_and_export"]["artifact"] = {
+            "verified": verified, "comparison": str(comparison), "meta": meta}
+        del model
+        torch.cuda.empty_cache()
+
+        launches = {k: result[k]["launches"] for k in runs}
+        checks = {
+            "k1_launched": all(launches[k]["resblock"] > 0 for k in runs),
+            "k2_launched": all(launches[k]["noise"] > 0
+                               for k in ("02_two_stage_training", "03_evaluation_and_export")),
+            "k1_once_a_block_in_00": launches["00_quick_start"]["resblock"] == 8,
+            "only_k1_k2_k4": all(launches[k]["resblock_v2"] == launches[k]["any_dma"] == 0
+                                 for k in runs),
+            "counts_agree": all(result[k]["counts_agree"] for k in runs),
+            "quick_start_png": is_png(tmp / "00" / "noise_preview.png"),
+            "history_one_epoch_a_stage": len(history["train_loss"]) == 2 and all(
+                len(v) == 2 for v in history.values())
+            and bool(np.isfinite(history["train_loss"] + history["val_psnr"]).all()),
+            "curves_png": is_png(tmp / "02" / "logs" / "training_curves.png"),
+            "results_finite": all(np.isfinite(results[k]) for k in ("psnr", "ssim", "sam")),
+            "figures_png": figures == [f"sample_{i:02d}{s}.png" for i in range(3)
+                                       for s in ("", "_spectra")]
+            and all(is_png(tmp / "03" / "figures" / f) for f in figures),
+            "artifact_verified": verified,
+            "artifact_on_the_card_in_bf16": (meta["device_type"], meta["dtype"])
+            == ("cuda", "bfloat16"),
+            "live_vs_exported_allclose": comparison.allclose,
+            "session_compiled": [s["compiled"] for s in
+                                 result["03_evaluation_and_export"]["sessions"]] == ["cuda_graph"],
+        }
+    result["checks"] = checks
+    result["launches"] = {kernel: sum(launches[k][kernel] for k in runs)
+                          for kernel in ("resblock", "noise", "resblock_fp32")}
+    result["seconds"] = {k: result[k]["seconds"] for k in runs}
+    emit(result)
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"examples: {name} failed")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2969,7 +3139,8 @@ def main() -> int:
                    "pretrained": lambda: phase_pretrained(torch, failures, card),
                    "train": lambda: phase_train(torch, failures, card),
                    "parallel": lambda: phase_parallel(torch, failures, card),
-                   "nccl_shared": lambda: phase_nccl_shared(torch, failures)}
+                   "nccl_shared": lambda: phase_nccl_shared(torch, failures),
+                   "examples": lambda: phase_examples(torch, failures, card)}
         for name in only:
             if name not in partial:
                 print(f"chip_smoke: only {sorted(partial)} run alone, got {name!r}",
@@ -3006,6 +3177,7 @@ def main() -> int:
     timed("perceptual", phase_perceptual, torch, failures, card)
     timed("pretrained", phase_pretrained, torch, failures, card)
     parallel = timed("parallel", phase_parallel, torch, failures, card)
+    examples = timed("examples", phase_examples, torch, failures, card)
     emit({"check": "phase_seconds", **seconds})
 
     def per_forward(kernel_rows, b=max(BATCHES)):
@@ -3030,17 +3202,20 @@ def main() -> int:
                         "export": export["launches"]["export"],
                         "export_new_batch": export["launches"]["export_new_batch"],
                         "serve_mesh": parallel["launches"]["serve_mesh"],
-                        "serve_mesh_benchmark": parallel["launches"]["serve_mesh_benchmark"]}
+                        "serve_mesh_benchmark": parallel["launches"]["serve_mesh_benchmark"],
+                        "examples": examples["launches"]["resblock"]}
     noise_by_path = {"serve": serve["noise_launches"], "train": train["launches"]["noise"],
                      "train_cache": data_cache["launches"]["noise"],
                      "evaluate": evaluate["launches"]["noise"],
-                     "train_dp": parallel["launches"]["train_dp"]}
+                     "train_dp": parallel["launches"]["train_dp"],
+                     "examples": examples["launches"]["noise"]}
     fp32_by_path = {"evaluate": evaluate["launches"]["resblock_fp32"],
                     "serve_fp32": serve_fp32["k4_launches"],
                     "scene_fp32": scene["launches"]["fp32"],
                     "probe": probe["launches"]["resblock_fp32"],
                     "hybrid": hybrid["launches"]["resblock_fp32"],
-                    "export_fp32": export["launches"]["export_fp32"]}
+                    "export_fp32": export["launches"]["export_fp32"],
+                    "examples": examples["launches"]["resblock_fp32"]}
     v2_by_path = {"probe": probe["launches"]["resblock_v2"]}
     any_dma_by_path = {"probe": probe["launches"]["any_dma"]}
     k3 = per_forward(probe["k3"])
@@ -3050,8 +3225,10 @@ def main() -> int:
     for name, by_path, paths in (
             ("fused_residual_block", resblock_by_path, resblock_by_path),
             ("apply_sensor_noise", noise_by_path, ("train", "train_cache", "evaluate",
-                                                   "train_dp")),
-            ("fused_residual_block_fp32", fp32_by_path, fp32_by_path),
+                                                   "train_dp", "examples")),
+            # The walkthroughs run bf16 configurations: K4 is recorded there.
+            ("fused_residual_block_fp32", fp32_by_path,
+             [p for p in fp32_by_path if p != "examples"]),
             ("fused_residual_block_v2", v2_by_path, v2_by_path),
             ("any_dma_scale", any_dma_by_path, any_dma_by_path)):
         if not all(by_path[p] > 0 for p in paths):

@@ -328,7 +328,7 @@ def verify_exported_model(path: str | Path, input_shape: tuple = (1, 192, 192, 1
 
 
 @dataclasses.dataclass
-class ExportComparison:
+class ComparisonResult:
     max_abs_diff: float
     mean_abs_diff: float
     cosine_similarity: float
@@ -341,7 +341,7 @@ class ExportComparison:
 
 def compare_live_vs_exported(model: nn.Module, variables: Optional[dict], path: str | Path,
                              input_shape: tuple = (1, 192, 192, 13), rtol: float = 1e-3,
-                             atol: float = 1e-5, seed: int = 0) -> ExportComparison:
+                             atol: float = 1e-5, seed: int = 0) -> ComparisonResult:
     """Numerical parity of the live model (with ``variables``, None: its
     own weights) and the artifact on its device, on a uniform [-2, 2)
     batch: max and mean absolute difference, cosine similarity and
@@ -365,7 +365,7 @@ def compare_live_vs_exported(model: nn.Module, variables: Optional[dict], path: 
     diff = np.abs(live - deployed)
     lf, df = live.ravel(), deployed.ravel()
     cos = float(np.dot(lf, df) / (np.linalg.norm(lf) * np.linalg.norm(df) + 1e-12))
-    result = ExportComparison(
+    result = ComparisonResult(
         max_abs_diff=float(diff.max()), mean_abs_diff=float(diff.mean()),
         cosine_similarity=cos,
         allclose=bool(np.allclose(live, deployed, rtol=rtol, atol=atol)))

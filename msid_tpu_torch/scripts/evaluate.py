@@ -183,5 +183,11 @@ def _evaluate(args: argparse.Namespace, device) -> dict:
     return results
 
 
+def cli() -> None:
+    """The ``msid-torch-evaluate`` console entry point: ``main`` with its
+    return value dropped, which ``sys.exit`` would read as a failure."""
+    main()
+
+
 if __name__ == "__main__":
     main()

@@ -170,5 +170,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
     return path
 
 
+def cli() -> None:
+    """The ``msid-torch-export`` console entry point: ``main`` with its
+    return value dropped, which ``sys.exit`` would read as a failure."""
+    main()
+
+
 if __name__ == "__main__":
     main()

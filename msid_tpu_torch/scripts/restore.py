@@ -165,5 +165,11 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     return restored
 
 
+def cli() -> None:
+    """The ``msid-torch-restore`` console entry point: ``main`` with its
+    return value dropped, which ``sys.exit`` would read as a failure."""
+    main()
+
+
 if __name__ == "__main__":
     main()

@@ -109,5 +109,11 @@ def _train(args: argparse.Namespace, device) -> dict:
     return history
 
 
+def cli() -> None:
+    """The ``msid-torch-train`` console entry point: ``main`` with its
+    return value dropped, which ``sys.exit`` would read as a failure."""
+    main()
+
+
 if __name__ == "__main__":
     main()

@@ -68,11 +68,11 @@ class GroupedAdamW:
         self.labels = label_params(model, freeze_layers)
         named = dict(model.named_parameters())
         self.params = list(named.values())
-        groups = [
-            {"params": [named[n] for n, lab in self.labels.items() if lab == label],
-             "lr_scale": scale, "label": label}
-            for label, scale in (("encoder", float(encoder_lr_scale)), ("decoder", 1.0))
-        ]
+        groups = []
+        for label, scale in (("encoder", float(encoder_lr_scale)), ("decoder", 1.0)):
+            names = [n for n, lab in self.labels.items() if lab == label]
+            groups.append({"params": [named[n] for n in names], "names": names,
+                           "lr_scale": scale, "label": label})
         groups = [g for g in groups if g["params"]]
         self.model_group = None     # tensor parallelism: see parallel/tp.py
         self.sharded: list[bool] | None = None
@@ -125,7 +125,24 @@ class GroupedAdamW:
         return self.adamw.state_dict()
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state)
+        """Restore the moments by parameter name, so a state saved under
+        another freeze set loads (stage B of the two-stage recipe resumes
+        stage A's): a parameter that has moments in ``state`` and is
+        trained here gets them; one trained here with none starts fresh, as
+        AdamW starts every parameter; saved moments of a parameter frozen
+        here are dropped. Each group takes the settings (learning rate,
+        betas, ...) of the saved group with its label, where there is one."""
+        saved = {name: state["state"][i]
+                 for group in state["param_groups"]
+                 for name, i in zip(group["names"], group["params"]) if i in state["state"]}
+        settings = {group["label"]: group for group in state["param_groups"]}
+        groups = [dict(settings.get(group["label"], group), params=group["params"],
+                       names=group["names"])
+                  for group in self.adamw.state_dict()["param_groups"]]
+        self.adamw.load_state_dict({
+            "state": {i: saved[name] for group in groups
+                      for name, i in zip(group["names"], group["params"]) if name in saved},
+            "param_groups": groups})
 
 
 def build_optimizer(model: nn.Module, schedule: Schedule, weight_decay: float = 0.05,

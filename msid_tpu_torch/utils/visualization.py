@@ -6,11 +6,17 @@ figure. Tensors arrive in model range (about [-2, 2]), NHWC.
 
 matplotlib is imported lazily (``_plt``, the Agg backend) so that training
 and serving never need it; the machines that only serve or train may not
-have it.
+have it. Without it, the triptych, spectra and training-curve figures that
+go to a file are drawn as plain raster PNGs (``write_png``): their panels
+side by side, lines in matplotlib's first colours, no text.
 """
 
 from __future__ import annotations
 
+import importlib.util
+import itertools
+import struct
+import zlib
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -27,6 +33,18 @@ SENTINEL2_BAND_NAMES = (
 )
 # True-color composite: B4 (red), B3 (green), B2 (blue) = indices 3, 2, 1
 RGB_BAND_INDICES = (3, 2, 1)
+
+
+# The raster figures: matplotlib's tab:blue, orange, green and red; a line
+# panel's height and width in pixels, and its margin inside the frame.
+RASTER_COLORS = ((0.122, 0.467, 0.706), (1.0, 0.498, 0.055), (0.173, 0.627, 0.173),
+                 (0.839, 0.153, 0.157))
+RASTER_PANEL = (240, 320)
+RASTER_MARGIN = 8
+
+
+def _have_matplotlib() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def _plt():
@@ -47,6 +65,63 @@ def _finish(fig, save_path: Optional[str | Path], dpi: int):
     fig.savefig(save_path, dpi=dpi, bbox_inches="tight")
     _plt().close(fig)
     return None
+
+
+def write_png(path: str | Path, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG of an ``[H, W, 3]`` array in [0, 1], written with
+    zlib alone."""
+    img = np.round(np.clip(rgb, 0.0, 1.0) * 255).astype(np.uint8)
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                     + chunk(b"IEND", b""))
+
+
+def _line_panel(series: Sequence[tuple]) -> np.ndarray:
+    """A white ``RASTER_PANEL`` with a black frame and each ``(x, y)`` of
+    ``series`` drawn as a 3-pixel polyline in its colour, all scaled to the
+    finite range of every series together."""
+    h, w = RASTER_PANEL
+    img = np.ones((h, w, 3))
+    img[[0, -1]] = 0.0
+    img[:, [0, -1]] = 0.0
+    series = [(np.asarray(x, np.float64), np.asarray(y, np.float64)) for x, y in series]
+    xs = np.concatenate([x for x, _ in series] + [np.zeros(0)])
+    ys = np.concatenate([y for _, y in series] + [np.zeros(0)])
+    xs, ys = xs[np.isfinite(xs)], ys[np.isfinite(ys)]
+    if not (xs.size and ys.size):
+        return img
+
+    def pixel(v, lo, hi, n):
+        return RASTER_MARGIN + (v - lo) / max(hi - lo, 1e-12) * (n - 1 - 2 * RASTER_MARGIN)
+
+    t = np.linspace(0.0, 1.0, 64)[:, None]
+    for (x, y), color in zip(series, itertools.cycle(RASTER_COLORS)):
+        if len(x) > 1:     # 64 points along each segment
+            x, y = (x[:-1] + t * np.diff(x)).ravel(), (y[:-1] + t * np.diff(y)).ravel()
+        px = pixel(x, xs.min(), xs.max(), w)
+        py = h - 1 - pixel(y, ys.min(), ys.max(), h)
+        keep = np.isfinite(px) & np.isfinite(py)
+        px, py = np.round(px[keep]).astype(int), np.round(py[keep]).astype(int)
+        for dy, dx in itertools.product((-1, 0, 1), repeat=2):
+            img[np.clip(py + dy, 0, h - 1), np.clip(px + dx, 0, w - 1)] = color
+    return img
+
+
+def _save_panels(save_path: str | Path, panels: Sequence[np.ndarray]) -> None:
+    """``panels`` (``[H, W, 3]`` in [0, 1], of one height) side by side,
+    8 white pixels apart, as a PNG."""
+    gap = np.ones((panels[0].shape[0], 8, 3))
+    write_png(save_path, np.concatenate(
+        [p for panel in panels for p in (panel, gap)][:-1], axis=1))
 
 
 def normalize_for_display(
@@ -100,6 +175,9 @@ def plot_restoration_triptych(
     metrics: Optional[dict] = None,
 ):
     """Noisy | restored | clean RGB panels for one sample."""
+    if save_path and not _have_matplotlib():
+        return _save_panels(save_path, [extract_rgb(np.asarray(img))
+                                        for img in (noisy, restored, clean)])
     plt = _plt()
     fig, axes = plt.subplots(1, 3, figsize=(12, 4))
     for ax, img, name in zip(
@@ -122,10 +200,15 @@ def plot_spectral_signatures(
     save_path: Optional[str | Path] = None,
 ):
     """Per-pixel 13-band spectra, clean against restored (and noisy)."""
-    plt = _plt()
     clean, restored = np.asarray(clean), np.asarray(restored)
     h, w = clean.shape[:2]
     pixels = [(min(y, h - 1), min(x, w - 1)) for y, x in pixels]
+    if save_path and not _have_matplotlib():
+        spectra = [img for img in (clean, restored, noisy) if img is not None]
+        return _save_panels(save_path, [
+            _line_panel([(SENTINEL2_WAVELENGTHS, np.asarray(img)[y, x]) for img in spectra])
+            for y, x in pixels])
+    plt = _plt()
     fig, axes = plt.subplots(1, len(pixels), figsize=(4 * len(pixels), 3.2))
     if len(pixels) == 1:
         axes = [axes]
@@ -164,9 +247,17 @@ def plot_band_comparison(
 
 def plot_training_curves(history: dict, save_path: Optional[str | Path] = None):
     """2x2 loss / PSNR / SSIM / learning-rate panels from a Trainer's history."""
+    epochs = np.arange(1, len(history.get("train_loss", [])) + 1)
+    if save_path and not _have_matplotlib():
+        lr = np.asarray(history.get("lr", []), np.float64)
+        return _save_panels(save_path, [
+            _line_panel([(epochs, history.get("train_loss", [])),
+                         (epochs, history.get("val_loss", []))]),
+            _line_panel([(epochs, history.get("val_psnr", []))]),
+            _line_panel([(epochs, history.get("val_ssim", []))]),
+            _line_panel([(epochs, np.log10(lr, where=lr > 0, out=np.full_like(lr, np.nan)))])])
     plt = _plt()
     fig, axes = plt.subplots(2, 2, figsize=(11, 7))
-    epochs = np.arange(1, len(history.get("train_loss", [])) + 1)
 
     ax = axes[0][0]
     ax.plot(epochs, history.get("train_loss", []), label="train")

@@ -1,8 +1,8 @@
 """The port's checkpoints (``utils/checkpointing.py``) on the CPU: a bit-exact
 round trip of the train state, top-K retention and best step against the JAX
 package's Orbax manager on the same metric sequence, the save cadence, bf16
-moments, the EMA adaptations, the weights-only warm start across a changed
-freeze set, and background saves."""
+moments, the EMA adaptations, a full restore and the weights-only warm
+start across a changed freeze set, and background saves."""
 
 import threading
 import time
@@ -197,8 +197,10 @@ def test_load_weights_across_a_changed_freeze_set(tmp_path, prefer_ema):
     manager = CheckpointManager(tmp_path)
     manager.save(1, source, metrics={"val_psnr": 1.0})
     target = new_state(freeze=(), ema=True, seed=1)        # other optimizer groups
-    with pytest.raises(ValueError):
-        CheckpointManager(tmp_path).load_latest(target=new_state(freeze=(), seed=1))
+    # A full restore crosses the changed freeze set too (its moments by
+    # name); the warm start keeps the target's optimizer and step.
+    full, _, _ = CheckpointManager(tmp_path).load_latest(target=new_state(freeze=(), seed=1))
+    assert full.step == source.step and full.optimizer.state_dict()["state"]
     got, _, step = manager.load_weights(target, prefer_ema=prefer_ema)
     assert got is target and step == 1
     assert target.step == 0 and not target.optimizer.state_dict()["state"]
@@ -209,6 +211,38 @@ def test_load_weights_across_a_changed_freeze_set(tmp_path, prefer_ema):
     for name, buf in source.model.named_buffers():
         assert torch.equal(target.model.get_buffer(name), buf), name
     assert CheckpointManager(tmp_path / "empty").load_weights(target) is None
+
+
+@pytest.mark.parametrize("freeze", [((0,), ()), ((), (0,))], ids=["unfreeze", "freeze"])
+def test_full_restore_across_a_changed_freeze_set_keeps_moments_by_name(tmp_path, freeze):
+    """Stage B of the two-stage recipe resumes stage A's checkpoint under
+    another freeze set: each parameter trained on both sides gets its
+    moments back, one trained only now starts with none (AdamW makes them
+    at its first step), and one frozen now gets none."""
+    source = new_state(freeze=freeze[0])
+    step = make_train_step(source.model, LossConfig(), ZERO_NOISE, image_size=32,
+                           noise_impl="jnp")
+    batch = np.random.default_rng(0).uniform(500, 9500, (4, 16, 16, 13)).astype(np.float32)
+    source, _ = step(source, batch, 0)
+    CheckpointManager(tmp_path).save(1, source, metrics={"val_psnr": 1.0})
+    target, _, _ = CheckpointManager(tmp_path).load_best(target=new_state(freeze=freeze[1],
+                                                                          seed=1))
+
+    def moments(state):
+        params = dict(state.model.named_parameters())
+        return {name: state.optimizer.adamw.state.get(params[name])
+                for group in state.optimizer.adamw.param_groups for name in group["names"]}
+
+    before, after = moments(source), moments(target)
+    assert set(before) != set(after)
+    for name, entry in after.items():
+        if name in before:
+            assert_tree_equal(entry, before[name], name)
+        else:
+            assert entry is None, name
+    target, _ = make_train_step(target.model, LossConfig(), ZERO_NOISE, image_size=32,
+                                noise_impl="jnp")(target, batch, 1)
+    assert all(v is not None for v in moments(target).values())
 
 
 def test_background_saves_are_ordered_snapshots(tmp_path, monkeypatch):

@@ -156,3 +156,37 @@ def test_dataset_helpers_print_what_the_jax_ones_print(capsys, tmp_path):
     assert ours == capsys.readouterr().out
     assert nb.explore_dataset(dataset, num_samples=3, save_path=tmp_path / "d.png") is None
     assert (tmp_path / "d.png").stat().st_size > 0
+
+
+def test_figures_without_matplotlib_are_raster_pngs(tmp_path, monkeypatch):
+    """Where matplotlib is missing (the machine with the card), the triptych,
+    spectra and training-curve figures saved to a file are plain PNGs: the
+    triptych is the three RGB composites side by side, as a PNG reader
+    (matplotlib's, here) decodes them, and each line panel is framed and
+    drawn."""
+    import matplotlib.image as mimg
+
+    monkeypatch.setattr(vis, "_have_matplotlib", lambda: False)
+    noisy, clean, restored = (tiles((24, 20, 13), seed=s) for s in range(3))
+    vis.plot_restoration_triptych(noisy, clean, restored, save_path=tmp_path / "t.png")
+    gap = np.ones((24, 8, 3))
+    want = np.concatenate([vis.extract_rgb(noisy), gap, vis.extract_rgb(restored), gap,
+                           vis.extract_rgb(clean)], axis=1)
+    got = mimg.imread(tmp_path / "t.png")
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=0.5 / 255 + 1e-6)
+
+    vis.plot_spectral_signatures(clean, restored, noisy, save_path=tmp_path / "s.png")
+    history = {"train_loss": [1.0, 0.6, 0.5], "val_loss": [0.9, 0.7, float("nan")],
+               "val_psnr": [20.0, 22.5, 23.0], "val_ssim": [0.5, 0.6, 0.65],
+               "lr": [1e-4, 5e-5, 0.0]}
+    vis.plot_training_curves(history, save_path=tmp_path / "c.png")
+    h, w = vis.RASTER_PANEL
+    for name, panels in (("s.png", 3), ("c.png", 4)):
+        img = mimg.imread(tmp_path / name)
+        assert img.shape == (h, panels * w + (panels - 1) * 8, 3)
+        for k in range(panels):
+            panel = img[:, k * (w + 8):k * (w + 8) + w]
+            assert (panel[[0, -1]] == 0).all() and (panel[:, [0, -1]] == 0).all()
+            colours = {tuple(px) for px in np.round(panel[1:-1, 1:-1] * 255).reshape(-1, 3)}
+            assert len(colours) >= 2, (name, k)     # white and at least one line
