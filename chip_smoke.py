@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``msid_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, the result lines
-    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also noise, probe, hybrid,
+    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also widths, noise, probe, hybrid,
                                                # scene, train, data_cache, export,
                                                # decoders, perceptual, pretrained,
                                                # parallel, nccl_shared, examples),
@@ -13,8 +13,8 @@ network. Phases, each of which must pass:
 
 1. build: compile the four sources of ``msid_tpu_torch/csrc/`` (resblock,
    which holds K1 and K3 and includes ``hopper_common.cuh``; noise,
-   resblock_fp32, any_dma) for sm_90a, one ``nvcc`` per source (four for
-   resblock, one per channel width), started together, with each build's
+   resblock_fp32, any_dma) for sm_90a, one ``nvcc`` per source (eleven for
+   resblock, one per padded width), started together, with each build's
    seconds;
 2. kernel: the fused ResidualBlock kernel (K1, wgmma) against its plain
    PyTorch version at the flagship decoder's four shapes, B=1 and B=16
@@ -183,7 +183,26 @@ network. Phases, each of which must pass:
    the module's forward (``optimized`` False, ``optimize=True`` refused),
    no K1 or K4 launch counted or seen by the profiler, device p50 and busy
    time;
-18. examples: the port's three walkthroughs (``msid_tpu_torch/examples``)
+18. widths (run after kernel_fp32): K1 against its plain version (rtol
+   0.03 / atol 0.02) at every decoder width of the repo's configs (8, 12,
+   24, 48, 96, 192, 384, 768), each at its config's resolution, and at
+   widths between the builds (13, 40, 60, 100, 136, 200, 300, 500, 700),
+   B=1 and B=16, every build of ``csrc/resblock.cu`` run, with tile,
+   cluster, stages, time, the cuDNN composition's and the bound; K4 at
+   widths whose picked cluster is 3, 5, 6, 7 and 8 CTAs (as phase 3); then
+   ``capacity_2x.yaml`` (ViT-Base, ``unet_light`` 768/384/192/96, 192²x13,
+   seeded weights) served by captured sessions of the module's forward in
+   bf16 at B=1 and B=16 (8 K1 launches captured and profiled per replay,
+   within relative RMS 2e-2 of fp32 on the CPU) and fp32 at B=1 (8 K4,
+   1e-4), device p50 of each; the bf16 model exported on the card (8
+   ``msid::fused_residual_block`` nodes) and its artifact served at B=1
+   (8 K1 captured, within 1e-3 of the live session); ``scripts.train`` for one epoch of 192
+   synthetic tiles (a bf16 ``Trainer.fit`` of 2 steps and one validation
+   batch: K2 once a step and a validation batch, K1 8 times a validation
+   batch) and ``scripts.evaluate`` of its checkpoint in bf16 (K1 8 times
+   a batch, the trainer's last validation line within 1e-5); one
+   device-assembly scene batch of 64 windows (8 K1 launches captured);
+19. examples: the port's three walkthroughs (``msid_tpu_torch/examples``)
    run in this process as ``__main__`` at full width on synthetic tiles,
    each into a temporary ``--output-dir``: ``00_quick_start`` and
    ``03_evaluation_and_export`` with ``--config long_skip_fill.yaml``,
@@ -253,8 +272,11 @@ KERNEL_BATCHES = BATCHES + (SCENE_BATCH,)
 REQUESTS = 4
 RTOL, ATOL = 0.03, 0.02          # the TPU kernel v3's golden tolerance
 MAX_REL_RMS = 2e-2               # bf16 GPU forward vs fp32 CPU forward
-# csrc/<name>.cu with its -D defines, built in parallel (K1 and K3 once per width)
-KERNELS = tuple(("resblock", (f"MSID_C={c}",)) for c in (384, 192, 96, 48)) + (
+# K1's and K3's builds of csrc/resblock.cu, one per padded width (each runs
+# every true width up to its own); ops/cuda_decoder.py: BF16_BUILDS
+RESBLOCK_BUILDS = (768, 512, 384, 256, 192, 128, 96, 64, 48, 32, 16)
+# csrc/<name>.cu with its -D defines, built in parallel, the longest first
+KERNELS = tuple(("resblock", (f"MSID_C={c}",)) for c in RESBLOCK_BUILDS) + (
     ("noise", ()), ("resblock_fp32", ()), ("any_dma", ()))
 # K4 against its plain version (cuDNN fp32, TF32 off): both fp32, sums in
 # another order over K = 9C.
@@ -332,6 +354,20 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 BENCHMARK_KEYS = {"mean_ms", "fps", "images_per_sec", "batch_size", "iterations",
                   "std_ms", "min_ms", "max_ms", "p50_ms", "p99_ms"}
 TRACE_TOP = 10                    # kernels of the traced train step named with their owners
+# The widths phase. K1 at every decoder width of the repo's configs, each at
+# the resolution its config runs it (tiny_cpu's 48/24/12/8 at 8..64^2, the
+# flagship's 48 at 192^2, capacity_2x's 768/384/192/96 at 24..192^2), and
+# at widths off the builds' grid: odd (13), no multiple of 8 (100), and one
+# inside every other build, so that every build runs
+WIDTHS_BATCHES = (1, 16)
+WIDTH_SHAPES = ((8, 64), (12, 32), (24, 16), (48, 192), (96, 192), (192, 96), (384, 48),
+                (768, 24))
+OFF_GRID_SHAPES = ((13, 32), (40, 64), (60, 64), (100, 48), (136, 48), (200, 48), (300, 24),
+                   (500, 24), (700, 24))
+# K4 where its picked cluster is 3, 5, 6 and 7 CTAs (at B=1), and C=768 (8)
+K4_WIDTH_SHAPES = ((72, 24), (136, 24), (168, 24), (200, 24), (768, 24))
+CAPACITY_CONFIG = ROOT / "configs" / "experiments" / "capacity_2x.yaml"
+CAPACITY_SAMPLES = 192            # synthetic tiles of its short run: 2 train steps, 1 val batch
 
 
 def load_flagship() -> dict:
@@ -522,11 +558,11 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
     return rows
 
 
-def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
-    """K4 against its plain version (both fp32, TF32 off) at the flagship
-    and tiny widths and ``KERNEL_BATCHES``, with times beside a cuDNN fp32 composition's, the
-    bound of its route (three TF32 passes on the tensor cores) and the
-    bound at the fp32 FMA peak."""
+def fp32_kernel_row(torch, lib, c: int, s: int, b: int, sms: int, check: str) -> dict:
+    """K4 at [b, s, s, c] against its plain version (both fp32, TF32 off),
+    timed beside the plain version, a cuDNN fp32 composition, the bound of
+    its route (three TF32 passes on the tensor cores) and the bound at the
+    fp32 FMA peak."""
     from msid_tpu_torch.models.restoration import exact_fp32
     from msid_tpu_torch.ops import cuda_decoder
 
@@ -534,47 +570,53 @@ def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
         with exact_fp32(torch.float32):
             return fn(*args)
 
+    x, w1, w2, aff = random_block_inputs(torch, c, s, b, seed=c + b, dtype=torch.float32)
+    got = cuda_decoder.fused_residual_block(x, w1, w2, aff)
+    want = exact(cuda_decoder.fused_residual_block_reference, x, w1, w2, aff)
+    torch.cuda.synchronize()
+    diff = got - want
+    max_err = float(diff.abs().max())
+    rel = float(diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    k1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    ffma_ms, _, flops, nbytes = block_bound(c, s, b, 4, PEAK_FP32_FLOPS)
+    bound_ms, bound_by, _, _ = block_bound(c, s, b, 4, PEAK_TF32_FLOPS / TF32_PASSES)
+    th, tw, nt, nu, g, kc = cuda_decoder.fp32_tiling(c, s, s, b, sms)
+    row = {
+        "check": check, "C": c, "H": s, "W": s, "B": b,
+        "tile": [th, tw], "cluster": g,
+        "geometry": {"nt": nt, "nu": nu, "kc": kc},
+        "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
+            x, w1, w2, aff), iters=10),
+        "plain_ms": time_ms(torch, lambda: exact(
+            cuda_decoder.fused_residual_block_reference, x, w1, w2, aff), iters=10),
+        "library_ms": time_ms(torch, lambda: exact(lib, x, k1, k2, aff), iters=10),
+        "library": "cuDNN fp32 conv2d composition (channels-last, TF32 off)",
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_ffma_ms": ffma_ms,
+        "flops": flops, "bytes": nbytes,
+        "max_abs_err": max_err, "rel_rms": rel,
+        "ok": bool(max_err <= FP32_MAX_ABS and rel <= FP32_MAX_REL_RMS
+                   and torch.isfinite(got).all()),
+    }
+    row["tflops"] = flops / row["kernel_ms"] / 1e9
+    row["share_of_bound"] = bound_ms / row["kernel_ms"]
+    return row
+
+
+def phase_kernel_fp32(torch, F, failures: list) -> list[dict]:
+    """K4 against its plain version at the flagship and tiny widths and
+    ``KERNEL_BATCHES`` (``fp32_kernel_row``)."""
     lib = library_block(torch, F)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for c, s in FP32_SHAPES:
         for b in KERNEL_BATCHES:
-            x, w1, w2, aff = random_block_inputs(torch, c, s, b, seed=c + b,
-                                                 dtype=torch.float32)
-            got = cuda_decoder.fused_residual_block(x, w1, w2, aff)
-            want = exact(cuda_decoder.fused_residual_block_reference, x, w1, w2, aff)
-            torch.cuda.synchronize()
-            diff = got - want
-            max_err = float(diff.abs().max())
-            rel = float(diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
-            ok = bool(max_err <= FP32_MAX_ABS and rel <= FP32_MAX_REL_RMS
-                      and torch.isfinite(got).all())
-            k1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            ffma_ms, _, flops, nbytes = block_bound(c, s, b, 4, PEAK_FP32_FLOPS)
-            bound_ms, bound_by, _, _ = block_bound(c, s, b, 4, PEAK_TF32_FLOPS / TF32_PASSES)
-            th, tw, nt, nu, g, kc = cuda_decoder.fp32_tiling(c, s, s, b, sms)
-            row = {
-                "check": "resblock_fp32", "C": c, "H": s, "W": s, "B": b,
-                "tile": [th, tw], "cluster": g,
-                "geometry": {"nt": nt, "nu": nu, "kc": kc},
-                "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
-                    x, w1, w2, aff), iters=10),
-                "plain_ms": time_ms(torch, lambda: exact(
-                    cuda_decoder.fused_residual_block_reference, x, w1, w2, aff), iters=10),
-                "library_ms": time_ms(torch, lambda: exact(lib, x, k1, k2, aff), iters=10),
-                "library": "cuDNN fp32 conv2d composition (channels-last, TF32 off)",
-                "bound_ms": bound_ms, "bound_by": bound_by, "bound_ffma_ms": ffma_ms,
-                "flops": flops, "bytes": nbytes,
-                "max_abs_err": max_err, "rel_rms": rel, "ok": ok,
-            }
-            row["tflops"] = flops / row["kernel_ms"] / 1e9
-            row["share_of_bound"] = bound_ms / row["kernel_ms"]
+            row = fp32_kernel_row(torch, lib, c, s, b, sms, "resblock_fp32")
             emit(row)
             rows.append(row)
-            if not ok:
+            if not row["ok"]:
                 failures.append(f"resblock_fp32 C={c} H={s} B={b}: max_abs_err "
-                                f"{max_err}, rel RMS {rel}")
+                                f"{row['max_abs_err']}, rel RMS {row['rel_rms']}")
     return rows
 
 
@@ -3092,6 +3134,316 @@ def phase_examples(torch, failures: list, card: str) -> dict:
     return result
 
 
+def kernel_row(torch, lib, c: int, s: int, b: int, sms: int) -> dict:
+    """K1 at [b, s, s, c] against its plain version, with its prepared
+    operands and through the functional entry (HWIO), timed beside the
+    plain version, the cuDNN composition and the bound."""
+    from msid_tpu_torch.ops import cuda_decoder
+
+    x, w1, w2, aff = random_block_inputs(torch, c, s, b, seed=c + b)
+    p1, p2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
+    got = cuda_decoder.fused_residual_block(x, p1, p2, aff)
+    functional = cuda_decoder.fused_residual_block(x, w1, w2, aff)
+    want = cuda_decoder.fused_residual_block_reference(x, w1, w2, aff)
+    torch.cuda.synchronize()
+    k1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bound_ms, bound_by, flops, nbytes = block_bound(c, s, b)
+    th, tw, g, stages = cuda_decoder.bf16_tiling(c, s, s, b, sms)
+    row = {"check": "widths_k1", "C": c, "padded": cuda_decoder.bf16_padded(c),
+           "H": s, "W": s, "B": b, "tile": [th, tw], "cluster": g, "stages": stages,
+           "window": "tma" if c % 8 == 0 else "plain loads",
+           "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
+               x, p1, p2, aff), iters=10),
+           "plain_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block_reference(
+               x, w1, w2, aff), iters=5, warmup=1),
+           "library_ms": time_ms(torch, lambda: lib(x, k1, k2, aff), iters=10),
+           "library": "cuDNN bf16 conv2d composition (channels-last)",
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "ok": bool(within(torch, got, want) and torch.equal(got, functional))}
+    row["share_of_bound"] = bound_ms / row["kernel_ms"]
+    return row
+
+
+def capacity_artifact(torch, failures: list, model, request: np.ndarray,
+                      live: np.ndarray) -> dict:
+    """The bf16 capacity_2x exported on the card (``export_program``, 8
+    ``msid::fused_residual_block`` nodes) and served from the artifact by a
+    captured session at B=1: 8 K1 launches captured, no K4, within
+    ``ARTIFACT_VS_LIVE_BF16`` relative RMS of the live session's output on
+    the same request."""
+    from msid_tpu_torch.deployment.export import export_program
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.ops import cuda_decoder
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_widths_export_") as tmp:
+        t0 = time.perf_counter()
+        path = export_program(model.eval(), Path(tmp) / "capacity_bf16",
+                              input_shape=request.shape)
+        row = {"export_seconds": time.perf_counter() - t0,
+               "block_nodes": count_block_nodes(torch, path)}
+        cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+        session = InferenceSession(artifact_path=path, batch_size=1,
+                                   image_size=request.shape[1], num_bands=request.shape[-1])
+        got = session.predict(request)
+        row.update(compiled=session.compiled, captured_launches=session.captured_launches,
+                   k1_device_launches=device_launches(cuda_decoder.launches, session),
+                   k4_launches=cuda_decoder.launches_fp32,
+                   rel_rms_vs_live=rel_rms(got, live))
+        del session
+    if not (row["block_nodes"] == 8 and row["compiled"] == "cuda_graph"
+            and row["captured_launches"] == 8 and row["k4_launches"] == 0
+            and row["rel_rms_vs_live"] <= ARTIFACT_VS_LIVE_BF16):
+        failures.append(f"widths: capacity_2x artifact: {row}")
+    return row
+
+
+def capacity_serve(torch, failures: list, cfg: dict, cpu_model, weights: dict) -> dict:
+    """capacity_2x served by captured sessions of the module's forward: bf16
+    at B=1 and B=16 (K1), fp32 at B=1 (K4), each against the same weights
+    in fp32 on the CPU, 8 block launches captured per forward and seen by
+    the profiler per replay, device p50 of a replay; then the bf16 model
+    exported and served from its artifact (``capacity_artifact``)."""
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_decoder
+
+    size, bands = cpu_model.image_size, cpu_model.in_channels
+    requests = {b: noisy_tiles(b, size, bands, seed=700 + b) for b in WIDTHS_BATCHES}
+    # the CPU's fp32 forward of the B=1 tile and of the first and last B=16 tiles
+    picks = np.concatenate([requests[1], requests[16][[0, -1]]])
+    torch.set_num_threads(8)
+    with torch.no_grad():
+        ref = cpu_model(torch.from_numpy(picks)).numpy()
+    out: dict = {"launches": {"bf16": 0, "fp32": 0}}
+    for name, dtype, batches, counter, other, tag, bound in (
+            ("bf16", torch.bfloat16, WIDTHS_BATCHES, "launches", "launches_fp32",
+             "resblock_kernel", MAX_REL_RMS),
+            ("fp32", torch.float32, (1,), "launches_fp32", "launches",
+             "resblock_fp32_kernel", FP32_FORWARD_REL_RMS)):
+        model = SatMAERestoration.from_config(cfg, dtype=dtype)
+        model.load_state_dict(weights)
+        for b in batches:
+            setattr(cuda_decoder, counter, 0)
+            setattr(cuda_decoder, other, 0)
+            session = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands,
+                                       optimize=False)
+            got = session.predict(requests[b])
+            got = session.predict(requests[b])
+            rel = ([rel_rms(got, ref[:1])] if b == 1
+                   else [rel_rms(got[[0]], ref[1:2]), rel_rms(got[[-1]], ref[2:3])])
+            xd = torch.from_numpy(requests[b]).cuda()
+            prof = device_profile(torch, lambda: session.forward(xd), tags={"block_ms": tag},
+                                  expect={"block_ms": 8})
+            bench = session.benchmark(warmup_runs=3, benchmark_iterations=20)
+            launches = device_launches(getattr(cuda_decoder, counter), session)
+            row = {"dtype": name, "B": b, "compiled": session.compiled,
+                   "captured_launches": session.captured_launches,
+                   "device_launches": launches,
+                   "other_kernel_launches": getattr(cuda_decoder, other),
+                   "rel_rms_vs_cpu_fp32": rel, "device_p50_ms": bench["p50_ms"],
+                   "tiles_per_s": b * 1e3 / bench["p50_ms"],
+                   "device_busy_ms": prof["device_busy_ms"],
+                   "device_idle_share": 1 - prof["device_busy_ms"] / bench["p50_ms"],
+                   "block_kernels_per_replay": prof["block_ms_launches"],
+                   "block_ms": prof["block_ms"], "top_ms": prof["top_ms"][:5]}
+            out[f"{name}_b{b}"] = row
+            out["launches"][name] += launches
+            bad = [k for k, ok in (
+                ("compiled", session.compiled == "cuda_graph"),
+                ("captured", session.captured_launches == 8),
+                ("profiled", profile_complete(prof, "block_ms", 8)),
+                ("other kernel", getattr(cuda_decoder, other) == 0),
+                ("finite", bool(np.isfinite(got).all()) and got.shape == requests[b].shape),
+                ("cpu", max(rel) <= bound)) if not ok]
+            if bad:
+                failures.append(f"widths: capacity_2x {name} B={b}: {bad}: {row}")
+            del session
+            torch.cuda.empty_cache()
+            if dtype == torch.bfloat16 and b == 1:
+                out["bf16_artifact_b1"] = capacity_artifact(torch, failures, model,
+                                                            requests[1], got)
+                out["launches"]["bf16"] += out["bf16_artifact_b1"]["k1_device_launches"]
+        del model
+    return out
+
+
+def capacity_train_evaluate(torch, failures: list) -> dict:
+    """capacity_2x through the CLIs a user runs, at full width on
+    ``CAPACITY_SAMPLES`` synthetic tiles: ``scripts.train`` for one epoch (a
+    few bf16 steps of ``Trainer.fit``, K2 once a step and a validation
+    batch, K1 8 times a validation batch) into a checkpoint, then
+    ``scripts.evaluate`` of it in bf16 (K1 8 times a batch, no K4), whose
+    metrics reproduce the trainer's last validation line."""
+    from msid_tpu_torch.ops import cuda_decoder, cuda_noise
+    from msid_tpu_torch.scripts import evaluate as evaluate_cli
+    from msid_tpu_torch.scripts import train as train_cli
+
+    metrics = ("loss", "psnr", "ssim", "sam", "rmse")
+    row: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_widths_") as tmp:
+        tmp = Path(tmp)
+        config = tmp / "capacity_2x_short.yaml"
+        config.write_text(f"inherits: {CAPACITY_CONFIG}\n"
+                          f"data:\n  synthetic_samples: {CAPACITY_SAMPLES}\n")
+        common = ["--config", str(config), "--synthetic", "--device", "cuda"]
+        outs = {}
+        for name, cli, argv in (
+                ("train", train_cli, ["--epochs", "1", "--output-dir", str(tmp / "run")]),
+                ("evaluate", evaluate_cli, ["--checkpoint", str(tmp / "run" / "checkpoints"),
+                                            "--output-dir", str(tmp / "eval")])):
+            cuda_noise.launches = cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+            t0 = time.perf_counter()
+            outs[name] = cli.main([*common, *argv])
+            torch.cuda.synchronize()
+            row[name] = {"seconds": time.perf_counter() - t0,
+                         "launches": {"noise": cuda_noise.launches,
+                                      "resblock": cuda_decoder.launches,
+                                      "resblock_fp32": cuda_decoder.launches_fp32}}
+    history, scores = outs["train"], outs["evaluate"]
+    val_batches = row["evaluate"]["launches"]["noise"]
+    last = {k: history[f"val_{k}"][-1] for k in metrics}
+    row.update(val_batches=val_batches,
+               steps=row["train"]["launches"]["noise"] - val_batches,
+               trainer_last_val=last, history=history,
+               evaluate={**row["evaluate"], **{k: scores[k] for k in metrics}},
+               evaluate_vs_trainer={k: abs(scores[k] - last[k]) / abs(last[k])
+                                    for k in metrics})
+    ok = (val_batches >= 1 and row["steps"] >= 2
+          and all(np.isfinite(v).all() for k, v in history.items() if k != "lr")
+          and all(row[n]["launches"]["resblock"] == 8 * val_batches
+                  and row[n]["launches"]["resblock_fp32"] == 0 for n in ("train", "evaluate"))
+          and max(row["evaluate_vs_trainer"].values()) <= EVAL_RTOL)
+    if not ok:
+        failures.append(f"widths: capacity_2x train and evaluate: {row}")
+    return row
+
+
+def capacity_scene(torch, failures: list, cfg: dict, weights: dict) -> dict:
+    """One device-assembly batch of 64 windows through capacity_2x in bf16:
+    a 400 x 400 uint16 scene (8 x 8 windows of 64 at stride 48), its step
+    captured with 8 K1 launches."""
+    from msid_tpu_torch.deployment import sliding_window as sw
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_decoder
+
+    model = SatMAERestoration.from_config(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(weights)
+    side = SCENE_WINDOW + 7 * (SCENE_WINDOW - SCENE_OVERLAP)
+    scene = np.random.default_rng(9).integers(0, 10000, (side, side, model.in_channels),
+                                              dtype=np.uint16)
+    cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+    step = sw.make_device_scene_step(model, None, SCENE_WINDOW, model.image_size,
+                                     SCENE_OVERLAP, optimize=False)
+    del model
+    kw = dict(window=SCENE_WINDOW, overlap=SCENE_OVERLAP, batch_size=SCENE_BATCH,
+              step=step, device_assembly=True)
+    t0 = time.perf_counter()
+    out = sw.restore_scene(None, None, scene, **kw)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = sw.restore_scene(None, None, scene, **kw)
+    row = {"scene": [side, side, int(scene.shape[2])], "windows": scene_windows(side, side),
+           "batch_size": SCENE_BATCH, "replays": step.replays,
+           "captured_launches": step.captured_launches,
+           "k1_device_launches": cuda_decoder.launches
+           + (step.replays - 1) * (step.captured_launches or 0),
+           "k4_launches": cuda_decoder.launches_fp32,
+           "first_seconds": first, "seconds": time.perf_counter() - t0,
+           "repeat_equal": bool(np.array_equal(out, again))}
+    row["mpix_per_s"] = side * side / 1e6 / row["seconds"]
+    if not (row["windows"] == SCENE_BATCH and step.replays == 2
+            and step.captured_launches == 8 and row["k4_launches"] == 0
+            and out.shape == scene.shape and np.isfinite(out).all() and row["repeat_equal"]):
+        failures.append(f"widths: capacity_2x scene: {row}")
+    return row
+
+
+def phase_widths(torch, F, failures: list, card: str) -> dict:
+    """The block kernels at every decoder width of the repo's configs and
+    off the builds' grid, then ``capacity_2x.yaml`` (decoder 768/384/192/96)
+    at full width through its entry points: K1 against its plain version at
+    the config widths, each at its config's resolution, and at widths
+    between the builds (odd, no multiple of 8), B=1 and B=16; K4 at widths
+    whose picked cluster is 3, 5, 6, 7 and 8 CTAs; capacity_2x served by
+    captured sessions (bf16 B=1 and B=16, fp32 B=1) against fp32 on the
+    CPU; ``scripts.train`` for a short bf16 ``Trainer.fit`` with one
+    validation pass and ``scripts.evaluate`` of its checkpoint; one
+    device-assembly scene batch of 64 windows."""
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops import cuda_decoder
+    from msid_tpu_torch.utils.config import load_config
+
+    if cuda_decoder.BF16_BUILDS != tuple(sorted(RESBLOCK_BUILDS)):
+        failures.append(f"widths: K1's builds {cuda_decoder.BF16_BUILDS} are not the "
+                        f"ones built here {RESBLOCK_BUILDS}")
+    t0 = time.perf_counter()
+    lib = library_block(torch, F)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    result: dict = {"check": "widths", "card": card, "k1": [], "k4": []}
+    for c, s in WIDTH_SHAPES + OFF_GRID_SHAPES:
+        for b in WIDTHS_BATCHES:
+            row = kernel_row(torch, lib, c, s, b, sms)
+            row["config_width"] = (c, s) in WIDTH_SHAPES
+            emit(row)
+            result["k1"].append(row)
+            if not row["ok"]:
+                failures.append(f"widths: K1 C={c} H={s} B={b}: max_abs_err "
+                                f"{row['max_abs_err']}")
+    builds = {r["padded"] for r in result["k1"]}
+    if builds != set(RESBLOCK_BUILDS):
+        failures.append(f"widths: K1 rows ran builds {sorted(builds)}, not all of "
+                        f"{sorted(RESBLOCK_BUILDS)}")
+    result["k1_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for c, s in K4_WIDTH_SHAPES:
+        for b in WIDTHS_BATCHES:
+            row = fp32_kernel_row(torch, lib, c, s, b, sms, "widths_k4")
+            emit(row)
+            result["k4"].append(row)
+            if not row["ok"]:
+                failures.append(f"widths: K4 C={c} H={s} B={b}: max_abs_err "
+                                f"{row['max_abs_err']}, rel RMS {row['rel_rms']}")
+    clusters = {r["cluster"] for r in result["k4"]}
+    if not {3, 5, 6, 7, 8} <= clusters:
+        failures.append(f"widths: K4 ran clusters {sorted(clusters)}, not 3, 5, 6, 7 and 8")
+    result["k4_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = load_config(CAPACITY_CONFIG)
+    cpu_model = SatMAERestoration.from_config(cfg, device="cpu").eval()
+    randomize_(torch, cpu_model, seed=11)
+    weights = cpu_model.state_dict()
+    result["capacity_2x"] = {
+        "config": str(CAPACITY_CONFIG.relative_to(ROOT)),
+        "decoder_channels": list(cfg["model"]["decoder"]["channels"]),
+        "serve": capacity_serve(torch, failures, cfg, cpu_model, weights)}
+    result["capacity_2x"]["serve_seconds"] = time.perf_counter() - t0
+    del cpu_model
+    t0 = time.perf_counter()
+    result["capacity_2x"]["fit"] = capacity_train_evaluate(torch, failures)
+    result["capacity_2x"]["fit_phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["capacity_2x"]["scene"] = capacity_scene(torch, failures, cfg, weights)
+    result["capacity_2x"]["scene_phase_seconds"] = time.perf_counter() - t0
+    k1_768 = [r for r in result["k1"] if r["C"] == 768]
+    result["k1_stage_768_b16"] = {
+        k: 2 * sum(r[k] for r in k1_768 if r["B"] == 16)       # the stage's two blocks
+        for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    fit = result["capacity_2x"]["fit"]
+    result["launches"] = {
+        "resblock": (result["capacity_2x"]["serve"]["launches"]["bf16"]
+                     + fit["train"]["launches"]["resblock"]
+                     + fit["evaluate"]["launches"]["resblock"]
+                     + result["capacity_2x"]["scene"]["k1_device_launches"]),
+        "resblock_fp32": result["capacity_2x"]["serve"]["launches"]["fp32"],
+        "noise": fit["train"]["launches"]["noise"] + fit["evaluate"]["launches"]["noise"]}
+    emit({k: v for k, v in result.items() if k not in ("k1", "k4")})
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3128,6 +3480,7 @@ def main() -> int:
         # Named phases alone, while working on one: no result lines.
         partial = {"kernel": lambda: phase_kernel(torch, F, failures),
                    "kernel_fp32": lambda: phase_kernel_fp32(torch, F, failures),
+                   "widths": lambda: phase_widths(torch, F, failures, card),
                    "noise": lambda: phase_noise(torch, failures),
                    "probe": lambda: phase_probe(torch, F, failures),
                    "hybrid": lambda: phase_hybrid(torch, failures, card),
@@ -3163,6 +3516,7 @@ def main() -> int:
 
     rows = timed("kernel", phase_kernel, torch, F, failures)
     rows_fp32 = timed("kernel_fp32", phase_kernel_fp32, torch, F, failures)
+    widths = timed("widths", phase_widths, torch, F, failures, card)
     noise = timed("noise", phase_noise, torch, failures)
     serve, reference = timed("serve", phase_serve, torch, failures, card)
     serve_fp32 = timed("serve_fp32", phase_serve_fp32, torch, failures, card, reference)
@@ -3203,19 +3557,22 @@ def main() -> int:
                         "export_new_batch": export["launches"]["export_new_batch"],
                         "serve_mesh": parallel["launches"]["serve_mesh"],
                         "serve_mesh_benchmark": parallel["launches"]["serve_mesh_benchmark"],
-                        "examples": examples["launches"]["resblock"]}
+                        "examples": examples["launches"]["resblock"],
+                        "widths": widths["launches"]["resblock"]}
     noise_by_path = {"serve": serve["noise_launches"], "train": train["launches"]["noise"],
                      "train_cache": data_cache["launches"]["noise"],
                      "evaluate": evaluate["launches"]["noise"],
                      "train_dp": parallel["launches"]["train_dp"],
-                     "examples": examples["launches"]["noise"]}
+                     "examples": examples["launches"]["noise"],
+                     "widths": widths["launches"]["noise"]}
     fp32_by_path = {"evaluate": evaluate["launches"]["resblock_fp32"],
                     "serve_fp32": serve_fp32["k4_launches"],
                     "scene_fp32": scene["launches"]["fp32"],
                     "probe": probe["launches"]["resblock_fp32"],
                     "hybrid": hybrid["launches"]["resblock_fp32"],
                     "export_fp32": export["launches"]["export_fp32"],
-                    "examples": examples["launches"]["resblock_fp32"]}
+                    "examples": examples["launches"]["resblock_fp32"],
+                    "widths": widths["launches"]["resblock_fp32"]}
     v2_by_path = {"probe": probe["launches"]["resblock_v2"]}
     any_dma_by_path = {"probe": probe["launches"]["any_dma"]}
     k3 = per_forward(probe["k3"])
@@ -3225,7 +3582,7 @@ def main() -> int:
     for name, by_path, paths in (
             ("fused_residual_block", resblock_by_path, resblock_by_path),
             ("apply_sensor_noise", noise_by_path, ("train", "train_cache", "evaluate",
-                                                   "train_dp", "examples")),
+                                                   "train_dp", "examples", "widths")),
             # The walkthroughs run bf16 configurations: K4 is recorded there.
             ("fused_residual_block_fp32", fp32_by_path,
              [p for p in fp32_by_path if p != "examples"]),
@@ -3250,6 +3607,11 @@ def main() -> int:
         "per": f"the 8 launches of one B={max(BATCHES)} flagship forward",
         "scene_forward": k1_scene,
         "tiles": {f"C{r['C']}B{r['B']}": r["tile"] + [r["cluster"]] for r in rows},
+        "widths": "8..768, 11 builds by padded width (widths phase)",
+        "capacity_2x_stage_768": dict(widths["k1_stage_768_b16"],
+                                      per="the 2 launches of the C=768 stage of one "
+                                          "B=16 capacity_2x forward (24x24)"),
+        "widths_max_abs_err": max(r["max_abs_err"] for r in widths["k1"]),
     }, {
         "name": "apply_sensor_noise",
         "route": "cuda",
@@ -3294,6 +3656,9 @@ def main() -> int:
         "tiles": {f"C{r['C']}B{r['B']}": r["tile"] + [r["cluster"]] for r in rows_fp32},
         "per": f"the 8 launches of one B={max(BATCHES)} flagship forward",
         "scene_forward": k4_scene,
+        "clusters": {f"C{r['C']}B{r['B']}": [r["cluster"], r["kernel_ms"]]
+                     for r in widths["k4"]},
+        "widths_max_abs_err": max(r["max_abs_err"] for r in widths["k4"]),
     }, {
         "name": "fused_residual_block_v2",
         "route": "cuda",

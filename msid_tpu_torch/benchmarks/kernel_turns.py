@@ -8,7 +8,8 @@ commit, unpacked by ``git archive``). Each turn is a child process started
 in one tree with only that tree on its path: it builds the kernels there
 (the builds its ``chip_smoke.py`` lists, all started together), times each
 with CUDA events (median of ``ITERS`` calls after warmup) on seeded
-inputs, and saves a few outputs; K5 and ``x * 2`` also per call in a CUDA
+inputs (K1 at B=1, 16 and 64 of the flagship's four stage shapes, K3 at
+B=16 and the probe's block), and saves a few outputs; K5 and ``x * 2`` also per call in a CUDA
 graph of 100 (device time) beside their call time. Both timings are this
 tree's ``chip_smoke.time_ms`` and ``chip_smoke.graph_ms``, loaded by path
 in every turn, so that both trees are timed alike. The turns run other,
@@ -105,15 +106,15 @@ args = block(48, 192, 64, seed=0)                 # the kernel probe's block
 times["k3_64x192x192x48"] = time_ms(lambda: cuda_decoder.fused_residual_block_v2(*args))
 del args
 for c, s in SHAPES:
-    for b in (16, 1):
+    for b in (16, 64, 1):
         x, w1, w2, aff = block(c, s, b, seed=c + b)
         p1, p2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
+        times[f"k1_{b}x{s}x{s}x{c}"] = time_ms(
+            lambda: cuda_decoder.fused_residual_block(x, p1, p2, aff))
         if b == 16:
             times[f"k3_16x{s}x{s}x{c}"] = time_ms(
                 lambda: cuda_decoder.fused_residual_block_v2(x, w1, w2, aff))
-            times[f"k1_16x{s}x{s}x{c}"] = time_ms(
-                lambda: cuda_decoder.fused_residual_block(x, p1, p2, aff))
-        else:
+        elif b == 1:
             outputs[f"k3_1x{s}x{s}x{c}"] = cuda_decoder.fused_residual_block_v2(
                 x, w1, w2, aff).cpu()
             outputs[f"k1_1x{s}x{s}x{c}"] = cuda_decoder.fused_residual_block(

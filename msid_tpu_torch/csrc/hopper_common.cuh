@@ -19,12 +19,23 @@
 // includes this file and defines its own __global__ function around
 // resblock_cta and its own C entry point; what is here builds into each
 // library, inside an anonymous namespace.
+//
+// Widths: the code is instantiated for a padded width CP (a template
+// argument: the window's channels, the K loop, the CTA's N = CP / G) and
+// takes the true width C (8 <= C <= CP) at run time. Channels past C are
+// zeros: in the window (the tensor map's out-of-bounds fill, or zero stores),
+// in the weights (the operand is [9 * CP][KP], zero rows and columns past
+// C: ops/cuda_decoder.py, prepare_bf16_weights), and in h (the epilogue
+// writes 0); the
+// affine is read and the output written for channels below C only. So
+// padding costs work, never a value.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "launch.cuh"
 
@@ -40,11 +51,12 @@ constexpr uint32_t kMaxSpins = 1u << 24;    // a lost copy traps instead of hang
 
 typedef __nv_bfloat16 bf16;
 
-// Channel chunk of the window: the widest swizzle span that divides C.
-template <int C>
+// Channel chunk of the window: the widest swizzle span that divides the
+// padded width CP.
+template <int CP>
 struct Chunk {
-  static constexpr int CK = (C % 64 == 0) ? 64 : (C % 32 == 0) ? 32 : 16;
-  static_assert(C % CK == 0, "C must be a multiple of 16");
+  static constexpr int CK = (CP % 64 == 0) ? 64 : (CP % 32 == 0) ? 32 : 16;
+  static_assert(CP % CK == 0, "CP must be a multiple of 16");
   // Within a chunk a pixel takes CK*2 = 128, 64 or 32 bytes. The copy
   // engine XORs the 16-byte unit index (address bits 4..) with address
   // bits 7.., i.e. with (pixel >> SH) & MASK.
@@ -163,6 +175,45 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
 struct Wgmma<48> {
   static __device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4],
                                              uint64_t desc) {
@@ -182,6 +233,33 @@ struct Wgmma<48> {
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
 };
@@ -220,9 +298,9 @@ struct Wgmma<96> {
 };
 
 // Element offset of (pixel p, channel co) in the swizzled window.
-template <int C>
+template <int CP>
 __device__ __forceinline__ int window_offset(int p, int co, int chunk_elems) {
-  using K = Chunk<C>;
+  using K = Chunk<CP>;
   const int q = co / K::CK;
   const int e = co - q * K::CK;
   return q * chunk_elems + p * K::CK +
@@ -254,7 +332,7 @@ struct Deal {
 
 // One pass of one conv for one warpgroup: acc[i] += the 3x3 conv for its MT
 // m64 tiles from tile `first` (region `out_w` wide, `m` pixels) over all
-// nine taps and C input channels, walking the weight ring from step `it`
+// nine taps and CP input channels, walking the weight ring from step `it`
 // on. Source pixel (r + ky, c + kx) of a tile `src_w` pixels wide is tap
 // (ky, kx) of region pixel (r, c). FROM_WINDOW: the source is the swizzled,
 // chunked x window `xs`; otherwise h, whose channel k lies in the CTA k / N
@@ -264,21 +342,21 @@ struct Deal {
 // tiles of a tap differ in them, the tap's tiles are unrolled): a wgmma
 // under a run-time condition makes the compiler serialize every wgmma of
 // the kernel.
-template <int C, int N, int NW, int MW, int MT, bool FROM_WINDOW, typename Produce>
+template <int CP, int N, int NW, int MW, int MT, bool FROM_WINDOW, typename Produce>
 __device__ __forceinline__ void conv_tiles(Produce& produce, const bf16* xs,
                                            int chunk_elems, bf16* hs,
                                            cg::cluster_group& cluster, int src_w,
                                            int out_w, int m, int first, uint32_t ring,
                                            uint32_t full, uint32_t empty, int stages,
                                            int& it, int nb, float (&acc)[MW][NW / 2]) {
-  using K = Chunk<C>;
+  using K = Chunk<CP>;
   constexpr int HP = N + 8;
-  constexpr int KQ = (C + kBK - 1) / kBK;
+  constexpr int KQ = (CP + kBK - 1) / kBK;
   constexpr int KS = kBK / 16;
-  // Every weight tile has the same k16 steps unless C is no multiple of 64
-  // and spans several tiles (C = 96: 4 steps, then 2).
-  constexpr bool UNIFORM = C % kBK == 0 || KQ == 1;
-  constexpr int KSU = (C < kBK ? C : kBK) / 16;
+  // Every weight tile has the same k16 steps unless CP is no multiple of 64
+  // and spans several tiles (CP = 96: 4 steps, then 2).
+  constexpr bool UNIFORM = CP % kBK == 0 || KQ == 1;
+  constexpr int KSU = (CP < kBK ? CP : kBK) / 16;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -304,7 +382,7 @@ __device__ __forceinline__ void conv_tiles(Produce& produce, const bf16* xs,
   auto load_a = [&](uint32_t (&a)[MW][KS][4], int tap, int kq) {
     const int ky = tap / 3;
     const int shift = ky * src_w + tap - 3 * ky;
-    const int ks = UNIFORM ? KSU : min(kBK, C - kq * kBK) / 16;
+    const int ks = UNIFORM ? KSU : min(kBK, CP - kq * kBK) / 16;
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       const int p0 = pix[i][0] + shift;
@@ -325,7 +403,7 @@ __device__ __forceinline__ void conv_tiles(Produce& produce, const bf16* xs,
             a[i][kk][3] = ld32(chunk + p1 * K::CK + (((u + 1) ^ s1) << 3));
           } else {
             const int owner = kch / N;
-            const bf16* hp = (N == C ? hs : cluster.map_shared_rank(hs, owner)) +
+            const bf16* hp = (N == CP ? hs : cluster.map_shared_rank(hs, owner)) +
                              (kch - owner * N) + 2 * t;
             a[i][kk][0] = ld32(hp + p0 * HP);
             a[i][kk][1] = ld32(hp + p1 * HP);
@@ -350,7 +428,7 @@ __device__ __forceinline__ void conv_tiles(Produce& produce, const bf16* xs,
   bool fresh = true;     // no wgmma of this pass is in flight yet
   auto step = [&](uint32_t (&cur)[MW][KS][4], uint32_t (&nxt)[MW][KS][4], int tap,
                   int kq) {
-    const int ks = UNIFORM ? KSU : min(kBK, C - kq * kBK) / 16;
+    const int ks = UNIFORM ? KSU : min(kBK, CP - kq * kBK) / 16;
     const int s = it % stages;
     mbar_wait(full + 8 * s, (it / stages) & 1);
     const uint32_t tile = ring + s * (N * 128) + nb * 128;
@@ -422,7 +500,7 @@ __device__ __forceinline__ void conv_tiles(Produce& produce, const bf16* xs,
 }
 
 // The same for a warpgroup that holds `mt` (0..MW) tiles in this pass.
-template <int C, int N, int NW, int MW, bool FROM_WINDOW, typename Produce>
+template <int CP, int N, int NW, int MW, bool FROM_WINDOW, typename Produce>
 __device__ __forceinline__ void conv_pass(Produce& produce, const bf16* xs,
                                           int chunk_elems, bf16* hs,
                                           cg::cluster_group& cluster, int src_w,
@@ -431,7 +509,7 @@ __device__ __forceinline__ void conv_pass(Produce& produce, const bf16* xs,
                                           int stages, int& it, int nb,
                                           float (&acc)[MW][NW / 2]) {
 #define MSID_CONV_TILES(MT)                                                              \
-  conv_tiles<C, N, NW, MW, MT, FROM_WINDOW>(produce, xs, chunk_elems, hs, cluster, src_w, \
+  conv_tiles<CP, N, NW, MW, MT, FROM_WINDOW>(produce, xs, chunk_elems, hs, cluster, src_w, \
                                             out_w, m, first, ring, full, empty, stages,  \
                                             it, nb, acc)
   // A switch: nvcc 12.8 compiled an if-else chain over these same calls to
@@ -446,26 +524,143 @@ __device__ __forceinline__ void conv_pass(Produce& produce, const bf16* xs,
 #undef MSID_CONV_TILES
 }
 
+// conv1's epilogue for one warpgroup's `mt` tiles of a pass (from tile
+// `first` of the (TH+2) x (TW+2) region, `M1` pixels `HW` wide): the
+// affine and GELU, zero outside the image, bf16 into this CTA's N channels
+// of h. PADDED: the true width C is below the build's CP, and h is zero
+// past it (the affine is read below C only); otherwise C is CP.
+template <int CP, int N, int NW, int MW, bool PADDED>
+__device__ __forceinline__ void store_h(const float (&acc)[MW][NW / 2], bf16* hs,
+                                        const float* __restrict__ aff, int true_c, int first,
+                                        int mt, int M1, int HW, int y0, int x0, int H, int W,
+                                        int cbase, int nb) {
+  constexpr int HP = N + 8;
+  const int C = PADDED ? true_c : CP;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wq = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int i = 0; i < MW; ++i) {
+    if (i >= mt) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (first + i) * 64 + wq * 16 + g + h * 8;
+      if (p >= M1) continue;
+      const int r = p / HW;
+      const int gy = y0 - 1 + r;
+      const int gx = x0 - 1 + (p - r * HW);
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int col = nb + j * 8 + t * 2;
+        const int co = cbase + col;
+        float v0 = 0.0f, v1 = 0.0f;
+        if (inside && (!PADDED || co < C)) {
+          v0 = gelu_tanh(fmaf(acc[i][4 * j + 2 * h], __ldg(aff + co), __ldg(aff + C + co)));
+          if (!PADDED || co + 1 < C)
+            v1 = gelu_tanh(fmaf(acc[i][4 * j + 2 * h + 1], __ldg(aff + co + 1),
+                                __ldg(aff + C + co + 1)));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(hs + p * HP + col) = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// conv2's epilogue for one warpgroup's `mt` tiles of a pass (from tile
+// `first` of the TH x TW tile, `M2` pixels `TW` wide): the affine, the
+// residual from the window, GELU, bf16 into sample n of `out` inside the
+// image. PADDED: only channels below the true width C are read and
+// written, one element at a time where C is odd; otherwise C is CP.
+template <int CP, int NW, int MW, bool PADDED>
+__device__ __forceinline__ void store_y(const float (&acc)[MW][NW / 2], const bf16* xs,
+                                        int chunk_elems, const float* __restrict__ aff,
+                                        bf16* __restrict__ out, int true_c, int n, int first,
+                                        int mt, int M2, int TW, int XW, int y0, int x0, int H,
+                                        int W, int cbase, int nb) {
+  const int C = PADDED ? true_c : CP;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wq = (threadIdx.x >> 5) & 3;
+  bf16* on = out + (size_t)n * H * W * C;
+#pragma unroll
+  for (int i = 0; i < MW; ++i) {
+    if (i >= mt) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (first + i) * 64 + wq * 16 + g + h * 8;
+      if (p >= M2) continue;
+      const int r = p / TW;
+      const int c = p - r * TW;
+      const int gy = y0 + r;
+      const int gx = x0 + c;
+      if (gy >= H || gx >= W) continue;
+      const int xp = (r + 2) * XW + c + 2;   // the same pixel in the window
+      bf16* dst = on + ((size_t)gy * W + gx) * C;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int co = cbase + nb + j * 8 + t * 2;
+        if (PADDED && co >= C) continue;
+        const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(
+            xs + window_offset<CP>(xp, co, chunk_elems));
+        const float v0 = gelu_tanh(fmaf(acc[i][4 * j + 2 * h], __ldg(aff + 2 * C + co),
+                                        __ldg(aff + 3 * C + co)) +
+                                   __bfloat162float(res.x));
+        if (!PADDED || co + 1 < C) {
+          const float v1 = gelu_tanh(fmaf(acc[i][4 * j + 2 * h + 1],
+                                          __ldg(aff + 2 * C + co + 1),
+                                          __ldg(aff + 3 * C + co + 1)) +
+                                     __bfloat162float(res.y));
+          if (!PADDED || (C & 1) == 0) {     // bf16x2 stores stay 4-byte aligned
+            *reinterpret_cast<__nv_bfloat162*>(dst + co) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            dst[co] = __float2bfloat16_rn(v0);
+            dst[co + 1] = __float2bfloat16_rn(v1);
+          }
+        } else {
+          dst[co] = __float2bfloat16_rn(v0);
+        }
+      }
+    }
+  }
+}
+
+// Whether x's window comes by TMA: a tensor map needs every global stride
+// but the innermost to be a multiple of 16 bytes, so NHWC bf16 takes one
+// only when C is a multiple of 8. Otherwise the CTA's threads load the
+// window with plain loads.
+__host__ __device__ inline bool window_by_tma(int C) { return C % 8 == 0; }
+
 // The block for one CTA of a cluster: the body of both kernels' __global__
 // functions, which pass their __grid_constant__ tensor maps by address.
-template <int C, int NW, int MW, bool NSPLIT>
+// CP is the padded width the code is built for, C (<= CP) the true one.
+template <int CP, int NW, int MW, bool NSPLIT>
 __device__ __forceinline__ void resblock_cta(const CUtensorMap* xmap, const CUtensorMap* w1map,
                                              const CUtensorMap* w2map,
+                                             const bf16* __restrict__ x,
                                              const float* __restrict__ aff,
-                                             bf16* __restrict__ out, int H, int W, int TH,
-                                             int TW, int stages) {
-  using K = Chunk<C>;
+                                             bf16* __restrict__ out, int H, int W, int C,
+                                             int TH, int TW, int stages) {
+  using K = Chunk<CP>;
   constexpr int N = NSPLIT ? 2 * NW : NW;   // this CTA's output channels
-  constexpr int G = C / N;
-  static_assert(C % N == 0 && N % 16 == 0, "N must divide C in k16 steps");
-  constexpr int HP = N + 8;
-  constexpr int NQ = C / K::CK;
-  constexpr int KQ = (C + kBK - 1) / kBK;
+  constexpr int G = CP / N;
+  static_assert(CP % N == 0 && N % 16 == 0, "N must divide CP in k16 steps");
+  // MW = 3 (an n64 variant) gave wrong outputs on the card wherever a
+  // region took more than one pass, with no spill; the cause is not known,
+  // and every variant holds 2 or 4 tiles a pass.
+  static_assert(MW == 2 || MW == 4, "a warpgroup holds 2 or 4 m64 tiles a pass");
+  constexpr int NQ = CP / K::CK;
+  constexpr int KQ = (CP + kBK - 1) / kBK;
   const int XH = TH + 4, XW = TW + 4;   // x halo window
   const int HW = TW + 2;                // h tile width
   const int M1 = (TH + 2) * HW;
   const int M2 = TH * TW;
   const int chunk_elems = chunk_bytes(TH, TW, K::CK) / 2;
+  const bool by_tma = window_by_tma(C);
+  // Window chunks that hold a channel below C; the rest are zeros.
+  const int nq = by_tma ? (C + K::CK - 1) / K::CK : 0;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -485,7 +680,6 @@ __device__ __forceinline__ void resblock_cta(const CUtensorMap* xmap, const CUte
   const int y0 = blockIdx.y * TH;
   const int x0 = (blockIdx.x / G) * TW;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
     mbar_init(xbar, 1);
@@ -514,116 +708,95 @@ __device__ __forceinline__ void resblock_cta(const CUtensorMap* xmap, const CUte
     mbar_wait(empty + 8 * s, ((j / stages) & 1) ^ 1);
     mbar_expect_tx(full + 8 * s, N * 128);
     tma_load_2d(ring + s * (N * 128), j < tiles1 ? w1map : w2map, full + 8 * s,
-                (step % KQ) * kBK, (step / KQ) * C + cbase);
+                (step % KQ) * kBK, (step / KQ) * CP + cbase);
   };
   if (threadIdx.x == 0) {
-    mbar_expect_tx(xbar, (uint32_t)(XH * XW * C * 2));
-    for (int q = 0; q < NQ; ++q)
-      tma_load_4d(smem_u32(xs + q * chunk_elems), xmap, xbar, q * K::CK, x0 - 2, y0 - 2,
-                  n);
+    if (by_tma) {
+      mbar_expect_tx(xbar, (uint32_t)(XH * XW * K::CK * 2 * nq));
+      for (int q = 0; q < nq; ++q)
+        tma_load_4d(smem_u32(xs + q * chunk_elems), xmap, xbar, q * K::CK, x0 - 2, y0 - 2,
+                    n);
+    }
     for (int j = 0; j < stages; ++j) produce(j);
   }
   __syncwarp();
 
+  if (by_tma) {
+    // The chunks past C: zeros, 16 bytes a store.
+    uint4* zero = reinterpret_cast<uint4*>(xs + nq * chunk_elems);
+    const int words = (NQ - nq) * chunk_elems / 8;
+    for (int e = threadIdx.x; e < words; e += kThreads) zero[e] = make_uint4(0, 0, 0, 0);
+  } else {
+    // Plain loads, every channel of the padded window: x inside the image
+    // and below C, zero elsewhere.
+    const bf16* xn = x + (size_t)n * H * W * C;
+    const bf16 zero = __float2bfloat16(0.0f);
+    for (int e = threadIdx.x; e < XH * XW * CP; e += kThreads) {
+      const int p = e / CP;
+      const int co = e - p * CP;
+      const int r = p / XW;
+      const int gy = y0 - 2 + r;
+      const int gx = x0 - 2 + (p - r * XW);
+      bf16 v = zero;
+      if (co < C && gy >= 0 && gy < H && gx >= 0 && gx < W) v = xn[((size_t)gy * W + gx) * C + co];
+      xs[window_offset<CP>(p, co, chunk_elems)] = v;
+    }
+  }
+  __syncthreads();
+
   const int wg = warp >> 2;
-  const int wq = warp & 3;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int nb = NSPLIT ? wg * NW : 0;      // this warpgroup's first column in the CTA
   float acc[MW][NW / 2];
   int it = 0;
 
-  mbar_wait(xbar, 0);
+  if (by_tma) mbar_wait(xbar, 0);
 
-  // conv1 -> this CTA's channels of h (shared memory only).
+  // conv1 -> this CTA's channels of h (shared memory only). The epilogues
+  // come in two forms: the exact width's (C == CP: no check of C, offsets
+  // from a constant, the code of a build for one width) and the padded one.
+  const bool exact = C == CP;
   for (int pass = 0; pass < d1.passes; ++pass) {
     const int first = (NSPLIT ? 0 : wg * d1.share) + pass * MW;
     const int end = NSPLIT ? d1.tiles : min(d1.tiles, (wg + 1) * d1.share);
     const int mt = max(0, min(MW, end - first));
-    conv_pass<C, N, NW, MW, true>(produce, xs, chunk_elems, hs, cluster, XW, HW, M1, first, mt,
-                                  ring, full, empty, stages, it, nb, acc);
-#pragma unroll
-    for (int i = 0; i < MW; ++i) {
-      if (i >= mt) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (first + i) * 64 + wq * 16 + g + h * 8;
-        if (p >= M1) continue;
-        const int r = p / HW;
-        const int gy = y0 - 1 + r;
-        const int gx = x0 - 1 + (p - r * HW);
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-        for (int j = 0; j < NW / 8; ++j) {
-          const int col = nb + j * 8 + t * 2;
-          const int co = cbase + col;
-          float v0 = 0.0f, v1 = 0.0f;
-          if (inside) {
-            v0 = gelu_tanh(fmaf(acc[i][4 * j + 2 * h], __ldg(aff + co), __ldg(aff + C + co)));
-            v1 = gelu_tanh(fmaf(acc[i][4 * j + 2 * h + 1], __ldg(aff + co + 1),
-                                __ldg(aff + C + co + 1)));
-          }
-          *reinterpret_cast<__nv_bfloat162*>(hs + p * HP + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
+    conv_pass<CP, N, NW, MW, true>(produce, xs, chunk_elems, hs, cluster, XW, HW, M1, first, mt,
+                                   ring, full, empty, stages, it, nb, acc);
+    if (exact)
+      store_h<CP, N, NW, MW, false>(acc, hs, aff, C, first, mt, M1, HW, y0, x0, H, W, cbase, nb);
+    else
+      store_h<CP, N, NW, MW, true>(acc, hs, aff, C, first, mt, M1, HW, y0, x0, H, W, cbase, nb);
   }
 
   // Every CTA of the cluster has written its channels of h.
   cluster.sync();
 
-  // conv2 + residual -> out.
-  bf16* on = out + (size_t)n * H * W * C;
+  // conv2 + residual -> out, channels below C.
   for (int pass = 0; pass < d2.passes; ++pass) {
     const int first = (NSPLIT ? 0 : wg * d2.share) + pass * MW;
     const int end = NSPLIT ? d2.tiles : min(d2.tiles, (wg + 1) * d2.share);
     const int mt = max(0, min(MW, end - first));
-    conv_pass<C, N, NW, MW, false>(produce, xs, chunk_elems, hs, cluster, HW, TW, M2, first, mt,
-                                   ring, full, empty, stages, it, nb, acc);
-#pragma unroll
-    for (int i = 0; i < MW; ++i) {
-      if (i >= mt) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (first + i) * 64 + wq * 16 + g + h * 8;
-        if (p >= M2) continue;
-        const int r = p / TW;
-        const int c = p - r * TW;
-        const int gy = y0 + r;
-        const int gx = x0 + c;
-        if (gy >= H || gx >= W) continue;
-        const int xp = (r + 2) * XW + c + 2;   // the same pixel in the window
-        bf16* dst = on + ((size_t)gy * W + gx) * C;
-#pragma unroll
-        for (int j = 0; j < NW / 8; ++j) {
-          const int co = cbase + nb + j * 8 + t * 2;
-          const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(
-              xs + window_offset<C>(xp, co, chunk_elems));
-          const float v0 = fmaf(acc[i][4 * j + 2 * h], __ldg(aff + 2 * C + co),
-                                __ldg(aff + 3 * C + co)) +
-                           __bfloat162float(res.x);
-          const float v1 = fmaf(acc[i][4 * j + 2 * h + 1], __ldg(aff + 2 * C + co + 1),
-                                __ldg(aff + 3 * C + co + 1)) +
-                           __bfloat162float(res.y);
-          *reinterpret_cast<__nv_bfloat162*>(dst + co) =
-              __floats2bfloat162_rn(gelu_tanh(v0), gelu_tanh(v1));
-        }
-      }
-    }
+    conv_pass<CP, N, NW, MW, false>(produce, xs, chunk_elems, hs, cluster, HW, TW, M2, first,
+                                    mt, ring, full, empty, stages, it, nb, acc);
+    if (exact)
+      store_y<CP, NW, MW, false>(acc, xs, chunk_elems, aff, out, C, n, first, mt, M2, TW, XW,
+                                 y0, x0, H, W, cbase, nb);
+    else
+      store_y<CP, NW, MW, true>(acc, xs, chunk_elems, aff, out, C, n, first, mt, M2, TW, XW,
+                                y0, x0, H, W, cbase, nb);
   }
 
   // Keep this CTA's h alive until every CTA of the cluster has read it.
   cluster.sync();
 }
-// The tensor map of K-major weights [9 * C rows (tap, output channel)]
-// [CP columns (input channel, padded to a multiple of 64)], in boxes of
+// The tensor map of K-major weights [9 * CP rows (tap, output channel)]
+// [KP columns (input channel)], CP the padded width, KP = CP rounded up to
+// a multiple of 64, zeros past the true width on both sides, in boxes of
 // [N rows][64 columns] under the 128-byte swizzle. Encoded once per
 // prepared operand and cluster size by the caller, who keeps it
 // (msid_resblock_weight_map).
-CUresult weight_map(CUtensorMap* map, const void* w, int C, int CP, int N) {
-  const cuuint64_t dims[2] = {(cuuint64_t)CP, (cuuint64_t)9 * C};
-  const cuuint64_t strides[1] = {(cuuint64_t)CP * 2};
+CUresult weight_map(CUtensorMap* map, const void* w, int CP, int KP, int N) {
+  const cuuint64_t dims[2] = {(cuuint64_t)KP, (cuuint64_t)9 * CP};
+  const cuuint64_t strides[1] = {(cuuint64_t)KP * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)N};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dims, strides, box,
                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
@@ -632,37 +805,43 @@ CUresult weight_map(CUtensorMap* map, const void* w, int C, int CP, int N) {
 // The __global__ function of one instantiation, as each kernel library
 // defines it around resblock_cta.
 typedef void (*ResblockKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
-                               const float*, bf16*, int, int, int, int, int);
+                               const bf16*, const float*, bf16*, int, int, int, int, int,
+                               int);
 
-// Launch `kernel` (an instantiation <C, NW, MW, NSPLIT> of resblock_cta) on
-// clusters of G = C / N CTAs. w1map and w2map are the weight maps the
-// caller keeps (host memory, any alignment); x's map comes from the
-// bounded table (cached_map), the shared-memory limit is set once.
-template <int C, int NW, int MW, bool NSPLIT>
+// Launch `kernel` (an instantiation <CP, NW, MW, NSPLIT> of resblock_cta) on
+// clusters of G = CP / N CTAs for a true width C <= CP. w1map and w2map are
+// the weight maps the caller keeps (host memory, any alignment); x's map
+// comes from the bounded table (cached_map) where the window comes by TMA,
+// the shared-memory limit is set once.
+template <int CP, int NW, int MW, bool NSPLIT>
 int launch_resblock(ResblockKernel kernel, const void* x, const void* w1map,
                     const void* w2map, const void* aff, void* out, int B, int H, int W,
-                    int TH, int TW, int stages, cudaStream_t stream) {
-  using K = Chunk<C>;
+                    int C, int TH, int TW, int stages, cudaStream_t stream) {
+  using K = Chunk<CP>;
   constexpr int N = NSPLIT ? 2 * NW : NW;
-  constexpr int G = C / N;
-  constexpr int NQ = C / K::CK;
+  constexpr int G = CP / N;
+  constexpr int NQ = CP / K::CK;
+  if (C < 1 || C > CP) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)NQ * chunk_bytes(TH, TW, K::CK) + (size_t)stages * N * 128 +
                       h_bytes(TH, TW, N) + 8 * (1 + 2 * kMaxStages) + 1024;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
 
   CUtensorMap xmap, w1, w2;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)K::CK, (cuuint32_t)(TW + 4),
-                             (cuuint32_t)(TH + 4), 1};
-  const CUtensorMapSwizzle swizzle = K::CK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : K::CK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult res = cached_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims,
-                                  strides, box, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
-  if (res != CUDA_SUCCESS) return 100000 + (int)res;
+  memset(&xmap, 0, sizeof(xmap));
+  if (window_by_tma(C)) {
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                   (cuuint64_t)H * W * C * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)K::CK, (cuuint32_t)(TW + 4),
+                               (cuuint32_t)(TH + 4), 1};
+    const CUtensorMapSwizzle swizzle = K::CK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : K::CK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
+    const CUresult res = cached_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims,
+                                    strides, box, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+    if (res != CUDA_SUCCESS) return 100000 + (int)res;
+  }
   memcpy(&w1, w1map, sizeof(CUtensorMap));
   memcpy(&w2, w2map, sizeof(CUtensorMap));
 
@@ -680,8 +859,9 @@ int launch_resblock(ResblockKernel kernel, const void* x, const void* w1map,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, xmap, w1, w2, static_cast<const float*>(aff),
-                           static_cast<bf16*>(out), H, W, TH, TW, stages);
+  err = cudaLaunchKernelEx(&cfg, kernel, xmap, w1, w2, static_cast<const bf16*>(x),
+                           static_cast<const float*>(aff), static_cast<bf16*>(out), H, W, C,
+                           TH, TW, stages);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,7 @@
 //
 // Design (the device code is in hopper_common.cuh):
 //   * one cluster of G CTAs per (sample, TH x TW output tile); CTA r owns
-//     N = C / G output channels from r * N. A CTA is two warpgroups (256
+//     N = CP / G output channels from r * N (CP the build's padded width). A CTA is two warpgroups (256
 //     threads, one CTA a SM, up to 255 registers a thread). Tile and G
 //     come from the caller (ops/cuda_decoder.py: bf16_tiling);
 //   * the CTA's first thread loads the (TH+4) x (TW+4) x C window of x
@@ -64,6 +64,19 @@
 // 227 KB; K1's tile comes from a cost model). Ragged edges and a ragged last
 // m64 tile are masked, so the result does not depend on the tile.
 //
+// Widths. A library is built for one padded width CP (-DMSID_C=<CP>: 16,
+// 32, 48, 64, 96, 128, 192, 256, 384, 512 or 768) and takes every true
+// width C with 8 <= C <= CP at run time (ops/cuda_decoder.py: bf16_padded
+// sends C to the least CP that holds it, so 11 builds cover 8..768). The
+// window holds CP channels, zeros past C; a weight tile's rows past C and
+// h's channels past C are zeros; the affine is read and y written below C
+// only, one element at a time where C is odd. Where C is no multiple of 8
+// the NHWC tensor has a pixel stride a tensor map cannot take (C = 12: 24
+// bytes), and the CTA's 256 threads load the window with plain 2-byte
+// loads instead (a few microseconds at the narrow widths where it happens;
+// no copy of x is made). At C = 768 a cluster of 8 CTAs owns 96 channels
+// each and the whole 768-channel window sits in every CTA's shared memory.
+//
 // C = 48 has no 128-byte k-tile of its own (48 bf16 = 96 bytes). Two ways:
 // 16-channel boxes under the 32-byte swizzle (3 k16 steps, no padding), or
 // zero padding of the weights to 64 columns. Both kernels take the padding:
@@ -80,90 +93,112 @@
 // each kernel is set once.
 #include "hopper_common.cuh"
 
+#ifndef MSID_C
+#error "build with -DMSID_C=<padded width>: 16, 32, 48, 64, 96, 128, 192, 256, 384, 512 or 768"
+#endif
+
 namespace {
 
-template <int C, int NW, int MW, bool NSPLIT>
+template <int CP, int NW, int MW, bool NSPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     resblock_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap w1map,
-                    const __grid_constant__ CUtensorMap w2map,
+                    const __grid_constant__ CUtensorMap w2map, const bf16* __restrict__ x,
                     const float* __restrict__ aff, bf16* __restrict__ out, int H, int W,
-                    int TH, int TW, int stages) {
-  resblock_cta<C, NW, MW, NSPLIT>(&xmap, &w1map, &w2map, aff, out, H, W, TH, TW, stages);
+                    int C, int TH, int TW, int stages) {
+  resblock_cta<CP, NW, MW, NSPLIT>(&xmap, &w1map, &w2map, x, aff, out, H, W, C, TH, TW,
+                                   stages);
 }
 
-template <int C, int NW, int MW, bool NSPLIT>
+template <int CP, int NW, int MW, bool NSPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     resblock_v2_kernel(const __grid_constant__ CUtensorMap xmap,
                        const __grid_constant__ CUtensorMap w1map,
-                       const __grid_constant__ CUtensorMap w2map,
+                       const __grid_constant__ CUtensorMap w2map, const bf16* __restrict__ x,
                        const float* __restrict__ aff, bf16* __restrict__ out, int H, int W,
-                       int TH, int TW, int stages) {
-  resblock_cta<C, NW, MW, NSPLIT>(&xmap, &w1map, &w2map, aff, out, H, W, TH, TW, stages);
+                       int C, int TH, int TW, int stages) {
+  resblock_cta<CP, NW, MW, NSPLIT>(&xmap, &w1map, &w2map, x, aff, out, H, W, C, TH, TW,
+                                   stages);
 }
 
 // K1 (V2 false) or K3 (V2 true) of one instantiation.
-template <bool V2, int C, int NW, int MW, bool NSPLIT>
+template <bool V2, int CP, int NW, int MW, bool NSPLIT>
 int launch(const void* x, const void* w1map, const void* w2map, const void* aff, void* out,
-           int B, int H, int W, int TH, int TW, int stages, cudaStream_t stream) {
-  return launch_resblock<C, NW, MW, NSPLIT>(
-      V2 ? &resblock_v2_kernel<C, NW, MW, NSPLIT> : &resblock_kernel<C, NW, MW, NSPLIT>,
-      x, w1map, w2map, aff, out, B, H, W, TH, TW, stages, stream);
+           int B, int H, int W, int C, int TH, int TW, int stages, cudaStream_t stream) {
+  return launch_resblock<CP, NW, MW, NSPLIT>(
+      V2 ? &resblock_v2_kernel<CP, NW, MW, NSPLIT> : &resblock_kernel<CP, NW, MW, NSPLIT>,
+      x, w1map, w2map, aff, out, B, H, W, C, TH, TW, stages, stream);
 }
+
+// The instantiations of this build, by cluster size G: <CP, NW, MW, NSPLIT>
+// as ops/cuda_decoder.py's BF16_VARIANTS lists them.
+#define MSID_CASE(G, NW, MW, NSPLIT)                                                     \
+  case G:                                                                              \
+    return launch<V2, MSID_C, NW, MW, NSPLIT>(x, w1map, w2map, aff, out, B, H, W, C, TH, \
+                                              TW, stages, s);
 
 template <bool V2>
 int forward(const void* x, const void* w1map, const void* w2map, const void* aff, void* out,
             int B, int H, int W, int C, int TH, int TW, int G, int stages, void* stream) {
   if (TH < 1 || TW < 1 || TH > 252 || TW > 252 || B < 1 || B > 65535 || stages < 2 ||
-      stages > kMaxStages)
+      stages > kMaxStages || C < 8 || C > MSID_C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C * 10 + G) {
-#if !defined(MSID_C) || MSID_C == 48
-    case 481:
-      return launch<V2, 48, 48, 4, false>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
-                                          stages, s);
-#endif
-#if !defined(MSID_C) || MSID_C == 96
-    case 961:
-      return launch<V2, 96, 96, 2, false>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
-                                          stages, s);
-#endif
-#if !defined(MSID_C) || MSID_C == 192
-    case 1921:
-      return launch<V2, 192, 96, 2, true>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
-                                          stages, s);
-    case 1922:
-      return launch<V2, 192, 96, 2, false>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
-                                           stages, s);
-#endif
-#if !defined(MSID_C) || MSID_C == 384
-    case 3842:
-      return launch<V2, 384, 96, 2, true>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
-                                          stages, s);
-    case 3844:
-      return launch<V2, 384, 48, 4, true>(x, w1map, w2map, aff, out, B, H, W, TH, TW,
-                                          stages, s);
+  switch (G) {
+#if MSID_C == 16
+    MSID_CASE(1, 16, 4, false)
+#elif MSID_C == 32
+    MSID_CASE(1, 32, 4, false)
+#elif MSID_C == 48
+    MSID_CASE(1, 48, 4, false)
+#elif MSID_C == 64
+    MSID_CASE(1, 64, 2, false)
+#elif MSID_C == 96
+    MSID_CASE(1, 96, 2, false)
+#elif MSID_C == 128
+    MSID_CASE(1, 64, 2, true)
+    MSID_CASE(2, 64, 2, false)
+#elif MSID_C == 192
+    MSID_CASE(1, 96, 2, true)
+    MSID_CASE(2, 96, 2, false)
+#elif MSID_C == 256
+    MSID_CASE(2, 64, 2, true)
+    MSID_CASE(4, 64, 2, false)
+#elif MSID_C == 384
+    MSID_CASE(2, 96, 2, true)
+    MSID_CASE(4, 48, 4, true)
+#elif MSID_C == 512
+    MSID_CASE(4, 64, 2, true)
+    MSID_CASE(8, 32, 4, true)
+#elif MSID_C == 768
+    MSID_CASE(8, 48, 2, true)
+#else
+#error "MSID_C must be 16, 32, 48, 64, 96, 128, 192, 256, 384, 512 or 768"
 #endif
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+#undef MSID_CASE
+
 }  // namespace
 
-// The tensor map K1 and K3 read the K-major weights wk ([9 * C][CP] bf16,
-// row tap * C + output channel, column input channel, CP = C rounded up
-// to a multiple of 64 with zeros past C; ops/cuda_decoder.py:
-// prepare_bf16_weights) through, for clusters of G CTAs (boxes of C / G
-// rows): written to `map` (CUtensorMap's 128 bytes, any alignment). The
-// caller encodes it once per operand and cluster size and keeps it.
-// Returns 0 or 100000 + the CUresult of the encoding.
+// The tensor map K1 and K3 read the K-major weights wk ([9 * MSID_C][KP]
+// bf16, row tap * MSID_C + output channel, column input channel, KP =
+// MSID_C rounded up to a multiple of 64, zeros at every channel past the
+// true width C; ops/cuda_decoder.py: prepare_bf16_weights) through, for
+// clusters of G CTAs (boxes of MSID_C / G rows): written to `map`
+// (CUtensorMap's 128 bytes, any alignment). The caller encodes it once per
+// operand and cluster size and keeps it. Returns 0, cudaErrorInvalidValue,
+// or 100000 + the CUresult of the encoding.
 extern "C" int msid_resblock_weight_map(const void* wk, int C, int G, void* map) {
-  if (C < 1 || G < 1 || C % G != 0 || C / G > 256 || C % 16 != 0)
+  if (C < 8 || C > MSID_C || G < 1 || G > 8 || MSID_C % G != 0 || MSID_C / G > 256 ||
+      (MSID_C / G) % 8 != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap encoded;
-  const CUresult res = weight_map(&encoded, wk, C, (C + kBK - 1) / kBK * kBK, C / G);
+  const CUresult res =
+      weight_map(&encoded, wk, MSID_C, (MSID_C + kBK - 1) / kBK * kBK, MSID_C / G);
   if (res != CUDA_SUCCESS) return 100000 + (int)res;
   memcpy(map, &encoded, sizeof(CUtensorMap));
   return 0;
@@ -171,12 +206,12 @@ extern "C" int msid_resblock_weight_map(const void* wk, int C, int G, void* map)
 
 // x, out: [B,H,W,C] bf16 contiguous, 16-byte aligned; w1map, w2map: the
 // weight maps msid_resblock_weight_map wrote for this C and G; aff: [4][C]
-// fp32. (TH, TW) is the output tile of one cluster of G CTAs (each at most
-// 252), `stages` (2..4) the depth of the weight ring; the caller chooses
-// them (K1: bf16_tiling; K3: v2_tile, around the caller's tile). Supported
-// (C, G): (48, 1), (96, 1), (192, 1), (192, 2), (384, 2), (384, 4); a build
-// with -DMSID_C=<width> holds that width's kernels only (one library per
-// width compiles in a quarter of the time, and the four compile side by
+// fp32. 8 <= C <= MSID_C. (TH, TW) is the output tile of one cluster of G
+// CTAs (each at most 252), `stages` (2..4) the depth of the weight ring; the
+// caller chooses them (K1: bf16_tiling; K3: v2_tile, around the caller's
+// tile). Supported (MSID_C, G): (16, 1), (32, 1), (48, 1), (64, 1), (96, 1),
+// (128, 1|2), (192, 1|2), (256, 2|4), (384, 2|4), (512, 4|8), (768, 8); a
+// library holds one padded width's kernels (the builds compile side by
 // side). Returns 0, the cudaError_t of the launch (cudaErrorInvalidValue
 // for a geometry the kernel is not built for or that does not fit shared
 // memory), or 100000 + the CUresult of x's encoding (CUDA_ERROR_NOT_FOUND

@@ -102,6 +102,22 @@ class EuroSATMultiSpectral:
                 img = padded
         return np.ascontiguousarray(img, dtype=np.float32)
 
+    def compute_statistics(self, num_samples: int = 1000) -> dict:
+        """Per-band ``mean`` and ``std`` (float64, ``[num_bands]``) over the
+        first ``num_samples`` tiles: the average of each tile's per-band
+        mean and standard deviation, summed in the JAX package's order.
+        ``ValueError`` when that is no tile."""
+        n = min(num_samples, len(self))
+        if n <= 0:
+            raise ValueError("No valid samples for statistics")
+        mean = np.zeros(self.num_bands, np.float64)
+        std = np.zeros(self.num_bands, np.float64)
+        for i in range(n):
+            tile = self[i]
+            mean += tile.mean(axis=(0, 1))
+            std += tile.std(axis=(0, 1))
+        return {"mean": mean / n, "std": std / n}
+
 
 
 class SyntheticEuroSAT:

@@ -48,9 +48,14 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from msid_tpu_torch.ops import _build
 
-# Channel widths K1 is instantiated for (the flagship decoder's). K4 takes
-# any width.
-SUPPORTED_WIDTHS = (48, 96, 192, 384)
+# Channel widths K1 (and K3) take: every width from 8 to 768, the widest a
+# repo config uses. Each is run by the library of the least padded width of
+# BF16_BUILDS that holds it (``bf16_padded``), with the true width passed at
+# run time; channels past it are zeros. K4 takes every width up to
+# 8 clusters x 8 units x 32 channels.
+BF16_MIN_WIDTH, BF16_MAX_WIDTH = 8, 768
+SUPPORTED_WIDTHS = range(BF16_MIN_WIDTH, BF16_MAX_WIDTH + 1)
+BF16_BUILDS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768)
 
 # Kernel launches so far in this process, K1 (bf16), K4 (fp32) and K3 (v2)
 # apart; chip_smoke.py zeroes them before driving a path and reads them after.
@@ -84,19 +89,27 @@ FP32_PASS_COST = 0.5
 FP32_PIXEL_COST = 0.004
 FP32_WEIGHT_COST = 0.001      # per staged weight row of a CTA's channels
 # Clusters of g CTAs (256 threads, most of an SM's shared memory) that fit
-# an H100's 132 SMs at once (cudaOccupancyMaxActiveClusters, printed by
-# scripts/sweep_k4_tiles.py): a cluster lies within one GPC.
-FP32_ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+# an H100's 132 SMs at once, for every cluster size K4 and K1 launch
+# (cudaOccupancyMaxActiveClusters, printed by scripts/sweep_k4_tiles.py): a
+# cluster lies within one GPC.
+FP32_ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 MAX_SMEM = 232448
 H100_SMS = 132
 
-# K1's and K3's launch geometry, as csrc/resblock.cu is built: per (C,
-# cluster size g) the width ``nw`` of a warpgroup's wgmma, the m64 tiles
-# ``mw`` a warpgroup holds in one pass, and whether the two warpgroups split
-# the CTA's N = C / g channels (True) or the region's tiles (False).
-BF16_VARIANTS = {(48, 1): (48, 4, False), (96, 1): (96, 2, False),
+# K1's and K3's launch geometry, as csrc/resblock.cu is built: per (padded
+# width CP, cluster size g) the width ``nw`` of a warpgroup's wgmma, the m64
+# tiles ``mw`` a warpgroup holds in one pass, and whether the two
+# warpgroups split the CTA's N = CP / g channels (True) or the region's
+# tiles (False).
+BF16_VARIANTS = {(16, 1): (16, 4, False), (32, 1): (32, 4, False),
+                 (48, 1): (48, 4, False), (64, 1): (64, 2, False),
+                 (96, 1): (96, 2, False),
+                 (128, 1): (64, 2, True), (128, 2): (64, 2, False),
                  (192, 1): (96, 2, True), (192, 2): (96, 2, False),
-                 (384, 2): (96, 2, True), (384, 4): (48, 4, True)}
+                 (256, 2): (64, 2, True), (256, 4): (64, 2, False),
+                 (384, 2): (96, 2, True), (384, 4): (48, 4, True),
+                 (512, 4): (64, 2, True), (512, 8): (32, 4, True),
+                 (768, 8): (48, 2, True)}
 BF16_BK = 64            # input channels of one staged weight tile (128 bytes)
 TENSOR_MAP_BYTES = 128  # sizeof(CUtensorMap)
 BF16_MAX_STAGES = 4
@@ -286,35 +299,50 @@ def fp32_check_tile(c: int, th: int, tw: int, nt: int, nu: int, g: int, kc: int)
                          f"{need} bytes of shared memory, a CTA has {MAX_SMEM}")
 
 
+@functools.lru_cache(maxsize=None)
+def bf16_padded(c: int) -> int:
+    """The padded width of the K1 build that runs width ``c``: the least of
+    ``BF16_BUILDS`` that holds it. ``ValueError`` outside 8..768."""
+    _check_width(c)
+    return next(p for p in BF16_BUILDS if p >= c)
+
+
 def prepare_bf16_weights(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``[3, 3, Cin, Cout]`` -> K1's K-major operand ``[9 * Cout, CP]``
-    (row ``tap * C + cout``, column ``cin``, ``CP`` = C rounded up to a
-    multiple of 64 with zeros past C): one TMA box of it is a wgmma B tile.
-    Made once per weight (``ResidualBlock`` keeps it), not per launch."""
+    """HWIO ``[3, 3, C, C]`` -> K1's K-major operand ``[9 * CP, KP]`` (row
+    ``tap * CP + cout``, column ``cin``; ``CP = bf16_padded(C)``, ``KP`` = CP
+    rounded up to a multiple of 64; zeros in every row and column past C):
+    one TMA box of it is a wgmma B tile, and a cluster's CTAs past C load
+    zeros. Made once per weight (``ResidualBlock`` keeps it), not per
+    launch."""
     c = w.shape[-1]
-    k = w.permute(0, 1, 3, 2).reshape(9 * c, c)
-    cp = -(-c // BF16_BK) * BF16_BK
-    return F.pad(k, (0, cp - c)) if cp != c else k.contiguous()
+    cp = bf16_padded(c)
+    kp = -(-cp // BF16_BK) * BF16_BK
+    k = w.permute(0, 1, 3, 2).reshape(9, c, c)
+    return F.pad(k, (0, kp - c, 0, cp - c)).reshape(9 * cp, kp)
 
 
+@functools.lru_cache(maxsize=None)
 def bf16_defines(c: int) -> tuple[str, ...]:
-    """The ``-D`` defines of K1's build for channel width ``c``: each width
-    has its own library (``csrc/resblock.cu`` holds many instantiations;
-    four builds side by side take a quarter of the time of one)."""
-    return (f"MSID_C={c}",)
+    """The ``-D`` defines of the K1 build that runs channel width ``c``: one
+    library per padded width (``csrc/resblock.cu`` holds many
+    instantiations; the builds compile side by side)."""
+    return (f"MSID_C={bf16_padded(c)}",)
 
 
 def bf16_smem_bytes(c: int, th: int, tw: int, g: int, stages: int) -> int:
     """Shared memory of one K1 CTA for a ``th`` x ``tw`` output tile in a
-    cluster of ``g``: the bf16 x window with its 2-pixel halo in channel
-    chunks that each start on a 1024-byte boundary, ``stages`` weight tiles
-    of [C / g][64], its C / g channels of h over the tile plus 1 pixel at a
-    pitch of C / g + 8, the barriers, and the slack to align the base."""
-    ck = v2_chunk(c)
-    n = c // g
+    cluster of ``g``, at the padded width CP of ``c``'s build (``c``
+    itself outside K1's widths): the bf16 x window with its 2-pixel halo in
+    channel chunks that each start on a 1024-byte boundary, ``stages``
+    weight tiles of [CP / g][64], its CP / g channels of h over the tile
+    plus 1 pixel at a pitch of CP / g + 8, the barriers, and the slack to
+    align the base."""
+    cp = bf16_padded(c) if c in SUPPORTED_WIDTHS else c
+    ck = v2_chunk(cp)
+    n = cp // g
     chunk = -(-((th + 4) * (tw + 4) * ck * 2) // 1024) * 1024
     hbytes = -(-((th + 2) * (tw + 2) * (n + 8) * 2) // 16) * 16
-    return (c // ck * chunk + stages * n * 128 + hbytes
+    return (cp // ck * chunk + stages * n * 128 + hbytes
             + 8 * (1 + 2 * BF16_MAX_STAGES) + 1024)
 
 
@@ -333,11 +361,13 @@ def bf16_candidates(c: int, h: int, w: int, b: int,
     shared memory (the deepest weight ring that fits, at least 2), with its
     estimated cost, cheapest first: waves of clusters times the wgmma steps
     of a warpgroup over both convs (scaled by its width), plus a cost per
-    pass and for the window a CTA waits for before conv1. Ties go to the
-    larger tile."""
+    pass and for the window a CTA waits for before conv1, all at the padded
+    width of ``c``'s build (a CTA whose channels all lie past C computes
+    zeros and costs the same). Ties go to the larger tile."""
+    cp = bf16_padded(c)
     found = []
     for (width, g), (nw, mw, nsplit) in BF16_VARIANTS.items():
-        if width != c:
+        if width != cp:
             continue
         for th in range(2, min(h + 1, 32) + 1, 2):
             for tw in range(2, min(w + 1, 64) + 1, 2):
@@ -350,7 +380,7 @@ def bf16_candidates(c: int, h: int, w: int, b: int,
                 clusters = math.ceil(h / th) * math.ceil(w / tw) * b
                 waves = math.ceil(clusters / max(1, FP32_ACTIVE_CLUSTERS[g] * sms // H100_SMS))
                 steps = ((s1 + s2) * nw / 96 + BF16_PASS_COST * (p1 + p2)
-                         + BF16_WINDOW_COST * (th + 4) * (tw + 4) * c * 2)
+                         + BF16_WINDOW_COST * (th + 4) * (tw + 4) * cp * 2)
                 found.append(((waves * steps, -th * tw), (th, tw, g, stages)))
     found.sort()
     return [(key[0], geometry) for key, geometry in found]
@@ -360,15 +390,16 @@ def bf16_candidates(c: int, h: int, w: int, b: int,
 def bf16_tiling(c: int, h: int, w: int, b: int,
                 sms: int = H100_SMS) -> tuple[int, int, int, int]:
     """``(th, tw, g, stages)`` for K1: the cheapest of ``bf16_candidates``."""
-    if c not in SUPPORTED_WIDTHS:
-        raise ValueError(f"channel width {c} not supported; the kernel is "
-                         f"built for {SUPPORTED_WIDTHS}")
+    _check_width(c)
     return bf16_candidates(c, h, w, b, sms)[0][1]
 
 
+@functools.lru_cache(maxsize=4096)
 def bf16_check_tile(c: int, th: int, tw: int, g: int, stages: int) -> None:
-    """Raise ``ValueError`` for a K1 geometry the kernel does not take."""
-    if ((c, g) not in BF16_VARIANTS or not 1 <= th <= BF16_MAX_TILE
+    """Raise ``ValueError`` for a K1 geometry the kernel does not take (a
+    geometry it takes is remembered: every launch checks its own)."""
+    if (c not in SUPPORTED_WIDTHS or (bf16_padded(c), g) not in BF16_VARIANTS
+            or not 1 <= th <= BF16_MAX_TILE
             or not 1 <= tw <= BF16_MAX_TILE
             or not BF16_MIN_STAGES <= stages <= BF16_MAX_STAGES):
         raise ValueError(f"K1 takes no geometry tile ({th}, {tw}), g={g}, "
@@ -444,8 +475,8 @@ def _fused_residual_block_fake(x, w1, w2, affines):
 
 def _check_width(c: int) -> None:
     if c not in SUPPORTED_WIDTHS:
-        raise ValueError(f"channel width {c} not supported; the kernel is "
-                         f"built for {SUPPORTED_WIDTHS}")
+        raise ValueError(f"channel width {c} not supported; the kernel takes "
+                         f"widths {BF16_MIN_WIDTH} to {BF16_MAX_WIDTH}")
 
 
 def _fused_residual_block_bf16(x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tensor,
@@ -466,11 +497,13 @@ def _fused_residual_block_bf16(x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Te
 
 def weight_map(wk: torch.Tensor, g: int) -> ctypes.Array:
     """The tensor map K1 and K3 read the K-major operand ``wk`` through in
-    clusters of ``g`` CTAs (``msid_resblock_weight_map``): encoded on first
-    use and kept on the operand itself, per (address, g), so the operand
+    clusters of ``g`` CTAs (``msid_resblock_weight_map`` of the build of
+    the operand's padded width): encoded on first use and kept on the
+    operand itself, per (address, g), so the operand
     ``ResidualBlock.prepared_operands`` or ``v2_prepared_weights`` keeps
     carries its maps for as long as it lives, and a launch encodes only
-    x's map (found again in the kernel library's bounded table)."""
+    x's map (found again in the kernel library's bounded table). The map
+    does not depend on the true width: the operand is zero past it."""
     c = wk.shape[0] // 9
     maps = wk.__dict__.setdefault("_tensor_maps", {})
     key = (wk.data_ptr(), g)
@@ -492,11 +525,12 @@ def _launch_bf16(entry: str, x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tens
     (``msid_resblock_v2_forward``) of ``csrc/resblock.cu`` on a CUDA bf16 x
     with K-major weights, at ``(th, tw, g, stages)``."""
     b, h, w, c = x.shape
-    cp = -(-c // BF16_BK) * BF16_BK
+    cp = bf16_padded(c)
+    kp = -(-cp // BF16_BK) * BF16_BK
     _check("x", x, (b, h, w, c), torch.bfloat16, x.device)
     _check("affines", affines, (4, c), torch.float32, x.device)
-    _check("w1", w1k, (9 * c, cp), torch.bfloat16, x.device)
-    _check("w2", w2k, (9 * c, cp), torch.bfloat16, x.device)
+    _check("w1", w1k, (9 * cp, kp), torch.bfloat16, x.device)
+    _check("w2", w2k, (9 * cp, kp), torch.bfloat16, x.device)
     th, tw, g, stages = geometry
     bf16_check_tile(c, th, tw, g, stages)
     for name, t in (("x", x), ("w1", w1k), ("w2", w2k)):
@@ -564,7 +598,8 @@ def v2_tile(c: int, h: int, w: int, b: int, row_block: int | None = None,
     cb = default[1] if col_block is None else int(col_block)
     if not (1 <= rb <= V2_MAX_TILE and 1 <= cb <= V2_MAX_TILE):
         raise ValueError(f"tile ({rb}, {cb}) must lie in 1..{V2_MAX_TILE}")
-    clusters = sorted(g for width, g in BF16_VARIANTS if width == c) or [1]
+    cp = bf16_padded(c) if c in SUPPORTED_WIDTHS else c
+    clusters = sorted(g for width, g in BF16_VARIANTS if width == cp) or [1]
     for g in clusters:
         for stages in range(BF16_MAX_STAGES, BF16_MIN_STAGES - 1, -1):
             if bf16_smem_bytes(c, rb, cb, g, stages) <= MAX_SMEM:
@@ -622,8 +657,8 @@ def fused_residual_block_v2(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     ``v2_tile``). It need not divide H and W, and the result does not
     depend on it; a tile whose window, weight ring and h do not fit a CTA's
     shared memory raises ``ValueError``. A CPU tensor takes the plain
-    version; a CUDA tensor (bf16, C in ``SUPPORTED_WIDTHS``) launches K3 or
-    raises. On a card, w1 and w2 may also be the K-major operands
+    version; a CUDA tensor (bf16, C in ``SUPPORTED_WIDTHS``, on K1's
+    builds) launches K3 or raises. On a card, w1 and w2 may also be the K-major operands
     ``prepare_bf16_weights`` makes of them (the kernel probe's case); HWIO
     weights are prepared once per tensor (``v2_prepared_weights``).
     """

@@ -4,16 +4,18 @@ their launch geometries, on the card.
     python -m msid_tpu_torch.scripts.sweep_k4_tiles [--kernel k4|k1|both]
         [--out tiles.jsonl] [--top 10]
 
-K4: for the flagship decoder's four shapes and two tiny widths, at B=1
-and B=16, the ``--top`` cheapest geometries of ``fp32_candidates`` (output
-tile, channel units per CTA, cluster size, staging depth) by its cost
-estimate, and the cheapest of every other cluster size, are launched,
-held to the plain version (max abs error <= 1e-4), then timed as the
-median of CUDA events. K1: the same over ``bf16_candidates`` (output
-tile, cluster size, weight-ring depth) at the four flagship shapes, held
-to rtol 0.03 / atol 0.02. One JSON line per kernel and shape gives the
-times by geometry, the fastest and the one the picker takes. Needs a
-CUDA card and ``nvcc``.
+First the clusters of every size K4 and K1 launch (1 to 8 CTAs) that
+the card holds at once at K4's shared memory (what ``FP32_ACTIVE_CLUSTERS``
+records). Then K4: for the flagship decoder's four shapes, two tiny widths
+and ``capacity_2x.yaml``'s C=768 stage, at B=1 and B=16, the ``--top``
+cheapest geometries of ``fp32_candidates`` (output tile, channel units per
+CTA, cluster size, staging depth) by its cost estimate, and the cheapest
+of every other cluster size, are launched, held to the plain version (max
+abs error <= 1e-4), then timed as the median of CUDA events. K1: the same
+over ``bf16_candidates`` (output tile, cluster size, weight-ring depth) at
+the same shapes, held to rtol 0.03 / atol 0.02. One JSON line per kernel
+and shape gives the times by geometry, the fastest and the one the picker
+takes. Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-SHAPES = ((384, 24), (192, 48), (96, 96), (48, 192), (8, 64), (24, 16))
+SHAPES = ((384, 24), (192, 48), (96, 96), (48, 192), (8, 64), (24, 16), (768, 24))
 BATCHES = (1, 16)
 
 
@@ -112,12 +114,10 @@ def main(argv=None) -> int:
         fn = _build.bind("resblock_fp32", "msid_resblock_fp32_active_clusters",
                          [ctypes.c_int] * 2)
         print(json.dumps({"kernel": "k4", "smem_bytes": 200000, "active_clusters": {
-            g: fn(g, 200000) for g in (1, 2, 4, 8)}, "assumed": cd.FP32_ACTIVE_CLUSTERS}),
-            flush=True)
+            g: fn(g, 200000) for g in sorted(cd.FP32_ACTIVE_CLUSTERS)},
+            "assumed": cd.FP32_ACTIVE_CLUSTERS}), flush=True)
     for kernel in ("k4", "k1") if args.kernel == "both" else (args.kernel,):
         for c, s in SHAPES:
-            if kernel == "k1" and c not in cd.SUPPORTED_WIDTHS:
-                continue
             for b in BATCHES:
                 line = sweep(torch, cd, kernel, c, s, b, args.top, args.iters, sms)
                 print(json.dumps(line), flush=True)

@@ -104,6 +104,13 @@ class TrainState:
         self.ema = (None if state["ema"] is None else
                     {k: v.to(device) for k, v in state["ema"].items()})
 
+    @property
+    def variables(self) -> dict:
+        """The live weights, ``{name: tensor}`` by reference: the module's
+        parameters and BatchNorm statistics (its state dict), never the EMA
+        shadow (``eval_variables`` gives that)."""
+        return dict(self.model.state_dict())
+
     def eval_variables(self, raw: bool = False) -> dict:
         """The weights to evaluate or serve, as a ``{name: tensor}`` copy
         of the module's parameters and buffers: the EMA shadow in place of

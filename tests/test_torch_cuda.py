@@ -46,14 +46,24 @@ def block_inputs(shape, seed):
     return [torch.from_numpy(a).cuda() for a in (x, w1, w2, aff)]
 
 
+# K4's picked cluster at each (2, 20, 20, C) of K4_CLUSTER_WIDTHS: every
+# size from 3 to 8 (1, 2, 4 and 8 come with the shapes above them).
+K4_CLUSTER_WIDTHS = {72: 3, 136: 5, 168: 6, 200: 7, 768: 8, 1024: 8}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 32, 32, 48), (2, 24, 24, 384), (2, 20, 20, 12),
-                                   (2, 64, 64, 8), (1, 20, 36, 24), (1, 9, 13, 10)])
+                                   (2, 64, 64, 8), (1, 20, 36, 24), (1, 9, 13, 10)]
+                         + [(2, 20, 20, c) for c in K4_CLUSTER_WIDTHS])
 def test_k4_matches_plain_on_the_card(shape):
-    """Flagship and tiny widths, a ragged image, and a width (10) that is
-    no multiple of 4 (4-byte staging copies, channels padded to 16)."""
+    """Flagship and tiny widths, a ragged image, a width (10) that is no
+    multiple of 4 (4-byte staging copies, channels padded to 16), and widths
+    whose picked cluster is 3, 5, 6, 7 and 8 CTAs, up to 1024."""
     need_card()
     args = block_inputs(shape, seed=shape[-1])
+    if shape[-1] in K4_CLUSTER_WIDTHS:
+        b, h, w, c = shape
+        assert cuda_decoder.fp32_tiling(c, h, w, b)[4] == K4_CLUSTER_WIDTHS[c]
     before = cuda_decoder.launches_fp32
     got = fused_residual_block(*args)
     with exact_fp32(torch.float32):                  # the plain version's cuDNN convs
@@ -83,26 +93,44 @@ def test_k4_geometry_does_not_change_the_result_beyond_rounding(c, geometries):
         assert float((got - want).abs().max()) <= K4_MAX_ABS
 
 
+def k1_cases():
+    """(C, g) for every padded width and cluster size K1 is built for: the
+    padded width itself, a width 1 below it (odd: the window by plain
+    loads, the output one element at a time) and one 8 below it (a
+    multiple of 8: the window by TMA with zeros past C)."""
+    return [(c, g) for cp, g in sorted(cuda_decoder.BF16_VARIANTS)
+            for c in sorted({cp, cp - 1, max(8, cp - 8)})]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,g", sorted(cuda_decoder.BF16_VARIANTS))
+@pytest.mark.parametrize("c,g", k1_cases())
 def test_k1_matches_plain_on_the_card(c, g):
-    """Every (width, cluster size) K1 is built for, on a ragged image with
-    a tile that divides neither side, and with the picker's own choice."""
+    """Every (padded width, cluster size) K1 is built for, at widths on and
+    off its build's width, on a ragged image with a tile that divides
+    neither side, at the tile of this cluster size that takes the most
+    passes over the weights (several, where one fits), and with the
+    picker's own choice."""
     need_card()
     args = [a if i == 3 else a.bfloat16()
             for i, a in enumerate(block_inputs((2, 20, 36, c), seed=c + g))]
     want = fused_residual_block_reference(*args).float()
     prepared = [cuda_decoder.prepare_bf16_weights(w) for w in args[1:3]]
+    nw, mw, nsplit = cuda_decoder.BF16_VARIANTS[(cuda_decoder.bf16_padded(c), g)]
+    deepest = max((geo for _, geo in cuda_decoder.bf16_candidates(c, 20, 36, 2) if geo[2] == g),
+                  key=lambda geo: cuda_decoder.bf16_steps((geo[0] + 2) * (geo[1] + 2),
+                                                          mw, nsplit)[0])
     before = cuda_decoder.launches
     outs = [cuda_decoder._fused_residual_block_bf16(args[0], *prepared, args[3],
                                                     geometry=(6, 8, g, 2)),
+            cuda_decoder._fused_residual_block_bf16(args[0], *prepared, args[3],
+                                                    geometry=deepest),
             fused_residual_block(args[0], *prepared, args[3]),
             fused_residual_block(*args)]
     torch.cuda.synchronize()
-    assert cuda_decoder.launches == before + 3
+    assert cuda_decoder.launches == before + 4
     for got in outs:
         assert bool(((got.float() - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all())
-    assert torch.equal(outs[1], outs[2])      # prepared operands or HWIO: the same launch
+    assert torch.equal(outs[2], outs[3])      # prepared operands or HWIO: the same launch
 
 
 @pytest.mark.cuda
@@ -169,6 +197,9 @@ def test_k5_equals_scale_on_the_card(shape):
     ((2, 24, 24, 96), [None, (8, 8)]),
     ((1, 12, 20, 192), [None, (4, 8)]),
     ((2, 24, 24, 384), [None, (4, 4)]),
+    ((1, 20, 20, 12), [None, (5, 7)]),                # K1's build of 16, the window by plain loads
+    ((1, 12, 12, 200), [None, (4, 4)]),               # the build of 256, zeros past C
+    ((1, 12, 12, 768), [None, (2, 2)]),               # the build of 768, a cluster of 8
 ])
 def test_k3_matches_plain_and_k1_on_the_card(shape, tiles):
     need_card()
@@ -648,4 +679,40 @@ def test_new_decoders_in_bf16_on_the_card_match_the_cpu(arch):
     got = session.predict(x)
     assert session.optimized is False and session.captured_launches == 0
     assert cuda_decoder.launches == before
+    assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_capacity_2x_bf16_session_launches_k1_and_matches_the_cpu():
+    """``capacity_2x.yaml``'s decoder (768/384/192/96) at full width, the
+    ViT at depth 2 and a 64^2 image, served by a captured bf16 session of
+    the module's forward: 8 K1 launches captured, within relative RMS 2e-2
+    of fp32 on the CPU."""
+    need_card()
+    from pathlib import Path
+
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.utils.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent.parent
+                      / "configs" / "experiments" / "capacity_2x.yaml")
+    cfg["model"]["encoder"]["depth"] = 2
+    cfg["data"]["image_size"] = 64
+    torch.manual_seed(0)
+    model = SatMAERestoration.from_config(cfg, device="cpu").eval()
+    for m in model.modules():
+        if hasattr(m, "running_var"):
+            m.running_mean.normal_(0, 0.1)
+            m.running_var.uniform_(0.5, 2.0)
+    x = np.random.default_rng(7).normal(0, 0.5, (2, 64, 64, 13)).astype(np.float32)
+    with torch.no_grad():
+        want = model(torch.from_numpy(x)).numpy()
+    before = cuda_decoder.launches
+    session = InferenceSession(model.set_compute_dtype(torch.bfloat16).cuda(), batch_size=2,
+                               image_size=64, optimize=False)
+    got = session.predict(x)
+    assert session.compiled == "cuda_graph" and session.captured_launches == 8
+    assert cuda_decoder.launches > before
+    assert got.shape == x.shape and np.isfinite(got).all()
     assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 2e-2

@@ -79,6 +79,30 @@ def test_eurosat_samples_split_and_tiles_equal_jax(tile_dir, split, train_split,
         assert np.array_equal(tile, theirs[i])
 
 
+@pytest.mark.parametrize("split,num_samples", [("train", 1000), ("val", 2), ("train", 5)])
+def test_compute_statistics_equals_jax(tile_dir, split, num_samples):
+    """Per-band means and stds over the first ``num_samples`` tiles of a
+    split (cropped, padded and unreadable tiles among them), equal to the
+    JAX package's."""
+    ours = EuroSATMultiSpectral(tile_dir, split=split).compute_statistics(num_samples)
+    theirs = JaxEuroSAT(tile_dir, split=split).compute_statistics(num_samples)
+    assert set(ours) == set(theirs) == {"mean", "std"}
+    for key in ours:
+        assert ours[key].shape == (13,) and ours[key].dtype == np.float64
+        assert np.array_equal(ours[key], theirs[key])
+
+
+@pytest.mark.parametrize("num_samples", [0, -1, None])
+def test_compute_statistics_of_no_tile_raises_as_jax(tile_dir, num_samples):
+    for cls in (EuroSATMultiSpectral, JaxEuroSAT):
+        if num_samples is None:          # an empty split
+            data, num_samples_ = cls(tile_dir, split="val", train_split=1.0), 1000
+        else:
+            data, num_samples_ = cls(tile_dir, split="train"), num_samples
+        with pytest.raises(ValueError, match="No valid samples"):
+            data.compute_statistics(num_samples_)
+
+
 def test_eurosat_pads_cuts_crops_and_zeroes_as_jax(tile_dir):
     ours = EuroSATMultiSpectral(tile_dir, split="train", train_split=1.0)
     by_name = {p.name: i for i, p in enumerate(ours.samples)}

@@ -165,3 +165,27 @@ def test_bf16_compute_dtype_keeps_fp32_state():
     with torch.no_grad():
         y = model.eval()(torch.from_numpy(noisy_tiles((1, 32, 32, 13))).bfloat16())
     assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+
+
+def test_capacity_2x_full_width_decoder_matches_jax():
+    """``capacity_2x.yaml`` (decoder 768/384/192/96, ``unet_light``) with its
+    decoder at full width, the ViT at depth 1 and a 64^2 image: the eval
+    ResidualBlocks at C=768 and the other widths against the flax model,
+    fp32 within 1e-4 relative RMS."""
+    cfg = load_config(CONFIGS / "experiments/capacity_2x.yaml")
+    assert cfg == jax_load_config(CONFIGS / "experiments/capacity_2x.yaml")
+    assert cfg["model"]["decoder"]["channels"] == [768, 384, 192, 96]
+    cfg["model"]["encoder"]["depth"] = 1
+    cfg["data"]["image_size"] = 64
+    jmodel = JaxModel.from_config(cfg)
+    variables = randomize_variables(init_model(jmodel, jax.random.PRNGKey(0)), seed=0)
+    x = noisy_tiles((1, 64, 64, 13))
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
+    model = SatMAERestoration.from_config(cfg, device="cpu").eval()
+    load_jax_variables(model, jax.tree_util.tree_map(np.asarray, variables))
+    assert [r[0].conv0.out_channels for r in model.decoder.res] == [768, 384, 192, 96]
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == x.shape
+    rel = float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2)))
+    assert rel <= 1e-4, rel

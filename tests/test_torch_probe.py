@@ -224,7 +224,7 @@ def test_v2_wrapper_refuses_and_never_takes_the_plain_version_off_the_cpu(
     if case == "dtype":
         x, w1, w2, aff = _meta_block(dtype=torch.float32)
     elif case == "width":
-        x, w1, w2, aff = _meta_block(c=40)
+        x, w1, w2, aff = _meta_block(c=4)            # below K1's widths (8..768)
     elif case == "contiguous":
         x = torch.empty(1, 8, 48, 8, dtype=torch.bfloat16, device="meta").transpose(2, 3)
     elif case == "weights":
@@ -252,7 +252,7 @@ def test_v2_tile_that_does_not_fit_raises_and_names_one_that_does(c, tile):
         assert cuda_decoder.bf16_smem_bytes(c, th, tw, g, stages) <= cuda_decoder.MAX_SMEM
 
 
-@pytest.mark.parametrize("c", cuda_decoder.SUPPORTED_WIDTHS)
+@pytest.mark.parametrize("c", sorted(cuda_decoder.V2_DEFAULT_TILES))
 def test_v2_default_tiles_fit_a_cta(c):
     """Each width's default tile, in the smallest cluster at that width
     whose CTA holds it, with the deepest weight ring that fits: K1's layout (the
@@ -313,18 +313,20 @@ RAGGED = (23, 37)        # divides by no even tile
 
 
 @pytest.mark.parametrize("b", [1, 16])
-@pytest.mark.parametrize("c", cuda_decoder.SUPPORTED_WIDTHS)
+@pytest.mark.parametrize("c", [8, 12, 24, 48, 96, 192, 384, 768])
 def test_v2_picker_fits_a_cta_and_covers_a_ragged_image(c, b):
     """K3's geometry, picked (no tile named: K1's) or around a caller's
-    tile, for the flagship's stage of each width and a ragged image: a
-    build of csrc/resblock.cu (clusters over the output channels at C >= 192
-    only), a CTA's shared memory, a ring of 2..4 stages, and tiles that
-    cover the image."""
+    tile, for the stage of each config width (the flagship's resolution
+    for 48..384) and a ragged image: a build of csrc/resblock.cu at C's
+    padded width (clusters over the output channels at C >= 100 only), a
+    CTA's shared memory, a ring of 2..4 stages, and tiles that cover the
+    image."""
     flagship = 192 * 48 // c
+    cp = cuda_decoder.bf16_padded(c)
     for (h, w), tile in (((flagship, flagship), (None, None)), (RAGGED, (None, None)),
                          (RAGGED, (5, 7)), ((flagship, flagship), (5, 7))):
         th, tw, g, stages = cuda_decoder.v2_tile(c, h, w, b, *tile)
-        assert (c, g) in cuda_decoder.BF16_VARIANTS and (g == 1 or c >= 192)
+        assert (cp, g) in cuda_decoder.BF16_VARIANTS and (g == 1 or c >= 100)
         if tile[0] is None:
             assert (th, tw, g, stages) == cuda_decoder.bf16_tiling(c, h, w, b)
         assert cuda_decoder.BF16_MIN_STAGES <= stages <= cuda_decoder.BF16_MAX_STAGES
@@ -333,8 +335,8 @@ def test_v2_picker_fits_a_cta_and_covers_a_ragged_image(c, b):
             assert (th, tw) == tile
         rows, cols = -(-h // th), -(-w // tw)
         assert rows * th >= h > (rows - 1) * th and cols * tw >= w > (cols - 1) * tw
-        nw, mw, nsplit = cuda_decoder.BF16_VARIANTS[(c, g)]
-        assert nw * (2 if nsplit else 1) == c // g       # the warpgroups cover the CTA's N
+        nw, mw, nsplit = cuda_decoder.BF16_VARIANTS[(cp, g)]
+        assert nw * (2 if nsplit else 1) == cp // g      # the warpgroups cover the CTA's N
 
 
 def test_v2_prepared_weights_are_made_once_and_follow_the_tensor(monkeypatch):

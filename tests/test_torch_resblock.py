@@ -79,6 +79,8 @@ def xla_bf16_block(x, w1, w2, aff):
     ((2, 16, 16, 8), 8, False),
     ((1, 8, 8, 8), 8, True),
     ((2, 24, 16, 8), 8, True),
+    ((1, 8, 16, 12), 8, True),       # tiny_cpu's 12: K1's build of 16, window by plain loads
+    ((1, 8, 16, 768), 8, True),      # capacity_2x's 768: K1's widest build
 ])
 def test_plain_matches_pallas_v3(shape, row_block, im2col):
     x, w1, w2, aff = block_inputs(shape, seed=2)

@@ -205,3 +205,31 @@ def test_eval_step_masked_sums_match_jax(jax_setup):
 def test_eval_step_refuses_what_is_not_ported(jax_setup, kwargs, error, match):
     with pytest.raises(error, match=match):
         make_eval_step(port_model(jax_setup[1]), **kwargs)
+
+
+def test_variables_are_the_live_weights_not_the_ema_as_jax():
+    """``TrainState.variables``: the live parameters and BatchNorm
+    statistics on both sides, not the EMA shadow, which both states hold
+    and which differs from them here."""
+    jmodel = JaxModel(**TINY_FLAGSHIP, dtype=jnp.float32, gradient_checkpointing=False)
+    variables = randomize_variables(init_model(jmodel, jax.random.PRNGKey(0)), seed=3)
+    tx = jax_build_optimizer(jax_sgdr(*SGDR), params=variables["params"], **OPT)
+    jax_state = JaxTrainState.create(variables, tx, ema=True)
+    jax_state = jax_state.replace(
+        ema_params=jax.tree_util.tree_map(lambda a: a + 1.0, jax_state.params))
+    model = SatMAERestoration(**TINY_FLAGSHIP)
+    load_jax_variables(model, jax.tree_util.tree_map(np.asarray, variables))
+    state = TrainState.create(model, build_optimizer(model, cosine_warm_restarts(*SGDR), **OPT),
+                              ema=True)
+    state.ema = {k: v + 1.0 for k, v in state.ema.items()}
+
+    converted = SatMAERestoration(**TINY_FLAGSHIP)
+    load_jax_variables(converted, jax.tree_util.tree_map(np.asarray, jax_state.variables))
+    ours = state.variables
+    assert set(ours) == set(converted.state_dict()) == set(model.state_dict())
+    assert any("running_var" in k for k in ours)
+    for k, v in converted.state_dict().items():
+        assert torch.equal(ours[k], v), k
+    assert ours["decoder.head_out.weight"].data_ptr() == model.decoder.head_out.weight.data_ptr()
+    ema = state.eval_variables()
+    assert not torch.equal(ema["decoder.head_out.weight"], ours["decoder.head_out.weight"])
