@@ -188,7 +188,9 @@ network. Phases, each of which must pass:
    24, 48, 96, 192, 384, 768), each at its config's resolution, and at
    widths between the builds (13, 40, 60, 100, 136, 200, 300, 500, 700),
    B=1 and B=16, every build of ``csrc/resblock.cu`` run, with tile,
-   cluster, stages, time, the cuDNN composition's and the bound; K4 at
+   cluster, stages, body, time, the cuDNN composition's and the bound;
+   the wide builds' streamed body at 24x24 at C=256, 300, 384, 500, 512,
+   640, 700 and 768, B=1, 16 and 64 (the rows above not run again); K4 at
    widths whose picked cluster is 3, 5, 6, 7 and 8 CTAs (as phase 3); then
    ``capacity_2x.yaml`` (ViT-Base, ``unet_light`` 768/384/192/96, 192²x13,
    seeded weights) served by captured sessions of the module's forward in
@@ -364,6 +366,13 @@ WIDTH_SHAPES = ((8, 64), (12, 32), (24, 16), (48, 192), (96, 192), (192, 96), (3
                 (768, 24))
 OFF_GRID_SHAPES = ((13, 32), (40, 64), (60, 64), (100, 48), (136, 48), (200, 48), (300, 24),
                    (500, 24), (700, 24))
+# K1's wide builds (the streamed body) at a 768-wide decoder's 24x24 stage,
+# at every batch of the port's paths: each build's own width and widths
+# between them (no multiple of 8: chunks by plain loads; 640: chunks past C
+# skipped). Rows the shapes above already give are not run again.
+WIDE_SHAPES = ((256, 24), (300, 24), (384, 24), (500, 24), (512, 24), (640, 24), (700, 24),
+               (768, 24))
+WIDE_BATCHES = (1, 16, SCENE_BATCH)
 # K4 where its picked cluster is 3, 5, 6 and 7 CTAs (at B=1), and C=768 (8)
 K4_WIDTH_SHAPES = ((72, 24), (136, 24), (168, 24), (200, 24), (768, 24))
 CAPACITY_CONFIG = ROOT / "configs" / "experiments" / "capacity_2x.yaml"
@@ -535,6 +544,8 @@ def phase_kernel(torch, F, failures: list) -> list[dict]:
             row = {
                 "check": "resblock", "C": c, "H": s, "W": s, "B": b,
                 "tile": [th, tw], "cluster": g, "stages": stages,
+                "body": cuda_decoder.BF16_VARIANTS[(cuda_decoder.bf16_padded(c), g)][3],
+           "taps": cuda_decoder.BF16_VARIANTS[(cuda_decoder.bf16_padded(c), g)][4],
                 "encodes_first_call": encodes[1] - encodes[0],
                 "encodes_23_more_calls": encodes[2] - encodes[1],
                 "kernel_ms": kernel_ms,
@@ -3152,6 +3163,8 @@ def kernel_row(torch, lib, c: int, s: int, b: int, sms: int) -> dict:
     th, tw, g, stages = cuda_decoder.bf16_tiling(c, s, s, b, sms)
     row = {"check": "widths_k1", "C": c, "padded": cuda_decoder.bf16_padded(c),
            "H": s, "W": s, "B": b, "tile": [th, tw], "cluster": g, "stages": stages,
+           "body": cuda_decoder.BF16_VARIANTS[(cuda_decoder.bf16_padded(c), g)][3],
+           "taps": cuda_decoder.BF16_VARIANTS[(cuda_decoder.bf16_padded(c), g)][4],
            "window": "tma" if c % 8 == 0 else "plain loads",
            "kernel_ms": time_ms(torch, lambda: cuda_decoder.fused_residual_block(
                x, p1, p2, aff), iters=10),
@@ -3382,15 +3395,20 @@ def phase_widths(torch, F, failures: list, card: str) -> dict:
     lib = library_block(torch, F)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     result: dict = {"check": "widths", "card": card, "k1": [], "k4": []}
-    for c, s in WIDTH_SHAPES + OFF_GRID_SHAPES:
-        for b in WIDTHS_BATCHES:
-            row = kernel_row(torch, lib, c, s, b, sms)
-            row["config_width"] = (c, s) in WIDTH_SHAPES
-            emit(row)
-            result["k1"].append(row)
-            if not row["ok"]:
-                failures.append(f"widths: K1 C={c} H={s} B={b}: max_abs_err "
-                                f"{row['max_abs_err']}")
+    cases = [(c, s, b) for c, s in WIDTH_SHAPES + OFF_GRID_SHAPES for b in WIDTHS_BATCHES]
+    cases += [(c, s, b) for c, s in WIDE_SHAPES for b in WIDE_BATCHES if (c, s, b) not in cases]
+    for c, s, b in cases:
+        row = kernel_row(torch, lib, c, s, b, sms)
+        row["config_width"] = (c, s) in WIDTH_SHAPES
+        emit(row)
+        result["k1"].append(row)
+        if not row["ok"]:
+            failures.append(f"widths: K1 C={c} H={s} B={b}: max_abs_err "
+                            f"{row['max_abs_err']}")
+    result["wide"] = {f"C{r['C']}B{r['B']}": {k: r[k] for k in (
+        "kernel_ms", "library_ms", "plain_ms", "bound_ms", "tile", "cluster", "stages", "body",
+        "taps")}
+        for r in result["k1"] if (r["C"], r["H"]) in WIDE_SHAPES}
     builds = {r["padded"] for r in result["k1"]}
     if builds != set(RESBLOCK_BUILDS):
         failures.append(f"widths: K1 rows ran builds {sorted(builds)}, not all of "
@@ -3608,6 +3626,9 @@ def main() -> int:
         "scene_forward": k1_scene,
         "tiles": {f"C{r['C']}B{r['B']}": r["tile"] + [r["cluster"]] for r in rows},
         "widths": "8..768, 11 builds by padded width (widths phase)",
+        "bodies": "resident window at builds 16..192, streamed window (chunks multicast "
+                  "across the cluster) at 256..768",
+        "wide": widths["wide"],
         "capacity_2x_stage_768": dict(widths["k1_stage_768_b16"],
                                       per="the 2 launches of the C=768 stage of one "
                                           "B=16 capacity_2x forward (24x24)"),

@@ -8,8 +8,10 @@ commit, unpacked by ``git archive``). Each turn is a child process started
 in one tree with only that tree on its path: it builds the kernels there
 (the builds its ``chip_smoke.py`` lists, all started together), times each
 with CUDA events (median of ``ITERS`` calls after warmup) on seeded
-inputs (K1 at B=1, 16 and 64 of the flagship's four stage shapes, K3 at
-B=16 and the probe's block), and saves a few outputs; K5 and ``x * 2`` also per call in a CUDA
+inputs (K1 at B=1, 16 and 64 of the flagship's four stage shapes and at
+B=16 and 64 of a 768-wide decoder's 24x24 stage at the wide builds' widths
+256, 300, 384, 500, 512, 640, 700 and 768, K3 at B=16 and the probe's
+block), and saves a few outputs; K5 and ``x * 2`` also per call in a CUDA
 graph of 100 (device time) beside their call time. Both timings are this
 tree's ``chip_smoke.time_ms`` and ``chip_smoke.graph_ms``, loaded by path
 in every turn, so that both trees are timed alike. The turns run other,
@@ -54,6 +56,7 @@ from msid_tpu_torch.ops import _build, cuda_decoder, cuda_noise, cuda_probe
 from msid_tpu_torch.ops.noise import NoiseConfig
 
 SHAPES = ((384, 24), (192, 48), (96, 96), (48, 192))
+WIDE = ((256, 24), (300, 24), (384, 24), (500, 24), (512, 24), (640, 24), (700, 24), (768, 24))
 ITERS = int(sys.argv[2])
 spec = importlib.util.spec_from_file_location("turn_timing", sys.argv[3])
 timing = importlib.util.module_from_spec(spec)
@@ -121,6 +124,14 @@ for c, s in SHAPES:
                 x, p1, p2, aff).cpu()
             outputs[f"k4_1x{s}x{s}x{c}"] = cuda_decoder.fused_residual_block(
                 x.float(), w1.float(), w2.float(), aff).cpu()
+for c, s in WIDE:                                 # K1's wide builds
+    for b in (16, 64):
+        if f"k1_{b}x{s}x{s}x{c}" in times:
+            continue
+        x, w1, w2, aff = block(c, s, b, seed=c + b)
+        p1, p2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
+        times[f"k1_{b}x{s}x{s}x{c}"] = time_ms(
+            lambda: cuda_decoder.fused_residual_block(x, p1, p2, aff))
 torch.cuda.synchronize()
 torch.save(outputs, sys.argv[1])
 print(json.dumps({"build_seconds": build_seconds, "times": times}))

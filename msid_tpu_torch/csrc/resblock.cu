@@ -77,6 +77,15 @@
 // no copy of x is made). At C = 768 a cluster of 8 CTAs owns 96 channels
 // each and the whole 768-channel window sits in every CTA's shared memory.
 //
+// The wide builds (256, 384, 512, 768) run K1 on another CTA body
+// (resblock_stream_cta in hopper_common.cuh): a window that holds every
+// channel leaves a C = 768 CTA room for a 6 x 8 tile and a 2-stage ring
+// only, so there both convs stream their source through two 64-channel
+// slots (the window's multicast across the cluster by TMA, h's copied from
+// the CTAs that own it), A comes from the slot by descriptor, and a third
+// warpgroup produces every copy. K3 keeps the resident window at every
+// build.
+//
 // C = 48 has no 128-byte k-tile of its own (48 bf16 = 96 bytes). Two ways:
 // 16-channel boxes under the 32-byte swizzle (3 k16 steps, no padding), or
 // zero padding of the weights to 64 columns. Both kernels take the padding:
@@ -99,17 +108,25 @@
 
 namespace {
 
-template <int CP, int NW, int MW, bool NSPLIT>
-__global__ void __launch_bounds__(kThreads, 1)
+// K1: the streamed body at the wide builds' variants (TAPS weight tiles a
+// stage, 384 threads: a producer warpgroup beside the two of wgmma), the
+// resident window at the others (TAPS 0).
+template <int CP, int NW, int MW, bool NSPLIT, int TAPS>
+__global__ void __launch_bounds__(TAPS > 0 ? kStreamThreads : kThreads, 1)
     resblock_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap w1map,
                     const __grid_constant__ CUtensorMap w2map, const bf16* __restrict__ x,
                     const float* __restrict__ aff, bf16* __restrict__ out, int H, int W,
                     int C, int TH, int TW, int stages) {
-  resblock_cta<CP, NW, MW, NSPLIT>(&xmap, &w1map, &w2map, x, aff, out, H, W, C, TH, TW,
-                                   stages);
+  if constexpr (TAPS > 0)
+    resblock_stream_cta<CP, NW, MW, NSPLIT, TAPS>(&xmap, &w1map, &w2map, x, aff, out, H, W,
+                                                  C, TH, TW, stages);
+  else
+    resblock_cta<CP, NW, MW, NSPLIT>(&xmap, &w1map, &w2map, x, aff, out, H, W, C, TH, TW,
+                                     stages);
 }
 
+// K3: the resident window at every build.
 template <int CP, int NW, int MW, bool NSPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     resblock_v2_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -121,22 +138,59 @@ __global__ void __launch_bounds__(kThreads, 1)
                                    stages);
 }
 
-// K1 (V2 false) or K3 (V2 true) of one instantiation.
-template <bool V2, int CP, int NW, int MW, bool NSPLIT>
-int launch(const void* x, const void* w1map, const void* w2map, const void* aff, void* out,
-           int B, int H, int W, int C, int TH, int TW, int stages, cudaStream_t stream) {
-  return launch_resblock<CP, NW, MW, NSPLIT>(
-      V2 ? &resblock_v2_kernel<CP, NW, MW, NSPLIT> : &resblock_kernel<CP, NW, MW, NSPLIT>,
-      x, w1map, w2map, aff, out, B, H, W, C, TH, TW, stages, stream);
-}
+// The instantiations of this build, by cluster size G: K1's (G, NW, MW,
+// NSPLIT, TAPS) as ops/cuda_decoder.py's BF16_VARIANTS lists them (TAPS 0:
+// the resident window; 1 or 3: the streamed body), K3's (G, NW, MW,
+// NSPLIT) as its V2_VARIANTS does. Below 256 the two are one.
+#if MSID_C == 16
+#define MSID_VARIANTS(K1, K3) K1(1, 16, 4, false, 0) K3(1, 16, 4, false)
+#elif MSID_C == 32
+#define MSID_VARIANTS(K1, K3) K1(1, 32, 4, false, 0) K3(1, 32, 4, false)
+#elif MSID_C == 48
+#define MSID_VARIANTS(K1, K3) K1(1, 48, 4, false, 0) K3(1, 48, 4, false)
+#elif MSID_C == 64
+#define MSID_VARIANTS(K1, K3) K1(1, 64, 2, false, 0) K3(1, 64, 2, false)
+#elif MSID_C == 96
+#define MSID_VARIANTS(K1, K3) K1(1, 96, 2, false, 0) K3(1, 96, 2, false)
+#elif MSID_C == 128
+#define MSID_VARIANTS(K1, K3)                                           \
+  K1(1, 64, 2, true, 0) K1(2, 64, 2, false, 0) K3(1, 64, 2, true) \
+  K3(2, 64, 2, false)
+#elif MSID_C == 192
+#define MSID_VARIANTS(K1, K3)                                           \
+  K1(1, 96, 2, true, 0) K1(2, 96, 2, false, 0) K3(1, 96, 2, true) \
+  K3(2, 96, 2, false)
+#elif MSID_C == 256
+#define MSID_VARIANTS(K1, K3)                                         \
+  K1(2, 64, 2, true, 3) K1(4, 64, 2, false, 3) K3(2, 64, 2, true) \
+  K3(4, 64, 2, false)
+#elif MSID_C == 384
+#define MSID_VARIANTS(K1, K3)                                         \
+  K1(2, 96, 2, true, 1) K1(4, 96, 2, false, 3) K3(2, 96, 2, true) \
+  K3(4, 48, 4, true)
+#elif MSID_C == 512
+#define MSID_VARIANTS(K1, K3)                                         \
+  K1(4, 64, 2, true, 3) K1(8, 64, 2, false, 3) K3(4, 64, 2, true) \
+  K3(8, 32, 4, true)
+#elif MSID_C == 768
+#define MSID_VARIANTS(K1, K3) K1(8, 96, 2, false, 3) K3(8, 48, 2, true)
+#else
+#error "MSID_C must be 16, 32, 48, 64, 96, 128, 192, 256, 384, 512 or 768"
+#endif
 
-// The instantiations of this build, by cluster size G: <CP, NW, MW, NSPLIT>
-// as ops/cuda_decoder.py's BF16_VARIANTS lists them.
-#define MSID_CASE(G, NW, MW, NSPLIT)                                                     \
-  case G:                                                                              \
-    return launch<V2, MSID_C, NW, MW, NSPLIT>(x, w1map, w2map, aff, out, B, H, W, C, TH, \
-                                              TW, stages, s);
+#define MSID_NONE(...)
+#define MSID_K1(G, NW, MW, NSPLIT, TAPS)                                                  \
+  case G:                                                                                \
+    return launch_resblock<MSID_C, NW, MW, NSPLIT, TAPS>(                                \
+        &resblock_kernel<MSID_C, NW, MW, NSPLIT, TAPS>, x, w1map, w2map, aff, out, B, H, W, \
+        C, TH, TW, stages, s);
+#define MSID_K3(G, NW, MW, NSPLIT)                                                          \
+  case G:                                                                                  \
+    return launch_resblock<MSID_C, NW, MW, NSPLIT>(&resblock_v2_kernel<MSID_C, NW, MW, NSPLIT>, \
+                                                   x, w1map, w2map, aff, out, B, H, W, C, TH,  \
+                                                   TW, stages, s);
 
+// K1 (V2 false) or K3 (V2 true) at cluster size G.
 template <bool V2>
 int forward(const void* x, const void* w1map, const void* w2map, const void* aff, void* out,
             int B, int H, int W, int C, int TH, int TW, int G, int stages, void* stream) {
@@ -144,43 +198,25 @@ int forward(const void* x, const void* w1map, const void* w2map, const void* aff
       stages > kMaxStages || C < 8 || C > MSID_C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (G) {
-#if MSID_C == 16
-    MSID_CASE(1, 16, 4, false)
-#elif MSID_C == 32
-    MSID_CASE(1, 32, 4, false)
-#elif MSID_C == 48
-    MSID_CASE(1, 48, 4, false)
-#elif MSID_C == 64
-    MSID_CASE(1, 64, 2, false)
-#elif MSID_C == 96
-    MSID_CASE(1, 96, 2, false)
-#elif MSID_C == 128
-    MSID_CASE(1, 64, 2, true)
-    MSID_CASE(2, 64, 2, false)
-#elif MSID_C == 192
-    MSID_CASE(1, 96, 2, true)
-    MSID_CASE(2, 96, 2, false)
-#elif MSID_C == 256
-    MSID_CASE(2, 64, 2, true)
-    MSID_CASE(4, 64, 2, false)
-#elif MSID_C == 384
-    MSID_CASE(2, 96, 2, true)
-    MSID_CASE(4, 48, 4, true)
-#elif MSID_C == 512
-    MSID_CASE(4, 64, 2, true)
-    MSID_CASE(8, 32, 4, true)
-#elif MSID_C == 768
-    MSID_CASE(8, 48, 2, true)
-#else
-#error "MSID_C must be 16, 32, 48, 64, 96, 128, 192, 256, 384, 512 or 768"
-#endif
-    default:
-      return (int)cudaErrorInvalidValue;
+  if constexpr (V2) {
+    switch (G) {
+      MSID_VARIANTS(MSID_NONE, MSID_K3)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (G) {
+      MSID_VARIANTS(MSID_K1, MSID_NONE)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
-#undef MSID_CASE
+#undef MSID_K1
+#undef MSID_K3
+#undef MSID_NONE
+#undef MSID_VARIANTS
 
 }  // namespace
 
@@ -209,7 +245,8 @@ extern "C" int msid_resblock_weight_map(const void* wk, int C, int G, void* map)
 // fp32. 8 <= C <= MSID_C. (TH, TW) is the output tile of one cluster of G
 // CTAs (each at most 252), `stages` (2..4) the depth of the weight ring; the
 // caller chooses them (K1: bf16_tiling; K3: v2_tile, around the caller's
-// tile). Supported (MSID_C, G): (16, 1), (32, 1), (48, 1), (64, 1), (96, 1),
+// tile; the streamed body's geometry holds its own layout, stream_smem_bytes).
+// Supported (MSID_C, G): (16, 1), (32, 1), (48, 1), (64, 1), (96, 1),
 // (128, 1|2), (192, 1|2), (256, 2|4), (384, 2|4), (512, 4|8), (768, 8); a
 // library holds one padded width's kernels (the builds compile side by
 // side). Returns 0, the cudaError_t of the launch (cudaErrorInvalidValue

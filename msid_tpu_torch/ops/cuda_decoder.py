@@ -100,16 +100,30 @@ H100_SMS = 132
 # width CP, cluster size g) the width ``nw`` of a warpgroup's wgmma, the m64
 # tiles ``mw`` a warpgroup holds in one pass, and whether the two
 # warpgroups split the CTA's N = CP / g channels (True) or the region's
-# tiles (False).
-BF16_VARIANTS = {(16, 1): (16, 4, False), (32, 1): (32, 4, False),
-                 (48, 1): (48, 4, False), (64, 1): (64, 2, False),
-                 (96, 1): (96, 2, False),
-                 (128, 1): (64, 2, True), (128, 2): (64, 2, False),
-                 (192, 1): (96, 2, True), (192, 2): (96, 2, False),
-                 (256, 2): (64, 2, True), (256, 4): (64, 2, False),
-                 (384, 2): (96, 2, True), (384, 4): (48, 4, True),
-                 (512, 4): (64, 2, True), (512, 8): (32, 4, True),
-                 (768, 8): (48, 2, True)}
+# tiles (False). K3 (V2_VARIANTS) keeps the whole x window in every CTA
+# (``"window"``: csrc/hopper_common.cuh, resblock_cta) at every build. K1
+# (BF16_VARIANTS, which also names the body and, for the streamed one, the
+# weight tiles a stage of its ring holds) does so below 256; its wide builds
+# stream the window through a ring of 64-channel chunks multicast across
+# the cluster (``"stream"``: resblock_stream_cta), which frees the shared
+# memory for larger tiles and a deeper weight ring.
+_NARROW_VARIANTS = {(16, 1): (16, 4, False), (32, 1): (32, 4, False),
+                    (48, 1): (48, 4, False), (64, 1): (64, 2, False),
+                    (96, 1): (96, 2, False),
+                    (128, 1): (64, 2, True), (128, 2): (64, 2, False),
+                    (192, 1): (96, 2, True), (192, 2): (96, 2, False)}
+V2_VARIANTS = {**_NARROW_VARIANTS,
+               (256, 2): (64, 2, True), (256, 4): (64, 2, False),
+               (384, 2): (96, 2, True), (384, 4): (48, 4, True),
+               (512, 4): (64, 2, True), (512, 8): (32, 4, True),
+               (768, 8): (48, 2, True)}
+BF16_VARIANTS = {**{key: (*v, "window", 0) for key, v in _NARROW_VARIANTS.items()},
+                 (256, 2): (64, 2, True, "stream", 3), (256, 4): (64, 2, False, "stream", 3),
+                 (384, 2): (96, 2, True, "stream", 1), (384, 4): (96, 2, False, "stream", 3),
+                 (512, 4): (64, 2, True, "stream", 3), (512, 8): (64, 2, False, "stream", 3),
+                 (768, 8): (96, 2, False, "stream", 3)}
+_V2_BODIES = {key: (*v, "window", 0) for key, v in V2_VARIANTS.items()}
+STREAM_SLOTS = 2        # window slots of the streamed body's ring (kWindowSlots)
 BF16_BK = 64            # input channels of one staged weight tile (128 bytes)
 TENSOR_MAP_BYTES = 128  # sizeof(CUtensorMap)
 BF16_MAX_STAGES = 4
@@ -122,6 +136,7 @@ _FP32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 # Cost model of bf16_candidates, in m64 x 96-channel wgmma steps over all of K.
 BF16_PASS_COST = 0.3
 BF16_WINDOW_COST = 0.5 / 100e3      # per byte of window a CTA waits for
+BF16_STREAM_STEP_COST = 0.04        # per barrier step of the streamed body's passes
 
 
 def fold_batchnorm(scale, bias, mean, var, eps: float = 1e-5):
@@ -329,21 +344,59 @@ def bf16_defines(c: int) -> tuple[str, ...]:
     return (f"MSID_C={bf16_padded(c)}",)
 
 
-def bf16_smem_bytes(c: int, th: int, tw: int, g: int, stages: int) -> int:
-    """Shared memory of one K1 CTA for a ``th`` x ``tw`` output tile in a
-    cluster of ``g``, at the padded width CP of ``c``'s build (``c``
-    itself outside K1's widths): the bf16 x window with its 2-pixel halo in
-    channel chunks that each start on a 1024-byte boundary, ``stages``
-    weight tiles of [CP / g][64], its CP / g channels of h over the tile
-    plus 1 pixel at a pitch of CP / g + 8, the barriers, and the slack to
-    align the base."""
+def variants(kernel: str = "k1") -> dict:
+    """``(CP, g)`` -> ``(nw, mw, nsplit, body, taps)`` of K1 (``"k1"``) or
+    K3 (``"k3"``, the resident window at every build; ``taps`` 0)."""
+    if kernel == "k1":
+        return BF16_VARIANTS
+    if kernel == "k3":
+        return _V2_BODIES
+    raise ValueError(f"kernel must be 'k1' or 'k3', got {kernel!r}")
+
+
+def stream_pitch(tw: int) -> int:
+    """Pixels of a row of the streamed body's window slot: ``tw + 4``
+    rounded up to 8 (csrc/hopper_common.cuh, stream_pitch)."""
+    return -(-(tw + 4) // 8) * 8
+
+
+def bf16_smem_bytes(c: int, th: int, tw: int, g: int, stages: int,
+                    body: str = "window", taps: int = 0) -> int:
+    """Shared memory of one K1 or K3 CTA for a ``th`` x ``tw`` output tile
+    in a cluster of ``g``, at the padded width CP of ``c``'s build (``c``
+    itself outside K1's widths): ``stages`` weight tiles of [CP / g][64],
+    its CP / g channels of h over the tile plus 1 pixel at a pitch of
+    CP / g + 8, the barriers, the slack to align the base, and the x window
+    with its 2-pixel halo. ``"window"`` (resblock_cta): every channel, in
+    chunks that each start on a 1024-byte boundary. ``"stream"``
+    (resblock_stream_cta): STREAM_SLOTS slots of one 64-channel chunk,
+    ``th + 4`` rows at a pitch of ``tw + 4`` rounded up to 8 pixels, and
+    ``taps`` (1 or 3) weight tiles a ring stage."""
     cp = bf16_padded(c) if c in SUPPORTED_WIDTHS else c
-    ck = v2_chunk(cp)
     n = cp // g
-    chunk = -(-((th + 4) * (tw + 4) * ck * 2) // 1024) * 1024
     hbytes = -(-((th + 2) * (tw + 2) * (n + 8) * 2) // 16) * 16
+    if body == "stream":
+        if taps not in (1, 3):
+            raise ValueError(f"the streamed body takes 1 or 3 taps a stage, got {taps}")
+        return (STREAM_SLOTS * (th + 4) * stream_pitch(tw) * BF16_BK * 2 + stages * taps * n * 128
+                + hbytes + 8 * (2 * STREAM_SLOTS + 2 * BF16_MAX_STAGES) + 1024)
+    if body != "window":
+        raise ValueError(f"body must be 'window' or 'stream', got {body!r}")
+    ck = v2_chunk(cp)
+    chunk = -(-((th + 4) * (tw + 4) * ck * 2) // 1024) * 1024
     return (cp // ck * chunk + stages * n * 128 + hbytes
             + 8 * (1 + 2 * BF16_MAX_STAGES) + 1024)
+
+
+def bf16_regions(th: int, tw: int, body: str = "window") -> tuple[int, int]:
+    """The pixels of conv1's and conv2's regions (h over the tile plus 1
+    pixel, and the tile) as a body lays them out in m64 tiles: the resident
+    window's at their own widths; the streamed body's at their sources'
+    pitches (the window's ``stream_pitch(tw)``, h's ``tw + 2``), the extra
+    columns computed and discarded."""
+    if body == "stream":
+        return (th + 2) * stream_pitch(tw), th * (tw + 2)
+    return (th + 2) * (tw + 2), th * tw
 
 
 def bf16_steps(m: int, mw: int, nsplit: bool) -> tuple[int, int]:
@@ -355,59 +408,74 @@ def bf16_steps(m: int, mw: int, nsplit: bool) -> tuple[int, int]:
     return math.ceil(share / mw), share
 
 
-def bf16_candidates(c: int, h: int, w: int, b: int,
-                    sms: int = H100_SMS) -> list[tuple[float, tuple[int, ...]]]:
-    """Every K1 geometry ``(th, tw, g, stages)`` with an even tile that fits
-    shared memory (the deepest weight ring that fits, at least 2), with its
-    estimated cost, cheapest first: waves of clusters times the wgmma steps
-    of a warpgroup over both convs (scaled by its width), plus a cost per
-    pass and for the window a CTA waits for before conv1, all at the padded
-    width of ``c``'s build (a CTA whose channels all lie past C computes
-    zeros and costs the same). Ties go to the larger tile."""
+def bf16_candidates(c: int, h: int, w: int, b: int, sms: int = H100_SMS,
+                    kernel: str = "k1") -> list[tuple[float, tuple[int, ...]]]:
+    """Every geometry ``(th, tw, g, stages)`` of K1 (or K3, ``kernel="k3"``)
+    with an even tile that fits shared memory (the deepest weight ring that
+    fits, at least 2), with its estimated cost, cheapest first: waves of
+    clusters times the wgmma steps of a warpgroup over both convs (scaled by
+    its width), plus a cost per pass, per barrier step of the streamed
+    body (one for every chunk and ``taps`` taps) and for the window a CTA
+    waits for before conv1 (all of it, or the streamed body's first chunk),
+    all at the padded width of ``c``'s build (a CTA whose channels all lie
+    past C computes zeros and costs the same). Ties go to the larger
+    tile."""
     cp = bf16_padded(c)
     found = []
-    for (width, g), (nw, mw, nsplit) in BF16_VARIANTS.items():
+    for (width, g), (nw, mw, nsplit, body, taps) in variants(kernel).items():
         if width != cp:
             continue
         for th in range(2, min(h + 1, 32) + 1, 2):
             for tw in range(2, min(w + 1, 64) + 1, 2):
                 stages = next((s for s in range(BF16_MAX_STAGES, BF16_MIN_STAGES - 1, -1)
-                               if bf16_smem_bytes(c, th, tw, g, s) <= MAX_SMEM), None)
+                               if bf16_smem_bytes(c, th, tw, g, s, body, taps) <= MAX_SMEM),
+                              None)
                 if stages is None:
                     break                     # wider tiles need more still
-                p1, s1 = bf16_steps((th + 2) * (tw + 2), mw, nsplit)
-                p2, s2 = bf16_steps(th * tw, mw, nsplit)
+                m1, m2 = bf16_regions(th, tw, body)
+                p1, s1 = bf16_steps(m1, mw, nsplit)
+                p2, s2 = bf16_steps(m2, mw, nsplit)
                 clusters = math.ceil(h / th) * math.ceil(w / tw) * b
                 waves = math.ceil(clusters / max(1, FP32_ACTIVE_CLUSTERS[g] * sms // H100_SMS))
-                steps = ((s1 + s2) * nw / 96 + BF16_PASS_COST * (p1 + p2)
-                         + BF16_WINDOW_COST * (th + 4) * (tw + 4) * cp * 2)
+                if body == "stream":
+                    steps = ((s1 + s2) * nw / 96 + BF16_PASS_COST * (p1 + p2)
+                             + BF16_STREAM_STEP_COST * (p1 + p2) * cp // BF16_BK * 9 // taps
+                             + BF16_WINDOW_COST * (th + 4) * stream_pitch(tw) * BF16_BK * 2)
+                else:
+                    steps = ((s1 + s2) * nw / 96 + BF16_PASS_COST * (p1 + p2)
+                             + BF16_WINDOW_COST * (th + 4) * (tw + 4) * cp * 2)
                 found.append(((waves * steps, -th * tw), (th, tw, g, stages)))
     found.sort()
     return [(key[0], geometry) for key, geometry in found]
 
 
 @functools.lru_cache(maxsize=None)
-def bf16_tiling(c: int, h: int, w: int, b: int,
-                sms: int = H100_SMS) -> tuple[int, int, int, int]:
-    """``(th, tw, g, stages)`` for K1: the cheapest of ``bf16_candidates``."""
+def bf16_tiling(c: int, h: int, w: int, b: int, sms: int = H100_SMS,
+                kernel: str = "k1") -> tuple[int, int, int, int]:
+    """``(th, tw, g, stages)`` for K1 (or K3): the cheapest of
+    ``bf16_candidates``."""
     _check_width(c)
-    return bf16_candidates(c, h, w, b, sms)[0][1]
+    return bf16_candidates(c, h, w, b, sms, kernel)[0][1]
 
 
 @functools.lru_cache(maxsize=4096)
-def bf16_check_tile(c: int, th: int, tw: int, g: int, stages: int) -> None:
-    """Raise ``ValueError`` for a K1 geometry the kernel does not take (a
-    geometry it takes is remembered: every launch checks its own)."""
-    if (c not in SUPPORTED_WIDTHS or (bf16_padded(c), g) not in BF16_VARIANTS
+def bf16_check_tile(c: int, th: int, tw: int, g: int, stages: int,
+                    kernel: str = "k1") -> None:
+    """Raise ``ValueError`` for a K1 (or K3) geometry the kernel does not
+    take (a geometry it takes is remembered: every launch checks its
+    own)."""
+    found = variants(kernel).get((bf16_padded(c), g)) if c in SUPPORTED_WIDTHS else None
+    if (found is None
             or not 1 <= th <= BF16_MAX_TILE
             or not 1 <= tw <= BF16_MAX_TILE
             or not BF16_MIN_STAGES <= stages <= BF16_MAX_STAGES):
-        raise ValueError(f"K1 takes no geometry tile ({th}, {tw}), g={g}, "
+        raise ValueError(f"{kernel.upper()} takes no geometry tile ({th}, {tw}), g={g}, "
                          f"stages={stages} at C={c}")
-    need = bf16_smem_bytes(c, th, tw, g, stages)
+    need = bf16_smem_bytes(c, th, tw, g, stages, *found[3:])
     if need > MAX_SMEM:
-        raise ValueError(f"tile ({th}, {tw}) at C={c} (g={g}, stages={stages}) needs "
-                         f"{need} bytes of shared memory, a CTA has {MAX_SMEM}")
+        raise ValueError(f"tile ({th}, {tw}) at C={c} (g={g}, stages={stages}, "
+                         f"{found[3]} body) needs {need} bytes of shared memory, a CTA has "
+                         f"{MAX_SMEM}")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -532,7 +600,7 @@ def _launch_bf16(entry: str, x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tens
     _check("w1", w1k, (9 * cp, kp), torch.bfloat16, x.device)
     _check("w2", w2k, (9 * cp, kp), torch.bfloat16, x.device)
     th, tw, g, stages = geometry
-    bf16_check_tile(c, th, tw, g, stages)
+    bf16_check_tile(c, th, tw, g, stages, "k3" if entry == "msid_resblock_v2_forward" else "k1")
     for name, t in (("x", x), ("w1", w1k), ("w2", w2k)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -584,22 +652,24 @@ def v2_tile(c: int, h: int, w: int, b: int, row_block: int | None = None,
             col_block: int | None = None,
             sms: int = H100_SMS) -> tuple[int, int, int, int]:
     """K3's launch geometry ``(th, tw, g, stages)`` for a ``[b, h, w, c]``
-    block. With no tile named, K1's (``bf16_tiling``). Otherwise the
+    block. With no tile named, K1's cost model over K3's own variants
+    (``bf16_tiling(..., kernel="k3")``). Otherwise the
     caller's tile (a side left out from ``V2_DEFAULT_TILES``) with the
     smallest cluster at this width whose CTA holds it with a weight ring of
     at least BF16_MIN_STAGES stages, and the deepest ring that fits (at a
     width the kernels are not built for, where only the plain version runs,
-    one CTA). The layout is K1's (``bf16_smem_bytes``). Raises
-    ``ValueError`` for a tile that does not fit, naming one that does."""
+    one CTA). The layout is the resident window's (``bf16_smem_bytes``).
+    Raises ``ValueError`` for a tile that does not fit, naming one that
+    does."""
     if row_block is None and col_block is None and c in SUPPORTED_WIDTHS:
-        return bf16_tiling(c, h, w, b, sms)
+        return bf16_tiling(c, h, w, b, sms, "k3")
     default = V2_DEFAULT_TILES.get(c, (8, 8))
     rb = default[0] if row_block is None else int(row_block)
     cb = default[1] if col_block is None else int(col_block)
     if not (1 <= rb <= V2_MAX_TILE and 1 <= cb <= V2_MAX_TILE):
         raise ValueError(f"tile ({rb}, {cb}) must lie in 1..{V2_MAX_TILE}")
     cp = bf16_padded(c) if c in SUPPORTED_WIDTHS else c
-    clusters = sorted(g for width, g in BF16_VARIANTS if width == cp) or [1]
+    clusters = sorted(g for width, g in V2_VARIANTS if width == cp) or [1]
     for g in clusters:
         for stages in range(BF16_MAX_STAGES, BF16_MIN_STAGES - 1, -1):
             if bf16_smem_bytes(c, rb, cb, g, stages) <= MAX_SMEM:

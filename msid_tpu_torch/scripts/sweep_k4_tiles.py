@@ -2,7 +2,7 @@
 their launch geometries, on the card.
 
     python -m msid_tpu_torch.scripts.sweep_k4_tiles [--kernel k4|k1|both]
-        [--out tiles.jsonl] [--top 10]
+        [--out tiles.jsonl] [--top 10] [--shapes 768:24,384:24] [--batches 16,64]
 
 First the clusters of every size K4 and K1 launch (1 to 8 CTAs) that
 the card holds at once at K4's shared memory (what ``FP32_ACTIVE_CLUSTERS``
@@ -15,7 +15,8 @@ abs error <= 1e-4), then timed as the median of CUDA events. K1: the same
 over ``bf16_candidates`` (output tile, cluster size, weight-ring depth) at
 the same shapes, held to rtol 0.03 / atol 0.02. One JSON line per kernel
 and shape gives the times by geometry, the fastest and the one the picker
-takes. Needs a CUDA card and ``nvcc``.
+takes. ``--shapes`` (``C:S`` pairs) and ``--batches`` replace the shapes and
+batches swept. Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -95,7 +96,12 @@ def main(argv=None) -> int:
     p.add_argument("--out", type=str, default=None, help="also write the lines here")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--top", type=int, default=10)
+    p.add_argument("--shapes", type=str, default=None, help="C:S pairs, comma-separated")
+    p.add_argument("--batches", type=str, default=None, help="batches, comma-separated")
     args = p.parse_args(argv)
+    shapes = (tuple(tuple(int(v) for v in pair.split(":")) for pair in args.shapes.split(","))
+              if args.shapes else SHAPES)
+    batches = tuple(int(v) for v in args.batches.split(",")) if args.batches else BATCHES
 
     import torch
 
@@ -117,8 +123,8 @@ def main(argv=None) -> int:
             g: fn(g, 200000) for g in sorted(cd.FP32_ACTIVE_CLUSTERS)},
             "assumed": cd.FP32_ACTIVE_CLUSTERS}), flush=True)
     for kernel in ("k4", "k1") if args.kernel == "both" else (args.kernel,):
-        for c, s in SHAPES:
-            for b in BATCHES:
+        for c, s in shapes:
+            for b in batches:
                 line = sweep(torch, cd, kernel, c, s, b, args.top, args.iters, sms)
                 print(json.dumps(line), flush=True)
                 lines.append(line)

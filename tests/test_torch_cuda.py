@@ -97,9 +97,16 @@ def k1_cases():
     """(C, g) for every padded width and cluster size K1 is built for: the
     padded width itself, a width 1 below it (odd: the window by plain
     loads, the output one element at a time) and one 8 below it (a
-    multiple of 8: the window by TMA with zeros past C)."""
-    return [(c, g) for cp, g in sorted(cuda_decoder.BF16_VARIANTS)
-            for c in sorted({cp, cp - 1, max(8, cp - 8)})]
+    multiple of 8: the window by TMA with zeros past C); and at the wide
+    builds' streamed body, the off-grid widths 300, 500 and 700 (chunks by
+    plain loads), 640 (two chunks past C skipped) and 320 and 520 (an odd
+    number of window chunks by TMA, so that conv2's chunks of h start in
+    the second slot)."""
+    cases = [(c, g) for cp, g in sorted(cuda_decoder.BF16_VARIANTS)
+             for c in sorted({cp, cp - 1, max(8, cp - 8)})]
+    return cases + [(c, g) for c in (300, 320, 500, 520, 640, 700)
+                    for cp, g in sorted(cuda_decoder.BF16_VARIANTS)
+                    if cp == cuda_decoder.bf16_padded(c)]
 
 
 @pytest.mark.cuda
@@ -108,17 +115,23 @@ def test_k1_matches_plain_on_the_card(c, g):
     """Every (padded width, cluster size) K1 is built for, at widths on and
     off its build's width, on a ragged image with a tile that divides
     neither side, at the tile of this cluster size that takes the most
-    passes over the weights (several, where one fits), and with the
-    picker's own choice."""
+    passes over the weights (several, where one fits: for the streamed
+    body, the window chunks come through the ring again in every pass), and
+    with the picker's own choice."""
     need_card()
     args = [a if i == 3 else a.bfloat16()
             for i, a in enumerate(block_inputs((2, 20, 36, c), seed=c + g))]
     want = fused_residual_block_reference(*args).float()
     prepared = [cuda_decoder.prepare_bf16_weights(w) for w in args[1:3]]
-    nw, mw, nsplit = cuda_decoder.BF16_VARIANTS[(cuda_decoder.bf16_padded(c), g)]
+    nw, mw, nsplit, body, _ = cuda_decoder.BF16_VARIANTS[(cuda_decoder.bf16_padded(c), g)]
+    def passes(geo):
+        return cuda_decoder.bf16_steps(cuda_decoder.bf16_regions(geo[0], geo[1], body)[0],
+                                       mw, nsplit)[0]
+
     deepest = max((geo for _, geo in cuda_decoder.bf16_candidates(c, 20, 36, 2) if geo[2] == g),
-                  key=lambda geo: cuda_decoder.bf16_steps((geo[0] + 2) * (geo[1] + 2),
-                                                          mw, nsplit)[0])
+                  key=passes)
+    if body == "stream":
+        assert passes(deepest) >= 2
     before = cuda_decoder.launches
     outs = [cuda_decoder._fused_residual_block_bf16(args[0], *prepared, args[3],
                                                     geometry=(6, 8, g, 2)),
@@ -131,6 +144,21 @@ def test_k1_matches_plain_on_the_card(c, g):
     for got in outs:
         assert bool(((got.float() - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all())
     assert torch.equal(outs[2], outs[3])      # prepared operands or HWIO: the same launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 384, 512, 768])
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_k1_wide_builds_match_plain_at_the_stage_shape_on_the_card(c, b):
+    """The wide builds' streamed body at the 24 x 24 stage of a 768-wide
+    decoder (capacity_2x's) and the picker's geometry for each batch."""
+    need_card()
+    args = [a if i == 3 else a.bfloat16()
+            for i, a in enumerate(block_inputs((b, 24, 24, c), seed=c + b))]
+    want = fused_residual_block_reference(*args).float()
+    got = fused_residual_block(*args)
+    torch.cuda.synchronize()
+    assert bool(((got.float() - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all())
 
 
 @pytest.mark.cuda

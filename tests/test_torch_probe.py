@@ -261,7 +261,7 @@ def test_v2_default_tiles_fit_a_cta(c):
     rb, cb = cuda_decoder.V2_DEFAULT_TILES[c]
     th, tw, g, stages = cuda_decoder.v2_tile(c, 24, 24, 1, rb, cb)
     assert (th, tw) == (rb, cb)
-    assert g == min(k for width, k in cuda_decoder.BF16_VARIANTS if width == c
+    assert g == min(k for width, k in cuda_decoder.V2_VARIANTS if width == c
                     and cuda_decoder.bf16_smem_bytes(c, rb, cb, k, cuda_decoder.BF16_MIN_STAGES)
                     <= cuda_decoder.MAX_SMEM)
     need = cuda_decoder.bf16_smem_bytes(c, th, tw, g, stages)
@@ -315,7 +315,8 @@ RAGGED = (23, 37)        # divides by no even tile
 @pytest.mark.parametrize("b", [1, 16])
 @pytest.mark.parametrize("c", [8, 12, 24, 48, 96, 192, 384, 768])
 def test_v2_picker_fits_a_cta_and_covers_a_ragged_image(c, b):
-    """K3's geometry, picked (no tile named: K1's) or around a caller's
+    """K3's geometry, picked (no tile named: K1's cost model over K3's own
+    variants, the resident window at every build) or around a caller's
     tile, for the stage of each config width (the flagship's resolution
     for 48..384) and a ragged image: a build of csrc/resblock.cu at C's
     padded width (clusters over the output channels at C >= 100 only), a
@@ -326,16 +327,16 @@ def test_v2_picker_fits_a_cta_and_covers_a_ragged_image(c, b):
     for (h, w), tile in (((flagship, flagship), (None, None)), (RAGGED, (None, None)),
                          (RAGGED, (5, 7)), ((flagship, flagship), (5, 7))):
         th, tw, g, stages = cuda_decoder.v2_tile(c, h, w, b, *tile)
-        assert (cp, g) in cuda_decoder.BF16_VARIANTS and (g == 1 or c >= 100)
+        assert (cp, g) in cuda_decoder.V2_VARIANTS and (g == 1 or c >= 100)
         if tile[0] is None:
-            assert (th, tw, g, stages) == cuda_decoder.bf16_tiling(c, h, w, b)
+            assert (th, tw, g, stages) == cuda_decoder.bf16_tiling(c, h, w, b, kernel="k3")
         assert cuda_decoder.BF16_MIN_STAGES <= stages <= cuda_decoder.BF16_MAX_STAGES
         assert cuda_decoder.bf16_smem_bytes(c, th, tw, g, stages) <= cuda_decoder.MAX_SMEM
         if tile[0] is not None:
             assert (th, tw) == tile
         rows, cols = -(-h // th), -(-w // tw)
         assert rows * th >= h > (rows - 1) * th and cols * tw >= w > (cols - 1) * tw
-        nw, mw, nsplit = cuda_decoder.BF16_VARIANTS[(cp, g)]
+        nw, mw, nsplit = cuda_decoder.V2_VARIANTS[(cp, g)]
         assert nw * (2 if nsplit else 1) == cp // g      # the warpgroups cover the CTA's N
 
 

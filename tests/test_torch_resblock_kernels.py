@@ -10,6 +10,7 @@ K1's K-major weight operand, padded to its build's width; and the
 operands a ``ResidualBlock`` prepares once and keeps.
 """
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -128,13 +129,15 @@ def test_bf16_picker_fits_and_covers_a_ragged_image(c, b):
         cp = bf16_padded(c)
         assert (cp, g) in BF16_VARIANTS and cp % g == 0 and cp >= c
         assert BF16_MIN_STAGES <= stages <= BF16_MAX_STAGES
-        assert bf16_smem_bytes(c, th, tw, g, stages) <= MAX_SMEM
         rows, cols = -(-h // th), -(-w // tw)
         assert rows * th >= h > (rows - 1) * th and cols * tw >= w > (cols - 1) * tw
-        nw, mw, nsplit = BF16_VARIANTS[(cp, g)]
+        nw, mw, nsplit, body, taps = BF16_VARIANTS[(cp, g)]
+        assert bf16_smem_bytes(c, th, tw, g, stages, body, taps) <= MAX_SMEM
+        assert body == ("stream" if cp >= 256 else "window")
+        assert taps in ((1, 3) if body == "stream" else (0,))
         assert nw * (2 if nsplit else 1) == cp // g      # the warpgroups cover the CTA's N
         assert mw in (2, 4)              # three tiles a pass went wrong on the card
-        for m in ((th + 2) * (tw + 2), th * tw):
+        for m in cuda_decoder.bf16_regions(th, tw, body):
             passes, share = bf16_steps(m, mw, nsplit)
             assert passes * mw >= share and share * (1 if nsplit else 2) * 64 >= m
 
@@ -168,20 +171,25 @@ def test_prepared_bf16_weights_are_k_major_and_padded(c):
     assert not taps[:, :, c:].any() and not taps[:, :, :, c:].any()
 
 
-@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("b", [1, 16, 64])
 @pytest.mark.parametrize("kernel", ["k1", "k4"])
 def test_every_width_gets_a_geometry_that_fits(kernel, b):
     """Every C from 8 to 768: the picker's geometry is one the kernel takes,
-    fits a CTA's shared memory and covers a ragged image; K4's cluster is
-    one whose occupancy is known."""
+    fits a CTA's shared memory in the body its build compiles for that
+    cluster (K1: the streamed window from 256 up, the resident one below)
+    and covers a ragged image; K4's cluster is one whose occupancy is
+    known."""
     h, w = RAGGED
     for c in SUPPORTED_WIDTHS:
         rows, cols = None, None
         if kernel == "k1":
             th, tw, g, stages = bf16_tiling(c, h, w, b)
             bf16_check_tile(c, th, tw, g, stages)
-            assert bf16_smem_bytes(c, th, tw, g, stages) <= MAX_SMEM
-            assert bf16_padded(c) >= c
+            cp = bf16_padded(c)
+            body, taps = BF16_VARIANTS[(cp, g)][3:]
+            assert body == ("stream" if cp >= 256 else "window"), c
+            assert bf16_smem_bytes(c, th, tw, g, stages, body, taps) <= MAX_SMEM
+            assert cp >= c
         else:
             th, tw, nt, nu, g, kc = fp32_tiling(c, h, w, b)
             fp32_check_tile(c, th, tw, nt, nu, g, kc)
@@ -189,6 +197,76 @@ def test_every_width_gets_a_geometry_that_fits(kernel, b):
             assert g * nu * 8 * nt >= c and g in cuda_decoder.FP32_ACTIVE_CLUSTERS
         rows, cols = -(-h // th), -(-w // tw)
         assert rows * th >= h > (rows - 1) * th and cols * tw >= w > (cols - 1) * tw, c
+
+
+HEADER = Path(__file__).resolve().parent.parent / "msid_tpu_torch" / "csrc" / "hopper_common.cuh"
+WIDE_BUILDS = (256, 384, 512, 768)
+
+
+def header_constant(name: str) -> int:
+    found = re.search(rf"constexpr\s+(?:int|uint32_t)\s+{name}\s*=\s*(\d+)",
+                      HEADER.read_text())
+    assert found, name
+    return int(found.group(1))
+
+
+@pytest.mark.parametrize("cp", WIDE_BUILDS)
+def test_streamed_smem_matches_the_header_layout(cp):
+    """The streamed body's shared memory as resblock_stream_cta lays it out
+    (constants read from csrc/hopper_common.cuh): kWindowSlots slots of
+    TH + 4 rows at a pitch of TW + 4 rounded up to 8 pixels of kBK channels,
+    each slot a whole number of 1024-byte swizzle periods; the weight ring,
+    the variant's taps (1 or 3) tiles of N = CP / g rows of 128 bytes a
+    stage; h at a pitch of N + 8; window
+    and weight barriers; 1024 bytes of alignment slack. The picked geometry
+    at every stage shape and batch fits, and the resident window would not
+    hold C = 768's."""
+    slots, stages_max, bk = (header_constant(k) for k in ("kWindowSlots", "kMaxStages", "kBK"))
+    assert (slots, stages_max, bk) == (cuda_decoder.STREAM_SLOTS, BF16_MAX_STAGES, 64)
+    clusters = [g for width, g in BF16_VARIANTS if width == cp]
+    assert clusters and all(BF16_VARIANTS[(cp, g)][3] == "stream" for g in clusters)
+    for g in clusters:
+        n = cp // g
+        taps = BF16_VARIANTS[(cp, g)][4]
+        assert taps in (1, 3)
+        for th, tw in ((2, 2), (4, 12), (6, 8), (12, 12), (8, 24), (24, 12), (13, 7)):
+            pitch = (tw + 4 + 7) // 8 * 8
+            slot = (th + 4) * pitch * bk * 2
+            assert slot % 1024 == 0
+            for stages in range(BF16_MIN_STAGES, BF16_MAX_STAGES + 1):
+                h = ((th + 2) * (tw + 2) * (n + 8) * 2 + 15) // 16 * 16
+                want = (slots * slot + stages * taps * n * 128 + h
+                        + 8 * (2 * slots + 2 * stages_max) + 1024)
+                assert bf16_smem_bytes(cp, th, tw, g, stages, "stream", taps) == want
+    for s in (24, 48):
+        for b in (1, 16, 64):
+            th, tw, g, stages = bf16_tiling(cp, s, s, b)
+            assert bf16_smem_bytes(cp, th, tw, g, stages, *BF16_VARIANTS[(cp, g)][3:]) <= MAX_SMEM
+    th, tw, g, stages = bf16_tiling(768, 24, 24, 16)
+    assert bf16_smem_bytes(768, th, tw, g, stages, "window") > MAX_SMEM
+
+
+@pytest.mark.parametrize("cp", WIDE_BUILDS)
+def test_streamed_tile_that_does_not_fit_raises(cp):
+    """``bf16_check_tile`` holds a wide build's geometry to the streamed
+    body's layout: a tile whose window slots, ring and h exceed a CTA raises
+    ``ValueError`` naming the body; a 12 x 12 tile that the streamed body
+    holds and the resident window does not passes for K1 and raises for K3;
+    a ring of one stage raises."""
+    least = BF16_MIN_STAGES
+    g = max(k for width, k in BF16_VARIANTS if width == cp)
+    for tile in ((32, 64), (30, 30)):
+        assert bf16_smem_bytes(cp, *tile, g, least, *BF16_VARIANTS[(cp, g)][3:]) > MAX_SMEM
+        with pytest.raises(ValueError, match=r"stream body\) needs"):
+            bf16_check_tile(cp, *tile, g, least)
+    bf16_check_tile(cp, 12, 12, g, least)
+    if bf16_smem_bytes(cp, 12, 12, g, least, "window") > MAX_SMEM:
+        with pytest.raises(ValueError, match=r"window body\) needs"):
+            bf16_check_tile(cp, 12, 12, g, least, "k3")
+    with pytest.raises(ValueError, match="no geometry"):
+        bf16_check_tile(cp, 12, 12, g, least - 1)
+    with pytest.raises(ValueError, match="no geometry"):
+        bf16_check_tile(cp, 12, 12, 3, least)
 
 
 def test_pickers_raise_value_error_outside_their_widths():
