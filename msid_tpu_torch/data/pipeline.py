@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from msid_tpu_torch.models.restoration import resolve_device
+from msid_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -204,8 +205,9 @@ class DeviceCachedLoader(BatchLoader):
 
     def _make_batch(self, idxs: np.ndarray):
         idxs, count = self._shard(idxs)
-        index = torch.from_numpy(np.asarray(idxs, np.int64)).to(self.device)
-        batch = torch.index_select(self._tiles, 0, index)
+        with annotate("msid.data.batch"):
+            index = torch.from_numpy(np.asarray(idxs, np.int64)).to(self.device)
+            batch = torch.index_select(self._tiles, 0, index)
         return (batch, count) if self.pad_last else batch
 
 

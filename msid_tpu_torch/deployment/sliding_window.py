@@ -58,6 +58,7 @@ from msid_tpu_torch.models.blocks import ResidualBlock
 from msid_tpu_torch.models.restoration import resolve_device
 from msid_tpu_torch.ops.preprocess import preprocess_tiles, resize_bilinear
 from msid_tpu_torch.ops.tta import wrap_forward
+from msid_tpu_torch.utils.profiling import annotate
 
 
 def _blend_weights(window: int, overlap: int) -> np.ndarray:
@@ -212,11 +213,15 @@ class DeviceSceneStep(SceneStep):
     def __call__(self, scene: torch.Tensor, out_sum: torch.Tensor, w_sum: torch.Tensor,
                  origins: np.ndarray, valid: np.ndarray):
         win = self.window
-        tiles = self.run(torch.stack([scene[y:y + win, x:x + win] for y, x in origins.tolist()]))
-        for tile, (y, x), v in zip(tiles, origins.tolist(), valid.tolist()):
-            if v:
-                out_sum[y:y + win, x:x + win].addcmul_(tile, self.weights)
-                w_sum[y:y + win, x:x + win].add_(self.weights)
+        with annotate("msid.scene.cut"):
+            batch = torch.stack([scene[y:y + win, x:x + win] for y, x in origins.tolist()])
+        with annotate("msid.scene.replay"):
+            tiles = self.run(batch)
+        with annotate("msid.scene.blend"):
+            for tile, (y, x), v in zip(tiles, origins.tolist(), valid.tolist()):
+                if v:
+                    out_sum[y:y + win, x:x + win].addcmul_(tile, self.weights)
+                    w_sum[y:y + win, x:x + win].add_(self.weights)
         return out_sum, w_sum
 
 
@@ -505,9 +510,8 @@ def restore_scene(
             "— build it with " + ("make_device_scene_step" if device_assembly
                                   else "make_scene_step"))
     scene = np.asarray(scene)
-    h0, w0 = scene.shape[:2]
-    scene = _edge_pad(scene, window)
-    h, w, c = scene.shape
+    h0, w0, c = scene.shape
+    h, w = max(h0, window), max(w0, window)       # after _edge_pad
     stride = window - overlap
     ys = _window_origins(h, window, stride)
     xs = _window_origins(w, window, stride)
@@ -518,20 +522,24 @@ def restore_scene(
             step = make_device_scene_step(model, variables, window, model_size, overlap,
                                           tta=tta, device=device)
         device = resolve_device(getattr(step, "device", device))
-        dev_scene = torch.from_numpy(np.ascontiguousarray(scene)).to(device)
-        out_sum = torch.zeros((h, w, c), dtype=torch.float32, device=device)
-        w_sum = torch.zeros((h, w, 1), dtype=torch.float32, device=device)
+        with annotate("msid.scene.upload"):
+            padded = np.ascontiguousarray(_edge_pad(scene, window))
+            dev_scene = torch.from_numpy(padded).to(device)
+            out_sum = torch.zeros((h, w, c), dtype=torch.float32, device=device)
+            w_sum = torch.zeros((h, w, 1), dtype=torch.float32, device=device)
         all_origins = np.asarray(origins, np.int64)
         for i in range(0, len(origins), batch_size):
             chunk, valid = _pad_chunk(all_origins[i:i + batch_size], batch_size)
             out_sum, w_sum = step(dev_scene, out_sum, w_sum, chunk, valid)
             if progress:
                 progress(i, len(origins))
-        out = out_sum.div_(w_sum).to(_torch_dtype(output_dtype))
-        return device_get(out)[:h0, :w0]
+        with annotate("msid.scene.download"):
+            out = out_sum.div_(w_sum).to(_torch_dtype(output_dtype))
+            return device_get(out)[:h0, :w0]
 
     if step is None:
         step = make_scene_step(model, variables, window, model_size, tta=tta, device=device)
+    scene = _edge_pad(scene, window)
     weights = _blend_weights(window, overlap)
     out_sum = np.zeros((h, w, c), np.float32)
     w_sum = np.zeros((h, w, 1), np.float32)

@@ -26,6 +26,7 @@ from msid_tpu_torch.ops.cuda_decoder import (
     fused_residual_block_op,
     prepare_bf16_weights,
 )
+from msid_tpu_torch.utils.profiling import annotate
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # torch convention: flax momentum 0.9 keeps 0.9 of the old value
@@ -155,6 +156,10 @@ class Norm(nn.Module):
             a, b = _shared(self, x.dtype, lambda: [t.to(x.dtype)[:, None, None]
                                                    for t in self.folded()])
             return x * a + b
+        with annotate("msid.norm.train"):
+            return self._train_batch_norm(x)
+
+    def _train_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.data_group is None:
             mean = xf.mean(dim=(0, 2, 3))

@@ -63,6 +63,7 @@ from msid_tpu_torch.training.losses import (
     combined_loss_per_sample,
 )
 from msid_tpu_torch.training.optim import GroupedAdamW
+from msid_tpu_torch.utils.profiling import annotate
 
 if TYPE_CHECKING:
     from msid_tpu_torch.parallel.mesh import Mesh
@@ -220,7 +221,8 @@ def make_train_step(
     def _train_step(state: TrainState, batch, seed: int):
         optimizer = state.optimizer
         model.train()
-        clean, noisy = prepare(batch, seed)
+        with annotate("msid.train.prepare"):
+            clean, noisy = prepare(batch, seed)
         n = clean.shape[0]
         if n % accum_steps:
             raise ValueError(f"batch {n} not divisible by accum_steps {accum_steps}")
@@ -231,12 +233,19 @@ def make_train_step(
         loss_sum = mse_sum = None
         for i in range(accum_steps):
             rows = slice(i * micro, (i + 1) * micro)
-            with _autocast(device, compute_dtype):
-                out = model(noisy[rows].to(compute_dtype))
-            loss, aux = combined_loss(out, clean[rows], loss_cfg, vgg_params)
-            loss.backward()
+            with annotate("msid.train.forward"):
+                with _autocast(device, compute_dtype):
+                    out = model(noisy[rows].to(compute_dtype))
+                loss, aux = combined_loss(out, clean[rows], loss_cfg, vgg_params)
+            with annotate("msid.train.backward"):
+                loss.backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             mse_sum = aux["mse"].detach() if mse_sum is None else mse_sum + aux["mse"].detach()
+        with annotate("msid.train.update"):
+            return _update(state, optimizer, stats, loss_sum, mse_sum)
+
+    def _update(state: TrainState, optimizer: GroupedAdamW, stats: list,
+                loss_sum: torch.Tensor, mse_sum: torch.Tensor):
         grads = optimizer.grads()
         if accum_steps > 1:
             torch._foreach_mul_(grads, 1.0 / accum_steps)

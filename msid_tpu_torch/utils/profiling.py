@@ -4,13 +4,12 @@
     (host ops, and the card's kernels when a card is there) that writes a
     Chrome trace (``trace_*.json``, readable in Perfetto or TensorBoard)
     under ``logdir`` and yields ``logdir``;
-  * ``annotate(name)``: a labelled region in that trace
-    (``torch.profiler.record_function``), and an NVTX range when CUDA is
-    there;
+  * ``annotate(name)``: a named span of the program's host work, recorded
+    only while a profiler records (see its docstring for the spans the
+    program marks and how to see them);
   * ``benchmark_fn``: warmup and a timed loop, each call completed before
     the clock stops (the device of the output's first tensor is
     synchronized: the counterpart of the reference's value fetch);
-  * ``step_timer``: rolling steps/s and images/s over a window;
   * ``live_memory``: per-device memory in use, peak and limit.
 """
 
@@ -24,6 +23,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -50,18 +50,49 @@ def trace(logdir: str | Path = "outputs/trace", with_stack: bool = False) -> Ite
         prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Label a region in the profiler's timeline (and in NVTX on a card)."""
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_available():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            torch.cuda.nvtx.range_pop()
+class _NoSpan:
+    """What ``annotate`` gives while nothing records: a shared context
+    manager that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+def annotate(name: str):
+    """A span named ``name`` over the host work of a ``with`` block.
+
+    While no profiler records, this is one read of the profiler's flag and
+    a shared no-op context manager. Under ``torch.profiler.profile`` (or
+    ``trace`` above) or ``torch.autograd.profiler.emit_nvtx`` it is a
+    ``torch._C._profiler._RecordFunctionFast``: a host operation
+    (``cpu_op``) on the profiler's clock, nested under the span or
+    operation around it, and never mirrored onto the device's timeline, so
+    a span does not count as device time. To see the spans:
+
+      * ``with utils.profiling.trace(logdir): ...`` writes a Chrome trace
+        that Perfetto or TensorBoard opens;
+      * ``with torch.autograd.profiler.emit_nvtx(): ...`` under
+        ``nsys profile`` makes each span an NVTX range.
+
+    The program's spans, all named ``msid.*``: ``msid.scene.upload``,
+    ``msid.scene.cut``, ``msid.scene.replay``, ``msid.scene.blend`` and
+    ``msid.scene.download`` (``restore_scene``'s device assembly);
+    ``msid.train.prepare``, ``msid.train.forward``, ``msid.train.backward``
+    and ``msid.train.update`` (the train step); ``msid.norm.train`` (a
+    batch ``Norm`` in train mode); ``msid.data.batch`` (a
+    ``DeviceCachedLoader`` batch).
+    """
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
@@ -115,29 +146,6 @@ def benchmark_fn(
         "fps": 1000.0 / mean,
         "images_per_sec": images_per_call * 1000.0 / mean,
     }
-
-
-class step_timer:
-    """Rolling steps/s and images/s over a window of ``tick`` calls."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._stamps: list = []
-
-    def tick(self, images: int = 0) -> dict:
-        now = time.perf_counter()
-        self._stamps.append((now, images))
-        if len(self._stamps) > self.window:
-            self._stamps.pop(0)
-        if len(self._stamps) < 2:
-            return {"steps_per_sec": 0.0, "images_per_sec": 0.0}
-        dt = self._stamps[-1][0] - self._stamps[0][0]
-        n = len(self._stamps) - 1
-        imgs = sum(i for _, i in self._stamps[1:])
-        return {
-            "steps_per_sec": n / dt if dt > 0 else 0.0,
-            "images_per_sec": imgs / dt if dt > 0 else 0.0,
-        }
 
 
 def live_memory() -> dict:

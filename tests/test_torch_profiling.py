@@ -1,27 +1,40 @@
-"""The port's ``utils/profiling.py`` on the CPU: every case of
-``tests/test_profiling.py`` on the port, and the port's results against
-the JAX functions' (keys, rolling-window arithmetic)."""
+"""The port's ``utils/profiling.py`` on the CPU: the cases of
+``tests/test_profiling.py`` that the port keeps, its results against the
+JAX functions' (keys), and the program's ``msid.*`` spans: what
+``annotate`` costs and records, and where the scene path, the train step,
+``Norm`` and the device tile cache open them."""
 
 import json
 import os
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from msid_tpu.utils import profiling as jax_profiling
+from msid_tpu_torch.data.dataset import SyntheticEuroSAT
+from msid_tpu_torch.data.pipeline import DeviceCachedLoader
+from msid_tpu_torch.deployment import sliding_window as sw
+from msid_tpu_torch.models.blocks import Norm
+from msid_tpu_torch.models.restoration import SatMAERestoration
+from msid_tpu_torch.training.optim import build_optimizer_from_config
+from msid_tpu_torch.training.train_state import TrainState, make_train_step
 from msid_tpu_torch.utils import profiling
+from msid_tpu_torch.utils.config import load_config
 from msid_tpu_torch.utils.profiling import (
     _complete,
     _first_tensor,
     annotate,
     benchmark_fn,
     live_memory,
-    step_timer,
     trace,
 )
 from msid_tpu_torch.utils.setup_helpers import device_memory_stats
+
+TINY = Path(__file__).resolve().parents[1] / "configs" / "experiments" / "tiny_cpu.yaml"
 
 KEYS = ("mean_ms", "std_ms", "min_ms", "max_ms", "p50_ms", "p99_ms", "fps", "images_per_sec")
 
@@ -79,35 +92,6 @@ def test_benchmark_fn_completes_the_first_tensor_of_any_output(monkeypatch):
     assert synced == [torch.device("cuda", 1)]
 
 
-def test_step_timer_math(monkeypatch):
-    t = step_timer(window=4)
-    assert t.tick(8) == {"steps_per_sec": 0.0, "images_per_sec": 0.0}
-    # Deterministic clock: tick() itself must compute 3 steps / 24 images
-    # over dt=1.5 s from the fabricated window.
-    t._stamps = [(0.0, 0), (0.5, 8), (1.0, 8)]
-    monkeypatch.setattr("msid_tpu_torch.utils.profiling.time.perf_counter", lambda: 1.5)
-    stats = t.tick(8)
-    assert t._stamps == [(0.0, 0), (0.5, 8), (1.0, 8), (1.5, 8)]
-    assert stats["steps_per_sec"] == pytest.approx(3 / 1.5)
-    assert stats["images_per_sec"] == pytest.approx(24 / 1.5)
-    # Window trims the oldest stamp once full (window=4).
-    monkeypatch.setattr("msid_tpu_torch.utils.profiling.time.perf_counter", lambda: 2.0)
-    stats = t.tick(4)
-    assert t._stamps == [(0.5, 8), (1.0, 8), (1.5, 8), (2.0, 4)]
-    assert stats["steps_per_sec"] == pytest.approx(3 / 1.5)
-    assert stats["images_per_sec"] == pytest.approx(20 / 1.5)
-
-
-def test_step_timer_is_the_references_on_one_clock(monkeypatch):
-    """Both timers tick at the same instants (two at t=0: a zero span)."""
-    now = {"t": 0.0}
-    monkeypatch.setattr(time, "perf_counter", lambda: now["t"])
-    ours, theirs = step_timer(window=3), jax_profiling.step_timer(window=3)
-    for t, images in zip((0.0, 0.0, 0.2, 0.5, 0.9, 1.4), (4, 8, 8, 2, 6, 0)):
-        now["t"] = t
-        assert ours.tick(images) == theirs.tick(images)
-
-
 def test_live_memory_contract():
     stats = live_memory()
     assert isinstance(stats, dict)
@@ -131,3 +115,94 @@ def test_trace_and_annotate_smoke(tmp_path):
     events = json.loads(open(found[0]).read())["traceEvents"]
     names = {e.get("name") for e in events}
     assert "unit-test-region" in names and "aten::sum" in names
+
+
+def msid_spans(prof) -> list:
+    """The ``msid.*`` host spans a profile recorded, as ``(name, start_us,
+    end_us)`` in start order."""
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name.startswith("msid.")), key=lambda r: r[1])
+
+
+def tiny_model():
+    config = load_config(TINY)
+    torch.manual_seed(0)
+    return config, SatMAERestoration.from_config(config, device="cpu")
+
+
+def test_annotate_without_a_profiler_builds_no_record_function(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a record function was built for {name}")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    with annotate("msid.off"):
+        y = torch.ones(4).sum()
+    assert float(y) == 4.0
+    assert annotate("msid.a") is annotate("msid.b")       # one shared no-op span
+
+
+def test_annotate_is_a_host_op_on_the_profilers_clock(tmp_path):
+    """Under the profiler a span is a ``cpu_op`` (Kineto mirrors no such
+    record onto a device's timeline, as it does a ``user_annotation``),
+    nested under the span around it, and in ``prof.events()``."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with annotate("msid.outer"):
+            with annotate("msid.inner"):
+                torch.ones(8, 8).sum()
+    (outer, o0, o1), (inner, i0, i1) = msid_spans(prof)
+    assert (outer, inner) == ("msid.outer", "msid.inner") and o0 <= i0 <= i1 <= o1
+    assert [e.cpu_parent.name for e in prof.events() if e.name == "msid.inner"] == ["msid.outer"]
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    cats = {e["name"]: e.get("cat") for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("name", "").startswith("msid.")}
+    assert cats == {"msid.outer": "cpu_op", "msid.inner": "cpu_op"}
+
+
+def test_device_scene_assembly_spans_per_scene_and_batch():
+    """Per scene one upload and one download; per batch a cut, a replay
+    and a blend, in that order (6 windows in batches of 4: 2 batches)."""
+    _, model = tiny_model()
+    step = sw.make_device_scene_step(model.eval(), None, 64, 64, 16, device="cpu")
+    rng = np.random.default_rng(0)
+    scenes = [rng.integers(0, 10000, (100, 131, 13), dtype=np.uint16) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for s in scenes:
+            out = sw.restore_scene(None, None, s, window=64, overlap=16, model_size=64,
+                                   batch_size=4, step=step, device_assembly=True,
+                                   device="cpu")
+    assert out.shape == (100, 131, 13)
+    batch = ["msid.scene.cut", "msid.scene.replay", "msid.scene.blend"]
+    scene = ["msid.scene.upload"] + batch * 2 + ["msid.scene.download"]
+    assert [name for name, _, _ in msid_spans(prof)] == scene * 2
+
+
+def test_train_step_spans_with_norm_inside_the_forward():
+    config, model = tiny_model()
+    optimizer, _ = build_optimizer_from_config(config, model)
+    step = make_train_step(model, image_size=64)
+    state = TrainState.create(model, optimizer)
+    tiles = np.random.default_rng(0).uniform(500, 4000, (4, 32, 32, 13)).astype(np.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, metrics = step(state, tiles, 7)
+    assert metrics["skipped"] == 0 and state.step == 1
+    spans = msid_spans(prof)
+    phases = [s for s in spans if s[0].startswith("msid.train.")]
+    assert [name for name, _, _ in phases] == [
+        "msid.train.prepare", "msid.train.forward", "msid.train.backward", "msid.train.update"]
+    assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
+    _, f0, f1 = phases[1]
+    norms = [s for s in spans if s[0] == "msid.norm.train"]
+    batch_norms = sum(isinstance(m, Norm) and m.kind == "batch" for m in model.modules())
+    assert len(norms) == batch_norms > 0
+    assert all(f0 <= s0 <= s1 <= f1 for _, s0, s1 in norms)
+
+
+def test_device_cached_loader_batch_span():
+    ds = SyntheticEuroSAT(num_samples=20, split="train", seed=0)
+    loader = DeviceCachedLoader(ds, batch_size=8, seed=3, device="cpu")
+    batches = iter(loader)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        batch = next(batches)
+    assert tuple(batch.shape[:1]) == (8,)
+    assert [name for name, _, _ in msid_spans(prof)] == ["msid.data.batch"]
