@@ -17,7 +17,9 @@ Three assemblies, with the same window origins, blend weights and forward:
   pinned memory that an event orders.
 * ``restore_scene(device_assembly=True)``: the scene is uploaded once in
   its own dtype (uint16 DN stay uint16: the cast to float32 inside the
-  preprocessing is exact), windows are cut on the device by slices at
+  preprocessing is exact) and in the axis order its bytes lie in host
+  memory (a band-major view goes up as it lies and is laid out pixel-major
+  by one device copy), windows are cut on the device by slices at
   host-side origins, and each batch is blended into device accumulators
   by a loop of slice adds in window order (overlapping windows of one
   batch must not race, as a scatter-add would); the restored scene comes
@@ -294,6 +296,22 @@ def _edge_pad(scene: np.ndarray, window: int) -> np.ndarray:
                   mode="edge")
 
 
+def _upload(scene: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``scene`` on ``device``, contiguous with its axes as given. Its bytes
+    go up in the order they lie in host memory (the axis order that sorts
+    the strides from largest to smallest) and one device copy lays them
+    out. Only a view that no axis order makes contiguous (a stepped slice,
+    negative or zero strides, a foreign byte order) is copied on the host
+    first, in ``msid.scene.host_layout``."""
+    order = sorted(range(scene.ndim), key=lambda a: -scene.strides[a])
+    flat = scene.transpose(order)
+    if not (flat.flags.c_contiguous and flat.dtype.isnative):
+        with annotate("msid.scene.host_layout"):
+            flat = np.ascontiguousarray(scene, scene.dtype.newbyteorder("="))
+        order = list(range(scene.ndim))
+    return torch.from_numpy(flat).to(device).permute(np.argsort(order).tolist()).contiguous()
+
+
 def _band_plan(ys: list, window: int, stride: int, band_origin_rows: int):
     """``(groups, band_height)``: the row origins in groups of
     ``band_origin_rows`` consecutive ones, each ``(y_start, [origins...])``,
@@ -500,6 +518,12 @@ def restore_scene(
     Neither path guards the division by the summed weight: every pixel of
     the scene has a positive one. A scene smaller than a window is
     edge-padded to one and cropped after.
+
+    The scene may lie in host memory in any axis order: a band-major
+    ``(C, H, W)`` array viewed as ``[H, W, C]``, as raster readers return
+    one, is as good as a pixel-major one. The device assembly uploads it as
+    it lies and lays it out on the device; only a view that no axis order
+    makes contiguous (a stepped slice, say) is copied on the host first.
     """
     if not 0 <= overlap < window:
         raise ValueError(f"overlap ({overlap}) must be in [0, window={window})")
@@ -523,8 +547,7 @@ def restore_scene(
                                           tta=tta, device=device)
         device = resolve_device(getattr(step, "device", device))
         with annotate("msid.scene.upload"):
-            padded = np.ascontiguousarray(_edge_pad(scene, window))
-            dev_scene = torch.from_numpy(padded).to(device)
+            dev_scene = _upload(_edge_pad(scene, window), device)
             out_sum = torch.zeros((h, w, c), dtype=torch.float32, device=device)
             w_sum = torch.zeros((h, w, 1), dtype=torch.float32, device=device)
         all_origins = np.asarray(origins, np.int64)

@@ -82,9 +82,11 @@ def annotate(name: str):
       * ``with torch.autograd.profiler.emit_nvtx(): ...`` under
         ``nsys profile`` makes each span an NVTX range.
 
-    The program's spans, all named ``msid.*``: ``msid.scene.upload``,
-    ``msid.scene.cut``, ``msid.scene.replay``, ``msid.scene.blend`` and
-    ``msid.scene.download`` (``restore_scene``'s device assembly);
+    The program's spans, all named ``msid.*``: ``msid.scene.upload``
+    (with ``msid.scene.host_layout`` inside it where a scene's view must be
+    copied on the host before it goes up), ``msid.scene.cut``,
+    ``msid.scene.replay``, ``msid.scene.blend`` and ``msid.scene.download``
+    (``restore_scene``'s device assembly);
     ``msid.train.prepare``, ``msid.train.forward``, ``msid.train.backward``
     and ``msid.train.update`` (the train step); ``msid.norm.train`` (a
     batch ``Norm`` in train mode); ``msid.data.batch`` (a

@@ -507,6 +507,36 @@ def test_scene_paths_agree_and_replay_their_eager_step_on_the_card(dtype):
 
 
 @pytest.mark.cuda
+def test_a_band_major_scene_restores_as_its_contiguous_copy_on_the_card():
+    """The flagship (``long_skip_fill.yaml``) in bf16 through one captured
+    device step: a band-major 1000x1111x13 uint16 scene, uploaded as it lies
+    in memory and laid out on the card, restores to the bytes of its
+    pixel-major copy."""
+    need_card()
+    from pathlib import Path
+
+    from msid_tpu_torch.deployment import sliding_window as sw
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.utils.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent.parent
+                      / "configs" / "experiments" / "long_skip_fill.yaml")
+    torch.manual_seed(0)
+    model = SatMAERestoration.from_config(cfg, dtype=torch.bfloat16).eval()
+    step = sw.make_device_scene_step(model, None, 64, 192, 16)
+    del model
+    bsq = np.random.default_rng(8).integers(100, 4500, (13, 1000, 1111), dtype=np.uint16)
+    view = bsq.transpose(1, 2, 0)
+    kw = dict(window=64, overlap=16, model_size=192, batch_size=64, step=step,
+              device_assembly=True)
+    got = sw.restore_scene(None, None, view, **kw)
+    want = sw.restore_scene(None, None, np.ascontiguousarray(view), **kw)
+    assert step.compiled == "cuda_graph" and step.captured_launches == 8
+    assert got.shape == (1000, 1111, 13) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
 def test_a_host_step_result_outlives_the_next_replay_on_the_card():
     """The host assembly keeps one batch in flight: a result copied out
     before the next replay must not change when that replay overwrites the

@@ -177,6 +177,28 @@ def test_device_scene_assembly_spans_per_scene_and_batch():
     assert [name for name, _, _ in msid_spans(prof)] == scene * 2
 
 
+def test_a_host_layout_span_only_where_no_axis_order_is_contiguous():
+    """A band-major (BSQ) and a band-interleaved-by-line (BIL) scene go up
+    as they lie in memory: no ``msid.scene.host_layout``. A stepped view,
+    which no axis order makes contiguous, is copied on the host once, inside
+    the upload."""
+    _, model = tiny_model()
+    step = sw.make_device_scene_step(model.eval(), None, 64, 64, 16, device="cpu")
+    rng = np.random.default_rng(1)
+    bsq = rng.integers(0, 10000, (13, 100, 131), dtype=np.uint16).transpose(1, 2, 0)
+    bil = rng.integers(0, 10000, (100, 13, 131), dtype=np.uint16).transpose(0, 2, 1)
+    stepped = rng.integers(0, 10000, (100, 262, 13), dtype=np.uint16)[:, ::2]
+    for s, copies in ((bsq, 0), (bil, 0), (stepped, 1)):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            sw.restore_scene(None, None, s, window=64, overlap=16, model_size=64,
+                             batch_size=4, step=step, device_assembly=True, device="cpu")
+        spans = msid_spans(prof)
+        (_, u0, u1), = [span for span in spans if span[0] == "msid.scene.upload"]
+        layouts = [span for span in spans if span[0] == "msid.scene.host_layout"]
+        assert len(layouts) == copies
+        assert all(u0 <= l0 <= l1 <= u1 for _, l0, l1 in layouts)
+
+
 def test_train_step_spans_with_norm_inside_the_forward():
     config, model = tiny_model()
     optimizer, _ = build_optimizer_from_config(config, model)

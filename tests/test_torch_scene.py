@@ -13,9 +13,12 @@ Tolerances, fixed before the runs:
   reference's: only the grouping of the sums differs);
 - a uint16 upload against the same values as float32: equal (the cast is
   exact);
+- a scene in any axis order of memory against its pixel-major copy: equal
+  (the device lays out the same values);
 - float16 output against float32: 4e-3 (fp16's 2^-11 over model range ~[-2, 2]).
 """
 
+import itertools
 import threading
 
 import jax
@@ -175,6 +178,44 @@ def test_a_uint16_upload_equals_float32(small):
                               step=step, **KW)
     as_u16 = sw.restore_scene(model, None, s, device_assembly=True, step=step, **KW)
     np.testing.assert_array_equal(as_u16, as_f32)
+
+
+# Memory layouts by axis, slowest first: "CHW" is band-sequential (BSQ),
+# "HCW" band-interleaved by line (BIL), "HWC" pixel-major.
+LAYOUTS = ["".join(p) for p in itertools.permutations("HWC")]
+
+
+@pytest.fixture(scope="module")
+def device_step(small):
+    return sw.make_device_scene_step(small[2], None, window=64, model_size=64, overlap=16,
+                                     device="cpu")
+
+
+def laid_out(s, layout):
+    """The ``[H, W, C]`` view of ``s``'s values in memory laid out as ``layout``."""
+    order = ["HWC".index(a) for a in layout]
+    return np.ascontiguousarray(s.transpose(order)).transpose(np.argsort(order))
+
+
+@pytest.mark.parametrize("layout,dtype,shape", [
+    *[(layout, dtype, (96, 112, 13)) for layout in LAYOUTS for dtype in (np.uint16, np.float32)],
+    ("CHW", np.uint16, (40, 50, 13)),           # smaller than a window: edge-padded
+    ("stepped", np.uint16, (96, 112, 13)),      # no axis order makes it contiguous
+])
+def test_a_scene_in_any_memory_order_restores_as_its_contiguous_copy(small, device_step,
+                                                                     layout, dtype, shape):
+    if layout == "stepped":
+        view = scene((shape[0], 2 * shape[1], shape[2]), 19, dtype)[:, ::2]
+    else:
+        s = scene(shape, 19, dtype)
+        view = laid_out(s, layout)
+        np.testing.assert_array_equal(view, s)
+    assert view.flags.c_contiguous == (layout == "HWC")
+    kw = dict(KW, step=device_step, device_assembly=True)
+    got = sw.restore_scene(None, None, view, **kw)
+    want = sw.restore_scene(None, None, np.ascontiguousarray(view), **kw)
+    assert got.shape == view.shape
+    np.testing.assert_array_equal(got, want)
 
 
 def test_streaming_matches_the_device_path_and_jax(small):
