@@ -33,8 +33,10 @@ session's choice (``deployment/inference.py``); the H100 times of the three
 graphs are in ``PERF.md``.
 
 Supported: the ``unet_light`` and ``unet_skip`` decoders with
-``norm='batch'`` and no ``input_fill`` stage (the graphs have no
-detect/fill/conditioning prologue); anything else raises ``ValueError``.
+``norm='batch'``, no ``input_fill`` stage (the graphs have no
+detect/fill/conditioning prologue) and the one-embed encoder (the graphs
+rebuild its patch embed and its one-token-a-patch fold, not the
+group-channel encoder's); anything else raises ``ValueError``.
 Public functions take and return NHWC, as the JAX package does; inside,
 tensors are NCHW in shape and channels-last in memory, conv kernels stay in
 torch's OIHW layout, and matmul weights are ``[in, out]``.
@@ -61,14 +63,19 @@ Tensors = Mapping[str, torch.Tensor]
 
 def supports_fastpath(model: nn.Module) -> bool:
     """True when the model matches the hand-scheduled graphs: a
-    ``unet_light`` or ``unet_skip`` decoder with BatchNorm and no
-    ``input_fill`` stage."""
+    ``unet_light`` or ``unet_skip`` decoder with BatchNorm, no
+    ``input_fill`` stage and the one-embed encoder."""
     return (model.decoder_arch in ("unet_light", "unet_skip")
             and model.decoder.head_norm.kind == "batch"
-            and not getattr(model, "input_fill", False))
+            and not getattr(model, "input_fill", False)
+            and getattr(model, "channel_groups", None) is None)
 
 
 def _refuse_unsupported(model: nn.Module, what: str) -> None:
+    if getattr(model, "channel_groups", None) is not None:
+        raise ValueError(f"{what} does not support the group-channel encoder "
+                         f"(channel_groups): the graphs rebuild the one-embed encoder "
+                         f"and its fold; serve it through the model's own forward")
     if model.decoder_arch not in ("unet_light", "unet_skip"):
         raise ValueError(f"{what} supports unet_light/unet_skip, got {model.decoder_arch}")
     if model.decoder.head_norm.kind != "batch":

@@ -17,7 +17,12 @@ from msid_tpu_torch.models.decoder import (
     LightweightDecoder,
     UNetDecoder,
 )
-from msid_tpu_torch.models.encoder import PatchEmbed, SatMAEEncoder, ViTBlock
+from msid_tpu_torch.models.encoder import (
+    PatchEmbed,
+    SatMAEEncoder,
+    SatMAEGroupEncoder,
+    ViTBlock,
+)
 from msid_tpu_torch.models.restoration import SatMAERestoration, count_parameters
 
 __all__ = [
@@ -30,6 +35,7 @@ __all__ = [
     "PatchEmbed",
     "ResidualBlock",
     "SatMAEEncoder",
+    "SatMAEGroupEncoder",
     "SatMAERestoration",
     "SpatialAttention",
     "SqueezeExcitation",

@@ -2,7 +2,11 @@
 
 Counterpart of ``msid_tpu/models/restoration.py``. NHWC in, NHWC out:
 encode the noisy tile to [B, N, D] patch tokens, fold the token grid back
-to [B, D, H/p, W/p], decode to [B, 13, H, W]. Options as in the JAX model:
+to [B, D, H/p, W/p], decode to [B, 13, H, W]. With ``channel_groups`` the
+encoder is SatMAE's group-channel ViT (``SatMAEGroupEncoder``, a port-only
+model): its ``[B, G*N, D]`` tokens fold to ``[B, G*D, H/p, W/p]``, the G
+groups' tokens at one position concatenated along features, and the
+decoder takes ``G*D`` channels. Options as in the JAX model:
 the ``unet_skip`` input pyramid, the global residual head
 (``residual_output``) and the dead-band input stage (``input_fill``: fill
 from the ``fill_gram`` Gram matrix, condition the encoder on the detected
@@ -19,19 +23,26 @@ with autocast off, as ``mask_cond`` is an fp32 layer in the JAX model.
 from __future__ import annotations
 
 import contextlib
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from msid_tpu_torch.models.decoder import DECODER_REGISTRY, ZERO_INIT_HEAD, InputPyramid
-from msid_tpu_torch.models.encoder import SatMAEEncoder
+from msid_tpu_torch.models.encoder import (
+    SATMAE_CHANNEL_GROUPS,
+    SatMAEEncoder,
+    SatMAEGroupEncoder,
+)
 from msid_tpu_torch.ops.fill import DEFAULT_RMS_THRESH, detect_and_fill
+from msid_tpu_torch.utils.profiling import annotate
 
 ENCODER_PRESETS = {
     "satmae_vit_small": dict(embed_dim=384, depth=12, num_heads=6),
     "satmae_vit_base": dict(embed_dim=768, depth=12, num_heads=12),
     "satmae_vit_large": dict(embed_dim=1024, depth=24, num_heads=16),
+    "satmae_group_vit_large": dict(embed_dim=1024, depth=24, num_heads=16, channel_embed=256,
+                                   channel_groups=SATMAE_CHANNEL_GROUPS),
 }
 
 
@@ -78,7 +89,9 @@ class SatMAERestoration(nn.Module):
                  out_channels: int = 13, norm: str = "batch",
                  residual_output: bool = False, input_fill: bool = False,
                  fill_rms_thresh: float = DEFAULT_RMS_THRESH,
-                 gradient_checkpointing: bool = False):
+                 gradient_checkpointing: bool = False,
+                 channel_groups: Optional[Sequence[Sequence[int]]] = None,
+                 channel_embed: int = 256):
         super().__init__()
         if decoder_arch not in DECODER_REGISTRY:
             raise ValueError(f"Unknown decoder {decoder_arch!r}; have "
@@ -101,29 +114,41 @@ class SatMAERestoration(nn.Module):
             self.mask_cond = nn.Linear(in_channels, embed_dim)
             nn.init.zeros_(self.mask_cond.weight)
             nn.init.zeros_(self.mask_cond.bias)
-        self.encoder = SatMAEEncoder(image_size, patch_size, in_channels,
-                                     embed_dim, depth, num_heads, mlp_ratio,
-                                     gradient_checkpointing)
+        if channel_groups is None:
+            self.encoder = SatMAEEncoder(image_size, patch_size, in_channels,
+                                         embed_dim, depth, num_heads, mlp_ratio,
+                                         gradient_checkpointing)
+        else:
+            self.encoder = SatMAEGroupEncoder(image_size, patch_size, channel_groups,
+                                              embed_dim, depth, num_heads, mlp_ratio,
+                                              channel_embed, gradient_checkpointing)
+            if not all(0 <= b < in_channels for g in channel_groups for b in g):
+                raise ValueError(f"channel_groups {channel_groups} index bands outside "
+                                 f"the {in_channels} input bands")
+        self.channel_groups = getattr(self.encoder, "channel_groups", None)
+        groups = len(self.channel_groups or (None,))
         # Under a global residual head the JAX model zero-inits the head of
         # unet_light and unet_skip only.
         head = {"zero_init_head": residual_output} if decoder_arch in ZERO_INIT_HEAD else {}
         self.decoder = DECODER_REGISTRY[decoder_arch](
-            in_channels=embed_dim, channels=tuple(decoder_channels),
+            in_channels=groups * embed_dim, channels=tuple(decoder_channels),
             out_channels=out_channels, norm=norm, **head)
         if decoder_arch == "unet_skip":
             self.skip_stem = InputPyramid(in_channels, len(decoder_channels),
                                           norm=norm)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "SatMAERestoration":
-        """Cast the convs, dense layers, LayerNorms and position embedding to
-        ``dtype``. Norm parameters and statistics, ``fill_gram`` and
-        ``mask_cond`` stay fp32, as in the JAX model's fp32 params."""
+        """Cast the convs, dense layers, LayerNorms and position (and group)
+        embeddings to ``dtype``. Norm parameters and statistics, ``fill_gram``
+        and ``mask_cond`` stay fp32, as in the JAX model's fp32 params."""
         keep = set(self.mask_cond.modules()) if self.input_fill else set()
         for m in self.modules():
             if m not in keep and isinstance(
                     m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, nn.LayerNorm)):
                 m.to(dtype)
         self.encoder.pos_embed.data = self.encoder.pos_embed.data.to(dtype)
+        if self.channel_groups is not None:
+            self.encoder.channel_embed.data = self.encoder.channel_embed.data.to(dtype)
         self.dtype = dtype
         return self
 
@@ -154,9 +179,8 @@ class SatMAERestoration(nn.Module):
                 cond = self.mask_cond(alive.reshape(b, c).to(self.mask_cond.weight.dtype))
             x = filled.to(dtype)
         xc = x.contiguous().permute(0, 3, 1, 2)      # NCHW, channels-last
-        tokens = self.encoder(xc, cond)                # [B, N, D]
-        grid = self.image_size // self.patch_size
-        spatial = tokens.reshape(b, grid, grid, self.embed_dim).permute(0, 3, 1, 2)
+        tokens = self.encoder(xc, cond)                # [B, G*N, D]
+        spatial = self._fold(tokens)
         if self.decoder_arch == "unet_skip":
             out = self.decoder(spatial, self.skip_stem(xc.to(dtype)))
         else:
@@ -165,6 +189,18 @@ class SatMAERestoration(nn.Module):
         if self.residual_output:
             out = out + x.to(out.dtype)
         return out
+
+    def _fold(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``[B, G*N, D]`` group-major tokens -> ``[B, G*D, H/p, W/p]`` (NCHW
+        shape, channels-last memory), channel ``g*D + d`` holding feature
+        ``d`` of group ``g``'s token."""
+        b, grid, d = tokens.shape[0], self.image_size // self.patch_size, self.embed_dim
+        if self.channel_groups is None:
+            return tokens.reshape(b, grid, grid, d).permute(0, 3, 1, 2)
+        g = len(self.channel_groups)
+        with annotate("msid.encoder.fold"):
+            folded = tokens.reshape(b, g, grid, grid, d).permute(0, 2, 3, 1, 4)
+            return folded.reshape(b, grid, grid, g * d).permute(0, 3, 1, 2)
 
     @classmethod
     def from_config(cls, config: dict, dtype: torch.dtype = torch.float32,
@@ -176,6 +212,7 @@ class SatMAERestoration(nn.Module):
         dec = config["model"]["decoder"]
         fill = config["model"].get("input_fill", {})
         preset = ENCODER_PRESETS.get(str(enc.get("name", "")), {})
+        groups = enc.get("channel_groups", preset.get("channel_groups"))
         model = cls(
             image_size=int(config.get("data", {}).get("image_size", 192)),
             patch_size=int(enc.get("patch_size", 16)),
@@ -191,6 +228,8 @@ class SatMAERestoration(nn.Module):
             fill_rms_thresh=float(fill.get("rms_thresh", DEFAULT_RMS_THRESH)),
             norm=str(dec.get("norm", "batch")),
             gradient_checkpointing=bool(enc.get("gradient_checkpointing", True)),
+            channel_groups=groups,
+            channel_embed=int(enc.get("channel_embed", preset.get("channel_embed", 256))),
         )
         return model.set_compute_dtype(dtype).to(device)
 

@@ -26,14 +26,13 @@ squares summed over the model group) and each replicated one once.
 from __future__ import annotations
 
 import logging
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from msid_tpu_torch.models.encoder import MlpBlock, MultiHeadAttention, ViTBlock
+from msid_tpu_torch.models.encoder import MlpBlock, MultiHeadAttention, ViTBlock, attend
 from msid_tpu_torch.parallel.collectives import (
     copy_to_model_parallel,
     deepcopy_sharing_groups,
@@ -92,11 +91,10 @@ class TensorParallelAttention(MultiHeadAttention):
         def heads(t):
             return t.view(b, n, self.num_heads, hd).transpose(1, 2)
 
-        q = heads(F.linear(x, self.query.weight, self.query.bias)) / math.sqrt(hd)
-        k = heads(F.linear(x, self.key.weight, self.key.bias))
-        v = heads(F.linear(x, self.value.weight, self.value.bias))
-        weights = torch.softmax((q @ k.transpose(-2, -1)).float(), dim=-1)
-        y = (weights.to(v.dtype) @ v).transpose(1, 2).reshape(b, n, width)
+        y = attend(heads(F.linear(x, self.query.weight, self.query.bias)),
+                   heads(F.linear(x, self.key.weight, self.key.bias)),
+                   heads(F.linear(x, self.value.weight, self.value.bias)))
+        y = y.transpose(1, 2).reshape(b, n, width)
         y = reduce_from_model_parallel(F.linear(y, self.out.weight), self.model_group)
         return y + self.out.bias.to(y.dtype)
 
@@ -113,7 +111,7 @@ class TensorParallelMlp(MlpBlock):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = copy_to_model_parallel(x, self.model_group)
-        h = F.gelu(F.linear(x, self.fc1.weight, self.fc1.bias), approximate="tanh")
+        h = F.gelu(F.linear(x, self.fc1.weight, self.fc1.bias), approximate=self.gelu)
         y = reduce_from_model_parallel(F.linear(h, self.fc2.weight), self.model_group)
         return y + self.fc2.bias.to(y.dtype)
 

@@ -90,7 +90,11 @@ def annotate(name: str):
     ``msid.train.prepare``, ``msid.train.forward``, ``msid.train.backward``
     and ``msid.train.update`` (the train step); ``msid.norm.train`` (a
     batch ``Norm`` in train mode); ``msid.data.batch`` (a
-    ``DeviceCachedLoader`` batch).
+    ``DeviceCachedLoader`` batch); ``msid.encoder.group_embed`` (the
+    group-channel encoder's patch embeds and position and group embedding)
+    and ``msid.encoder.fold`` (its tokens folded to the decoder's grid),
+    seen in eager forwards and training: a scene step replays a captured
+    graph, whose host work the spans do not see.
     """
     if _autograd_profiler._is_profiler_enabled:
         return torch._C._profiler._RecordFunctionFast(name)

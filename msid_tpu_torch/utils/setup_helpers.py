@@ -71,7 +71,7 @@ def estimate_memory(config: dict, num_params: int) -> dict:
     depth = int(enc.get("depth", 12))
     dim = int(enc.get("embed_dim", 768))
     patch = int(enc.get("patch_size", 16))
-    tokens = (size // patch) ** 2
+    tokens = (size // patch) ** 2 * len(enc.get("channel_groups") or (None,))
     params_gb = num_params * 4 / 1e9
     optimizer_gb = num_params * 8 / 1e9
     grads_gb = num_params * 4 / 1e9

@@ -228,3 +228,39 @@ def test_device_cached_loader_batch_span():
         batch = next(batches)
     assert tuple(batch.shape[:1]) == (8,)
     assert [name for name, _, _ in msid_spans(prof)] == ["msid.data.batch"]
+
+
+def test_group_embed_and_fold_spans_in_a_forward_and_a_train_step():
+    """The group-channel restorer opens ``msid.encoder.group_embed`` and
+    then ``msid.encoder.fold`` once a forward, eager or in a train step (in
+    its forward, not in the backward's recomputation of the blocks); the
+    one-embed restorer opens neither."""
+    config = load_config(TINY.parent / "satmae_group_large.yaml")
+    config["data"]["image_size"] = 32
+    config["model"]["encoder"].update(embed_dim=32, channel_embed=8, depth=1, num_heads=2,
+                                      freeze_layers=[])
+    config["model"]["decoder"]["channels"] = [8, 8, 8]
+    torch.manual_seed(0)
+    model = SatMAERestoration.from_config(config, device="cpu")
+    x = torch.randn(2, 32, 32, 13)
+    spans = ["msid.encoder.group_embed", "msid.encoder.fold"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.no_grad():
+            model.eval()(x)
+    assert [name for name, _, _ in msid_spans(prof)] == spans
+    optimizer, _ = build_optimizer_from_config(config, model)
+    step = make_train_step(model.train(), image_size=32)
+    state = TrainState.create(model, optimizer)
+    tiles = np.random.default_rng(0).uniform(500, 4000, (2, 16, 16, 13)).astype(np.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, metrics = step(state, tiles, 7)
+    found = msid_spans(prof)
+    (_, f0, f1), = [s for s in found if s[0] == "msid.train.forward"]
+    ours = [s for s in found if s[0].startswith("msid.encoder.")]
+    assert [name for name, _, _ in ours] == spans
+    assert all(f0 <= s0 <= s1 <= f1 for _, s0, s1 in ours)
+    _, plain = tiny_model()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.no_grad():
+            plain.eval()(torch.randn(1, 64, 64, 13))
+    assert not [s for s in msid_spans(prof) if s[0].startswith("msid.encoder.")]
