@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``msid_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, the result lines
-    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also widths, noise, probe, hybrid,
+    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also widths, noise, norm, probe, hybrid,
                                                # scene, train, data_cache, export,
                                                # decoders, perceptual, pretrained,
                                                # parallel, nccl_shared, examples),
@@ -11,9 +11,9 @@
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
 
-1. build: compile the four sources of ``msid_tpu_torch/csrc/`` (resblock,
+1. build: compile the five sources of ``msid_tpu_torch/csrc/`` (resblock,
    which holds K1 and K3 and includes ``hopper_common.cuh``; noise,
-   resblock_fp32, any_dma) for sm_90a, one ``nvcc`` per source (eleven for
+   resblock_fp32, any_dma, batchnorm) for sm_90a, one ``nvcc`` per source (eleven for
    resblock, one per padded width), started together, with each build's
    seconds;
 2. kernel: the fused ResidualBlock kernel (K1, wgmma) against its plain
@@ -76,7 +76,8 @@ network. Phases, each of which must pass:
    directory and ``Trainer.fit``: 6 train steps of 64 tiles and 2 padded validation
    batches, finite history, no skipped step, encoder blocks 0-5 unchanged,
    every other parameter moved, one K2 launch per train step and per
-   validation batch and 8 K1 launches per validation batch; then step
+   validation batch, 8 K1 launches per validation batch and 6 N1 launches
+   per train-mode batch norm and micro-batch; then step
    times with the kernel and with the plain composition (``noise.impl:
    jnp``) in turns, peak memory, a profiler breakdown of one step, and
    one step under ``utils.profiling.trace`` (with Python frames) whose ten
@@ -212,14 +213,25 @@ network. Phases, each of which must pass:
    ``unet_light``) with ``--epochs 1``, stage B resuming stage A's
    checkpoint under another freeze set. Every launch counter is set to 0
    before each and read after (a session's replays added), beside
-   ``_build``'s count of the same launches, with the example's seconds:
-   K1 must launch in all three (8 times in 00's one forward) and K2 in 02
-   and 03, K4 is recorded, K3 and K5 must not launch. Then the files: 00's
+   ``_build``'s count of the same launches (N1's as library calls, three
+   kernels each), with the example's seconds: K1 must launch in all three
+   (8 times in 00's one forward) and K2 in 02 and 03, K4 and N1 are
+   recorded, K3 and K5 must not launch. Then the files: 00's
    preview PNG, 02's curves PNG and history (one finite epoch a stage),
    03's evaluation results (finite PSNR/SSIM/SAM), its three triptychs and
    spectra as PNGs, its bf16 artifact on the card verified at B=1 and 3
    and ``compare_live_vs_exported(...).allclose`` against the same seeded
-   model built here, and its session compiled as a CUDA graph.
+   model built here, and its session compiled as a CUDA graph;
+20. norm (run after noise): the train-mode BatchNorm kernel set (N1,
+   ``ops/cuda_norm.py``) through ``Norm`` at each of the flagship's
+   train-mode norm shapes at B=64 (bf16, channels-last), forward and
+   backward against the same ``Norm`` on its fp32 composition: y and dx
+   within one bf16 ulp (2^-7 of the value plus 1e-4 of the largest), dw,
+   db and the running mean and biased variance within 1e-4 (plus 1e-5 of
+   the largest), six launches a step, two steps bit-equal; the forward's
+   and the backward's device time (a CUDA graph of their launches) beside
+   the composition's and the bytes bound (x read and y written;
+   x and dy read and dx written).
 
 A launch count in the kernels line is a count of device launches. A
 wrapper counts its launch when it runs eagerly and when a graph is
@@ -231,8 +243,8 @@ replay.
 The fp32 phases run with torch's TF32 flags as they are: the port turns
 TF32 off around its own fp32 forwards and steps, and this script around
 the fp32 plain versions and library yardsticks it computes itself. The
-last lines are the kernels JSON line (K1 to K5, with their launches on
-each path), the card's ``nvidia-smi`` name and power limit, and
+last lines are the kernels JSON line (K1 to K5 and N1, with their
+launches on each path), the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that last line; so does a machine with no card, or a
 directory without the package. Everything written goes to temporary
@@ -242,6 +254,7 @@ directories that are removed at the end.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import datetime
 import functools
@@ -279,7 +292,7 @@ MAX_REL_RMS = 2e-2               # bf16 GPU forward vs fp32 CPU forward
 RESBLOCK_BUILDS = (768, 512, 384, 256, 192, 128, 96, 64, 48, 32, 16)
 # csrc/<name>.cu with its -D defines, built in parallel, the longest first
 KERNELS = tuple(("resblock", (f"MSID_C={c}",)) for c in RESBLOCK_BUILDS) + (
-    ("noise", ()), ("resblock_fp32", ()), ("any_dma", ()))
+    ("noise", ()), ("resblock_fp32", ()), ("any_dma", ()), ("batchnorm", ()))
 # K4 against its plain version (cuDNN fp32, TF32 off): both fp32, sums in
 # another order over K = 9C.
 FP32_SHAPES = SHAPES + ((8, 64), (24, 16))
@@ -310,6 +323,12 @@ PROBE_ITERS = 20
 # multiple of a box's 32; n = 2316, no multiple of 256 columns)
 ANY_DMA_SHAPES = ((8, 192, 48), (3072, 192, 48), (1000, 193, 12))
 GRAPH_LAUNCHES = 100              # K5's device time: one CUDA graph of 100 launches
+# N1 at the flagship's train-mode norms (C, H=W): the input pyramid's 32 at 192..24,
+# then the decoder's stages
+NORM_SHAPES = ((32, 192), (32, 96), (32, 48), (32, 24), (384, 24), (192, 48), (96, 96),
+               (48, 192))
+NORM_BATCH = 64
+NORM_GRAPH_LAUNCHES = 10          # N1's device time: forwards or backwards a graph
 PROFILE_SESSIONS = 3              # profiler sessions per measurement; the most complete is kept
 SKIP_CONFIG = ROOT / "configs" / "experiments" / "long_skip.yaml"   # full width, no fill
 HYBRID_BATCHES = (1, 16, 128)
@@ -1089,6 +1108,133 @@ def phase_noise(torch, failures: list) -> dict:
     return timing
 
 
+def norm_case(torch, c: int, side: int, seed: int):
+    """A train-mode ``Norm`` with seeded parameters and statistics, and x (a
+    mean and a scale of its own per channel) and dy, bf16 channels-last at
+    ``[NORM_BATCH, c, side, side]`` on the card."""
+    from msid_tpu_torch.models.blocks import Norm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    norm = Norm(c).cuda().train()
+    with torch.no_grad():
+        norm.weight.copy_(torch.rand(c, device="cuda", generator=g) + 0.5)
+        norm.bias.copy_(torch.rand(c, device="cuda", generator=g) - 0.5)
+        norm.running_var.uniform_(0.5, 1.5, generator=g)
+    shape = (NORM_BATCH, c, side, side)
+    spread = 1 + torch.rand(c, 1, 1, device="cuda", generator=g)
+    loc = torch.randn(c, 1, 1, device="cuda", generator=g)
+    x = torch.randn(shape, device="cuda", generator=g) * spread + loc
+    dy = torch.randn(shape, device="cuda", generator=g)
+    return norm, *(t.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                   for t in (x, dy))
+
+
+def norm_step(torch, norm, x, dy, kernels: bool) -> list:
+    """y, dx, dw, db and the running statistics after one train-mode step
+    of a copy of ``norm``, on N1 or on its fp32 composition."""
+    from msid_tpu_torch.ops import cuda_norm
+
+    serves = cuda_norm.serves
+    if not kernels:
+        cuda_norm.serves = lambda t: False
+    try:
+        norm = copy.deepcopy(norm)
+        xr = x.clone().requires_grad_()
+        y = norm(xr)
+        y.backward(dy)
+        torch.cuda.synchronize()
+    finally:
+        cuda_norm.serves = serves
+    return [y.detach(), xr.grad, norm.weight.grad, norm.bias.grad, norm.running_mean,
+            norm.running_var]
+
+
+def norm_within(got, want, bf16: bool) -> bool:
+    """bf16 (y, dx): one fp32 value rounded on both sides, so one ulp (2^-7
+    of it) or a cancellation near zero (1e-4 of the largest); fp32 (dw, db,
+    the statistics): sums in another order."""
+    got, want = got.float(), want.float()
+    top = want.abs().max()
+    bound = 2.0 ** -7 * want.abs() + 1e-4 * top if bf16 else 1e-4 * want.abs() + 1e-5 * top
+    return bool(((got - want).abs() <= bound).all() and got.isfinite().all())
+
+
+def phase_norm(torch, failures: list) -> dict:
+    """N1 through ``Norm`` against its fp32 composition at every flagship
+    train-mode norm shape at B=64 (``NORM_SHAPES``), the first launch a
+    small one synchronised on its own, with the kernels' device times
+    beside the composition's and the bytes bound."""
+    from msid_tpu_torch.models.blocks import BN_EPS, BN_MOMENTUM
+    from msid_tpu_torch.ops import cuda_norm
+
+    norm, x, dy = norm_case(torch, 48, 8, seed=1)
+    x, dy = x[:1], dy[:1]
+    if not all(norm_within(g, w, i < 2) for i, (g, w) in enumerate(zip(
+            norm_step(torch, norm, x, dy, True), norm_step(torch, norm, x, dy, False)))):
+        failures.append("batchnorm [1,48,8,8]: disagrees with the composition")
+    cuda_norm.launches = 0
+    rows = []
+    for c, side in NORM_SHAPES:
+        norm, x, dy = norm_case(torch, c, side, seed=c + side)
+        before = cuda_norm.launches
+        got = norm_step(torch, norm, x, dy, True)
+        launches = cuda_norm.launches - before
+        again = norm_step(torch, norm, x, dy, True)
+        want = norm_step(torch, norm, x, dy, False)
+        names = ("y", "dx", "dw", "db", "running_mean", "running_var")
+        bad = [n for i, (n, g, w) in enumerate(zip(names, got, want))
+               if not norm_within(g, w, i < 2)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        params = (norm.weight, norm.bias, norm.running_mean.clone(), norm.running_var.clone())
+        y, stats = cuda_norm._forward_kernels(x, *params, BN_MOMENTUM, BN_EPS)
+        forward_ms = graph_ms(torch, lambda: cuda_norm._forward_kernels(
+            x, *params, BN_MOMENTUM, BN_EPS), launches=NORM_GRAPH_LAUNCHES)
+        backward_ms = graph_ms(torch, lambda: cuda_norm._backward_kernels(
+            x, dy, norm.weight, stats, True), launches=NORM_GRAPH_LAUNCHES)
+        xr = x.clone().requires_grad_()
+        composition = copy.deepcopy(norm)
+
+        def plain_forward():
+            with torch.no_grad():
+                composition._train_batch_norm(x)
+
+        def plain_both():
+            xr.grad = None
+            composition._train_batch_norm(xr).backward(dy)
+
+        serves, cuda_norm.serves = cuda_norm.serves, (lambda t: False)
+        try:
+            plain_forward_ms = time_ms(torch, plain_forward, iters=10)
+            plain_ms = time_ms(torch, plain_both, iters=10)
+        finally:
+            cuda_norm.serves = serves
+        n = x.numel()
+        row = {
+            "check": "batchnorm", "B": NORM_BATCH, "C": c, "H": side, "W": side,
+            "launches_a_step": launches,
+            "max_abs_err": {k: float((g.float() - w.float()).abs().max())
+                            for k, g, w in zip(names, got, want)},
+            "forward_ms": forward_ms, "backward_ms": backward_ms,
+            "kernel_ms": forward_ms + backward_ms,
+            "plain_forward_ms": plain_forward_ms, "plain_ms": plain_ms,
+            "plain": "Norm's fp32 composition (eager, autograd), forward and backward",
+            # bf16: x read and y written; x and dy read and dx written
+            "bound_forward_ms": 4 * n / PEAK_HBM_BYTES * 1e3,
+            "bound_backward_ms": 6 * n / PEAK_HBM_BYTES * 1e3,
+            "ok": not bad and same and launches == 6,
+        }
+        row["bound_ms"] = row["bound_forward_ms"] + row["bound_backward_ms"]
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(f"batchnorm C={c} H={side} B={NORM_BATCH}: outside the bf16 "
+                            f"tolerances in {bad}, bit-equal twice {same}, {launches} launches")
+        del norm, x, dy, xr, y, stats, got, again, want, composition
+        torch.cuda.empty_cache()
+    return {"rows": rows, "launches": cuda_norm.launches}
+
+
 def train_batch(bands: int, b: int, seed: int) -> np.ndarray:
     """Raw synthetic DN tiles, as the trainer's loader yields them."""
     from msid_tpu_torch.data.dataset import SyntheticEuroSAT
@@ -1229,7 +1375,8 @@ def kernel_owners(trace_path: Path, top: int = TRACE_TOP) -> dict:
 def phase_train(torch, failures: list, card: str) -> dict:
     """The flagship trains on the card: parity, a 1-epoch Trainer.fit with
     the launch counts, then step times, memory and a profiler breakdown."""
-    from msid_tpu_torch.ops import cuda_decoder, cuda_noise
+    from msid_tpu_torch.models.blocks import Norm
+    from msid_tpu_torch.ops import cuda_decoder, cuda_noise, cuda_norm
     from msid_tpu_torch.training.train_state import make_train_step
     from msid_tpu_torch.utils.config import load_config
     from msid_tpu_torch.utils.setup_helpers import setup_training_session
@@ -1254,12 +1401,14 @@ def phase_train(torch, failures: list, card: str) -> dict:
     steps, val_batches = len(train_loader), len(val_loader)
 
     torch.cuda.reset_peak_memory_stats()
-    cuda_noise.launches = cuda_decoder.launches = 0
+    cuda_noise.launches = cuda_decoder.launches = cuda_norm.launches = 0
     t0 = time.perf_counter()
     history = trainer.fit(train_loader, val_loader, epochs=1)
     torch.cuda.synchronize()
     result["fit_seconds"] = time.perf_counter() - t0
-    launches = {"noise": cuda_noise.launches, "resblock": cuda_decoder.launches}
+    launches = {"noise": cuda_noise.launches, "resblock": cuda_decoder.launches,
+                "batchnorm": cuda_norm.launches}
+    norms = sum(isinstance(m, Norm) and m.kind == "batch" for m in model.modules())
     result.update(launches=launches, steps=steps, val_batches=val_batches,
                   nan_skips=trainer.state.nan_skips, history=history,
                   fit_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1276,6 +1425,8 @@ def phase_train(torch, failures: list, card: str) -> dict:
         "frozen_blocks_0_5": frozen_blocks == {str(i) for i in range(6)},
         "noise_launches": launches["noise"] == steps + val_batches,
         "resblock_launches": launches["resblock"] == 8 * val_batches,
+        "batchnorm_launches": (launches["batchnorm"]      # N1: 3 + 3 a norm a micro-batch
+                               == 6 * norms * steps * trainer.accum_steps),
         "steps": steps == 6 and val_batches == 2,
     }
     result["checks"] = checks
@@ -3019,17 +3170,25 @@ def run_example(torch, name: str, argv: list) -> dict:
     the launches of each kernel over the run, every wrapper's count set to
     0 just before and read just after (the replays of a session it built
     added: bf16 ones to K1, fp32 to K4), beside the launches
-    ``_build.call`` counted (the wrappers' sum)."""
+    ``_build.call`` counted: the wrappers' sum, with N1's library calls in
+    place of its kernels (one call launches three)."""
     import runpy
 
-    from msid_tpu_torch.ops import _build, cuda_decoder, cuda_noise, cuda_probe
+    from msid_tpu_torch.ops import _build, cuda_decoder, cuda_noise, cuda_norm, cuda_probe
 
     path = EXAMPLES_DIR / name
     saved_argv, saved_path = sys.argv, list(sys.path)
     sys.argv = [str(path), *map(str, argv)]
     cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
-    cuda_noise.launches = cuda_probe.launches_any_dma = 0
+    cuda_noise.launches = cuda_probe.launches_any_dma = cuda_norm.launches = 0
     build_before = _build.launches
+    norm_calls, launch = [], cuda_norm._launch
+
+    def counted_launch(*args):
+        launch(*args)
+        norm_calls.append(args[0])
+
+    cuda_norm._launch = counted_launch
     t0 = time.perf_counter()
     try:
         with sessions_built() as sessions:
@@ -3037,11 +3196,12 @@ def run_example(torch, name: str, argv: list) -> dict:
         torch.cuda.synchronize()
     finally:
         sys.argv, sys.path[:] = saved_argv, saved_path
+        cuda_norm._launch = launch
     seconds = time.perf_counter() - t0
     counted = {"resblock": cuda_decoder.launches, "noise": cuda_noise.launches,
                "resblock_fp32": cuda_decoder.launches_fp32,
                "resblock_v2": cuda_decoder.launches_v2, "any_dma": cuda_probe.launches_any_dma}
-    launches = dict(counted)
+    launches = dict(counted, batchnorm=cuda_norm.launches)
     for session in sessions:
         if session.compiled:
             key = "resblock" if session.dtype == torch.bfloat16 else "resblock_fp32"
@@ -3051,7 +3211,7 @@ def run_example(torch, name: str, argv: list) -> dict:
            "sessions": [{"compiled": s.compiled, "optimized": s.optimized,
                          "captured_launches": s.captured_launches, "replays": s.replays}
                         for s in sessions]}
-    row["counts_agree"] = sum(counted.values()) == row["build_launches"]
+    row["counts_agree"] = sum(counted.values()) + len(norm_calls) == row["build_launches"]
     del sessions
     torch.cuda.empty_cache()
     return row
@@ -3136,7 +3296,7 @@ def phase_examples(torch, failures: list, card: str) -> dict:
         }
     result["checks"] = checks
     result["launches"] = {kernel: sum(launches[k][kernel] for k in runs)
-                          for kernel in ("resblock", "noise", "resblock_fp32")}
+                          for kernel in ("resblock", "noise", "resblock_fp32", "batchnorm")}
     result["seconds"] = {k: result[k]["seconds"] for k in runs}
     emit(result)
     for name, ok in checks.items():
@@ -3500,6 +3660,7 @@ def main() -> int:
                    "kernel_fp32": lambda: phase_kernel_fp32(torch, F, failures),
                    "widths": lambda: phase_widths(torch, F, failures, card),
                    "noise": lambda: phase_noise(torch, failures),
+                   "norm": lambda: phase_norm(torch, failures),
                    "probe": lambda: phase_probe(torch, F, failures),
                    "hybrid": lambda: phase_hybrid(torch, failures, card),
                    "scene": lambda: phase_scene(torch, failures, card),
@@ -3536,6 +3697,7 @@ def main() -> int:
     rows_fp32 = timed("kernel_fp32", phase_kernel_fp32, torch, F, failures)
     widths = timed("widths", phase_widths, torch, F, failures, card)
     noise = timed("noise", phase_noise, torch, failures)
+    norm = timed("norm", phase_norm, torch, failures)
     serve, reference = timed("serve", phase_serve, torch, failures, card)
     serve_fp32 = timed("serve_fp32", phase_serve_fp32, torch, failures, card, reference)
     scene = timed("scene", phase_scene, torch, failures, card)
@@ -3591,6 +3753,8 @@ def main() -> int:
                     "export_fp32": export["launches"]["export_fp32"],
                     "examples": examples["launches"]["resblock_fp32"],
                     "widths": widths["launches"]["resblock_fp32"]}
+    norm_by_path = {"norm": norm["launches"], "train": train["launches"]["batchnorm"],
+                    "examples": examples["launches"]["batchnorm"]}
     v2_by_path = {"probe": probe["launches"]["resblock_v2"]}
     any_dma_by_path = {"probe": probe["launches"]["any_dma"]}
     k3 = per_forward(probe["k3"])
@@ -3605,6 +3769,7 @@ def main() -> int:
             ("fused_residual_block_fp32", fp32_by_path,
              [p for p in fp32_by_path if p != "examples"]),
             ("fused_residual_block_v2", v2_by_path, v2_by_path),
+            ("batch_norm_train", norm_by_path, norm_by_path),
             ("any_dma_scale", any_dma_by_path, any_dma_by_path)):
         if not all(by_path[p] > 0 for p in paths):
             failures.append(f"{name}: a path launched it no time: {by_path}")
@@ -3725,6 +3890,33 @@ def main() -> int:
             "share_of_bound")},
         "ragged": {k: k5_ragged[k] for k in ("shape", "device_ms",
                                               "library_device_ms", "ok")},
+    }, {
+        "name": "batch_norm_train",
+        "route": "cuda",
+        "source": "msid_tpu_torch/csrc/batchnorm.cu",
+        "replaces": "none: Norm's fp32 composition (msid_tpu_torch/models/blocks.py), which "
+                    "the JAX package leaves to XLA",
+        "launches": sum(norm_by_path.values()),
+        "launches_by_path": norm_by_path,
+        "max_abs_err": max(max(r["max_abs_err"][k] for k in ("y", "dx"))
+                           for r in norm["rows"]),
+        "ms": sum(r["kernel_ms"] for r in norm["rows"]),
+        "plain_ms": sum(r["plain_ms"] for r in norm["rows"]),
+        "bound_ms": sum(r["bound_ms"] for r in norm["rows"]),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none called: cuDNN's batch norm keeps the unbiased variance in "
+                   "running_var, the port the biased one",
+        "timing": f"ms: device time of the forward's and the backward's launches, each "
+                  f"in a CUDA graph of {NORM_GRAPH_LAUNCHES}; plain_ms: CUDA events "
+                  f"around the composition's eager forward and backward",
+        "per": f"forward and backward once at each of the {len(NORM_SHAPES)} flagship "
+               f"norm shapes at B={NORM_BATCH}, bf16",
+        "stages": {f"C{r['C']}H{r['H']}": [r["forward_ms"], r["backward_ms"],
+                                           r["bound_forward_ms"], r["bound_backward_ms"],
+                                           r["plain_ms"]] for r in norm["rows"]},
+        "stages_columns": ["forward_ms", "backward_ms", "bound_forward_ms",
+                           "bound_backward_ms", "plain_ms"],
     }]})
     if failures:
         for f in failures:

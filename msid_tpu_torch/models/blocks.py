@@ -6,8 +6,10 @@ Counterparts of ``msid_tpu/models/blocks.py``: ``Norm``, ``ConvBlock``,
 and channels-last in memory, so that ``x.permute(0, 2, 3, 1)`` is the
 contiguous NHWC view the fused ResidualBlock kernel takes. GELU is the tanh
 approximation throughout (flax ``nn.gelu``'s default), and every conv pads
-as XLA's ``SAME`` does (``SameConv2d``). Only the eval-mode batch-norm
-``ResidualBlock`` reaches a hand-written kernel; the other blocks are
+as XLA's ``SAME`` does (``SameConv2d``). The eval-mode batch-norm
+``ResidualBlock`` reaches a hand-written kernel (K1 or K4), and so does a
+train-mode batch ``Norm`` on a card (the set N1, ``ops/cuda_norm.py``, in
+place of the fp32 composition XLA fuses on the TPU); the other blocks are
 library convs, as their JAX counterparts reach no Pallas kernel.
 """
 
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from msid_tpu_torch.ops import cuda_norm
 from msid_tpu_torch.ops.cuda_decoder import (
     SUPPORTED_WIDTHS,
     fused_residual_block,
@@ -116,6 +119,12 @@ class Norm(nn.Module):
     ``[sum x, sum x^2, n]`` summed over the group by an all-reduce whose
     backward sums the gradients too (``parallel/collectives.py``). Eval
     mode and ``group`` norms are per sample and never communicate.
+
+    Without a group, a train-mode ``batch`` norm of a bf16 or fp32 tensor
+    on a card (``cuda_norm.serves``) runs the kernel set, inside a
+    ``msid.norm.fused`` span, and raises where the kernels cannot read the
+    tensor (``cuda_norm.check``); the CPU, a group and other dtypes keep
+    the fp32 composition below.
     """
 
     def __init__(self, features: int, kind: str = "batch"):
@@ -160,6 +169,10 @@ class Norm(nn.Module):
             return self._train_batch_norm(x)
 
     def _train_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        if self.data_group is None and cuda_norm.serves(x):
+            with annotate("msid.norm.fused"):
+                return cuda_norm.batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                                  self.running_var, BN_MOMENTUM, BN_EPS)
         xf = x.float()
         if self.data_group is None:
             mean = xf.mean(dim=(0, 2, 3))

@@ -89,10 +89,12 @@ def annotate(name: str):
     (``restore_scene``'s device assembly);
     ``msid.train.prepare``, ``msid.train.forward``, ``msid.train.backward``
     and ``msid.train.update`` (the train step); ``msid.norm.train`` (a
-    batch ``Norm`` in train mode); ``msid.data.batch`` (a
-    ``DeviceCachedLoader`` batch); ``msid.encoder.group_embed`` (the
-    group-channel encoder's patch embeds and position and group embedding)
-    and ``msid.encoder.fold`` (its tokens folded to the decoder's grid),
+    batch ``Norm`` in train mode), with ``msid.norm.fused`` inside it where
+    the norm runs the kernel set N1 (``ops/cuda_norm.py``);
+    ``msid.data.batch`` (a ``DeviceCachedLoader`` batch);
+    ``msid.encoder.group_embed`` (the group-channel encoder's patch embeds
+    and position and group embedding) and ``msid.encoder.fold`` (its tokens
+    folded to the decoder's grid),
     seen in eager forwards and training: a scene step replays a captured
     graph, whose host work the spans do not see.
     """

@@ -774,3 +774,125 @@ def test_capacity_2x_bf16_session_launches_k1_and_matches_the_cpu():
     assert cuda_decoder.launches > before
     assert got.shape == x.shape and np.isfinite(got).all()
     assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 2e-2
+
+
+# N1, train-mode BatchNorm (ops/cuda_norm.py, csrc/batchnorm.cu): every
+# (C, side) a Norm trains at in the flagship (InputPyramid 32 at 192..24,
+# SkipDecoder 384/192/96/48 and the head) and capacity_2x (768/384/192/96),
+# at B=64.
+N1_STAGES = [(32, 192), (32, 96), (32, 48), (32, 24), (384, 24), (192, 48), (96, 96),
+             (48, 192), (768, 24), (384, 48), (192, 96), (96, 192)]
+
+
+def n1_case(c, side, layout, dtype, seed, batch=64):
+    """A seeded train-mode Norm and x (a mean and scale of its own per
+    channel) and dy on the card, channels-last ("rows") or NCHW ("planes")."""
+    from msid_tpu_torch.models.blocks import Norm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    norm = Norm(c).cuda().train()
+    with torch.no_grad():
+        norm.weight.copy_(torch.rand(c, device="cuda", generator=g) + 0.5)
+        norm.bias.copy_(torch.rand(c, device="cuda", generator=g) - 0.5)
+        norm.running_var.uniform_(0.5, 1.5, generator=g)
+    shape = (batch, c, side, side)
+    loc = torch.randn(c, 1, 1, device="cuda", generator=g)
+    x = torch.randn(shape, device="cuda", generator=g) * (1 + torch.rand(c, 1, 1, device="cuda",
+                                                                         generator=g)) + loc
+    dy = torch.randn(shape, device="cuda", generator=g)
+    memory = torch.channels_last if layout == "rows" else torch.contiguous_format
+    x, dy = (t.to(dtype).contiguous(memory_format=memory) for t in (x, dy))
+    return norm, x, dy
+
+
+def n1_step(norm, x, dy):
+    """y, dx, dw, db and the running statistics after one train-mode step."""
+    import copy
+
+    norm = copy.deepcopy(norm)
+    xr = x.clone().requires_grad_()
+    y = norm(xr)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    return [y.detach(), xr.grad, norm.weight.grad, norm.bias.grad, norm.running_mean,
+            norm.running_var]
+
+
+def n1_close(got, want, dtype):
+    """bf16: one fp32 value rounded on both sides, an element one ulp apart
+    (2 ** -8 of it) or a cancellation near zero (1e-4 of the largest);
+    fp32, and the fp32 gradients and statistics: sums in another order."""
+    got, want = got.float(), want.float()
+    bound = (2.0 ** -7 * want.abs() + 1e-4 * want.abs().max() if dtype == torch.bfloat16
+             else 1e-4 * want.abs() + 1e-5 * want.abs().max())
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,side,layout,dtype",
+                         [(c, s, "rows", torch.bfloat16) for c, s in N1_STAGES]
+                         + [(96, 96, "rows", torch.float32), (768, 24, "rows", torch.float32)])
+def test_n1_matches_the_composition_at_every_stage(monkeypatch, c, side, layout, dtype):
+    """The kernel set against autograd of ``Norm``'s fp32 composition on the
+    card (``serves`` refused for it): y, dx, dw, db, the running mean and
+    the biased running variance; six launches, the channels-last layout kept."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_norm
+
+    norm, x, dy = n1_case(c, side, layout, dtype, seed=c + side)
+    assert cuda_norm.serves(x)
+    before = cuda_norm.launches
+    got = n1_step(norm, x, dy)
+    assert cuda_norm.launches == before + 6
+    with monkeypatch.context() as m:
+        m.setattr(cuda_norm, "serves", lambda x: False)
+        want = n1_step(norm, x, dy)
+    assert got[0].stride() == got[1].stride() == x.stride()
+    for i, (g, w) in enumerate(zip(got, want)):
+        n1_close(g, w, dtype if i < 2 else torch.float32)
+
+
+@pytest.mark.cuda
+def test_an_nchw_tensor_raises_on_the_card():
+    """No norm of the decoders sees an NCHW tensor; one that did would be
+    refused aloud (no kernel launch, no copy, no silent composition)."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_norm
+
+    norm, x, dy = n1_case(48, 24, "planes", torch.bfloat16, seed=5, batch=4)
+    before = cuda_norm.launches
+    with pytest.raises(ValueError, match="not channels-last"):
+        n1_step(norm, x, dy)
+    assert cuda_norm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,side", [(48, 192), (384, 24), (768, 24)])
+def test_n1_is_deterministic(c, side):
+    """No atomics: two calls on the same input give the same bits."""
+    need_card()
+    norm, x, dy = n1_case(c, side, "rows", torch.bfloat16, seed=c)
+    first, second = n1_step(norm, x, dy), n1_step(norm, x, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_eval_mode_launches_no_n1_kernel():
+    """Eval-mode Norm stays ``x * a + b`` (the scene cells' path); train
+    mode makes one call of the library forward (three kernels) and one
+    backward (three more)."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_norm
+
+    norm, x, dy = n1_case(96, 48, "rows", torch.bfloat16, seed=1, batch=4)
+    before, kernels = _build.launches, cuda_norm.launches
+    with torch.no_grad():
+        norm.eval()(x)
+    torch.cuda.synchronize()
+    assert (_build.launches, cuda_norm.launches) == (before, kernels)
+    xr = x.clone().requires_grad_()
+    y = norm.train()(xr)
+    assert (_build.launches, cuda_norm.launches) == (before + 1, kernels + 3)
+    y.backward(dy)
+    assert (_build.launches, cuda_norm.launches) == (before + 2, kernels + 6)

@@ -220,6 +220,45 @@ def test_train_step_spans_with_norm_inside_the_forward():
     assert all(f0 <= s0 <= s1 <= f1 for _, s0, s1 in norms)
 
 
+@pytest.mark.parametrize("kernel_path", [False, True], ids=["fallback", "kernel"])
+def test_norm_fused_span_nests_in_norm_train_only_on_the_kernel_path(monkeypatch,
+                                                                      kernel_path):
+    """On the kernel path (``cuda_norm.serves`` says yes, as on a card; a
+    plain batch norm stands in for the kernels here) every
+    ``msid.norm.train`` holds one ``msid.norm.fused``; on the composition's
+    path (the CPU) there is none."""
+    from msid_tpu_torch.ops import cuda_norm
+
+    def stand_in(x, weight, bias, running_mean, running_var, momentum, eps):
+        xf = x.float()
+        mean, var = xf.mean(dim=(0, 2, 3)), xf.var(dim=(0, 2, 3), unbiased=False)
+        scale = weight * torch.rsqrt(var + eps)
+        return (xf * scale[:, None, None] + (bias - mean * scale)[:, None, None]).to(x.dtype)
+
+    if kernel_path:
+        monkeypatch.setattr(cuda_norm, "serves", lambda x: True)
+        monkeypatch.setattr(cuda_norm, "batch_norm_train", stand_in)
+    config, model = tiny_model()
+    optimizer, _ = build_optimizer_from_config(config, model)
+    step = make_train_step(model, image_size=64)
+    state = TrainState.create(model, optimizer)
+    tiles = np.random.default_rng(0).uniform(500, 4000, (4, 32, 32, 13)).astype(np.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, metrics = step(state, tiles, 7)
+    assert metrics["skipped"] == 0
+    spans = msid_spans(prof)
+    norms = [s for s in spans if s[0] == "msid.norm.train"]
+    fused = [s for s in spans if s[0] == "msid.norm.fused"]
+    assert len(norms) > 0
+    if not kernel_path:
+        assert fused == []
+        return
+    assert len(fused) == len(norms)
+    assert all(n0 <= f0 <= f1 <= n1 for (_, n0, n1), (_, f0, f1) in zip(norms, fused))
+    assert [e.cpu_parent.name for e in prof.events() if e.name == "msid.norm.fused"] \
+        == ["msid.norm.train"] * len(norms)
+
+
 def test_device_cached_loader_batch_span():
     ds = SyntheticEuroSAT(num_samples=20, split="train", seed=0)
     loader = DeviceCachedLoader(ds, batch_size=8, seed=3, device="cpu")
