@@ -116,8 +116,8 @@ network. Phases, each of which must pass:
    through the functional entry, beside K1, a cuDNN bf16 composition and
    the bound;
    then ``msid_tpu_torch.benchmarks.kernel_probe.main`` for every variant,
-   each kernel's launch counter moving by that variant's calls and no
-   other counter moving;
+   each kernel's launch count moving by that variant's calls and no
+   other kernel's moving;
 12. hybrid: the default full-width model (``unet_light`` 384/192/96/48, no
    fill) in bf16: ``InferenceSession(optimize="auto")`` serves the module's
    forward at B=1 and the hybrid graph at B=16, ``optimize=True`` the
@@ -211,10 +211,9 @@ network. Phases, each of which must pass:
    ``03_evaluation_and_export`` with ``--config long_skip_fill.yaml``,
    ``02_two_stage_training`` on its own stage configurations (ViT-Base,
    ``unet_light``) with ``--epochs 1``, stage B resuming stage A's
-   checkpoint under another freeze set. Every launch counter is set to 0
-   before each and read after (a session's replays added), beside
-   ``_build``'s count of the same launches (N1's as library calls, three
-   kernels each), with the example's seconds: K1 must launch in all three
+   checkpoint under another freeze set. The launch count is cleared
+   before each and read after (a session's replays added), with the
+   example's seconds: K1 must launch in all three
    (8 times in 00's one forward) and K2 in 02 and 03, K4 and N1 are
    recorded, K3 and K5 must not launch. Then the files: 00's
    preview PNG, 02's curves PNG and history (one finite epoch a stage),
@@ -233,12 +232,13 @@ network. Phases, each of which must pass:
    the composition's and the bytes bound (x read and y written;
    x and dy read and dx written).
 
-A launch count in the kernels line is a count of device launches. A
-wrapper counts its launch when it runs eagerly and when a graph is
-captured; a replay runs the captured launches without passing through a
-wrapper. So a path served by a compiled session counts the wrappers'
-launches over the run, less the capture's, plus the capture's for every
-replay.
+A launch count in the kernels line is a count of device launches.
+``ops/_build.py`` counts the device kernels of every launch
+(``_build.launched``, by C entry point; ``launched`` here sums a kernel's
+entries) when it runs eagerly and when a graph is captured; a replay runs
+the captured launches without passing through it. So a path served by a
+compiled session counts the launches over the run, less the capture's,
+plus the capture's for every replay.
 
 The fp32 phases run with torch's TF32 flags as they are: the port turns
 TF32 off around its own fp32 forwards and steps, and this script around
@@ -323,6 +323,12 @@ PROBE_ITERS = 20
 # multiple of a box's 32; n = 2316, no multiple of 256 columns)
 ANY_DMA_SHAPES = ((8, 192, 48), (3072, 192, 48), (1000, 193, 12))
 GRAPH_LAUNCHES = 100              # K5's device time: one CUDA graph of 100 launches
+# Each kernel's C entry points, whose device kernels ops/_build.py counts
+ENTRIES = {"resblock": ("msid_resblock_forward",),
+           "resblock_fp32": ("msid_resblock_fp32_forward",),
+           "resblock_v2": ("msid_resblock_v2_forward",), "noise": ("msid_noise_forward",),
+           "any_dma": ("msid_any_dma_scale",),
+           "batchnorm": ("msid_bn_forward", "msid_bn_backward")}
 # N1 at the flagship's train-mode norms (C, H=W): the input pyramid's 32 at 192..24,
 # then the decoder's stages
 NORM_SHAPES = ((32, 192), (32, 96), (32, 48), (32, 24), (384, 24), (192, 48), (96, 96),
@@ -469,6 +475,21 @@ def graph_ms(torch, fn, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> flo
     torch.cuda.synchronize()
     del graph
     return float(np.median([s.elapsed_time(e) for s, e in pairs])) / launches
+
+
+def launched(kernel: str) -> int:
+    """Device kernels of ``kernel`` (a key of ``ENTRIES``) that
+    ``_build.launch`` has counted since ``clear_launches``."""
+    from msid_tpu_torch.ops import _build
+
+    return sum(_build.launched[entry] for entry in ENTRIES[kernel])
+
+
+def clear_launches() -> None:
+    """Set every kernel's count of device launches to 0."""
+    from msid_tpu_torch.ops import _build
+
+    _build.launched.clear()
 
 
 def resblock_encodes() -> int:
@@ -824,7 +845,7 @@ def session_turns(torch, session, requests: list, tag: str, iters: int) -> dict:
 
 def device_launches(counted: int, session) -> int:
     """Device launches of a hand-written kernel over a run that built
-    ``session`` and served from it, from its wrapper's count over the run
+    ``session`` and served from it, from its kernel's count over the run
     (``counted``: the warmup's and the eager forwards' launches, which ran,
     and the capture's, which only recorded): the capture's out, each
     replay's in."""
@@ -859,7 +880,6 @@ def phase_serve(torch, failures: list, card: str) -> tuple[dict, tuple]:
     fp32 on the CPU, the graph against the eager forward in turns."""
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder, cuda_noise
 
     cfg = load_flagship()
     cpu_model = SatMAERestoration.from_config(cfg, device="cpu").eval()
@@ -872,7 +892,7 @@ def phase_serve(torch, failures: list, card: str) -> tuple[dict, tuple]:
               "dtype": "bfloat16", "card": card}
     launches_total = noise_launches = 0
     for b in BATCHES:
-        cuda_decoder.launches = cuda_noise.launches = 0
+        clear_launches()
         encodes = resblock_encodes()
         session = InferenceSession(model, batch_size=b, image_size=size,
                                    num_bands=bands)
@@ -888,11 +908,11 @@ def phase_serve(torch, failures: list, card: str) -> tuple[dict, tuple]:
         if b == 1 and not row["eager"]["device_launches"] < BF16_B1_LAUNCHES_BEFORE:
             failures.append(f"serve B=1: {row['eager']['device_launches']} device launches "
                             f"per eager forward, not fewer than {BF16_B1_LAUNCHES_BEFORE}")
-        launches = device_launches(cuda_decoder.launches, session)
+        launches = device_launches(launched("resblock"), session)
         row.update(k1_device_launches=launches, replays=session.replays,
                    tensor_map_encodes=resblock_encodes() - encodes)
         launches_total += launches
-        noise_launches += cuda_noise.launches
+        noise_launches += launched("noise")
         result[f"b{b}"] = row
         if b == 1:
             torch.set_num_threads(8)
@@ -919,7 +939,6 @@ def phase_serve_fp32(torch, failures: list, card: str, reference: tuple) -> dict
     each compiled, against its eager forward."""
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder
 
     cpu_model, x0, ref = reference
     cfg = load_flagship()
@@ -930,7 +949,7 @@ def phase_serve_fp32(torch, failures: list, card: str, reference: tuple) -> dict
               "dtype": "float32", "card": card}
     k4_total = 0
     for b in BATCHES:
-        cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+        clear_launches()
         session = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
         requests = [x0] if b == 1 else [noisy_tiles(b, size, bands, seed=200 + i)
                                          for i in range(REQUESTS)]
@@ -940,11 +959,11 @@ def phase_serve_fp32(torch, failures: list, card: str, reference: tuple) -> dict
                 failures.append(f"serve_fp32 B={b}: bad output {out.shape}")
         row = session_turns(torch, session, requests, "resblock_fp32_kernel", 20 if b == 1 else 10)
         check_session(failures, f"serve_fp32 B={b}", row, 8)
-        k4 = device_launches(cuda_decoder.launches_fp32, session)
-        row.update(k4_device_launches=k4, k1_launches=cuda_decoder.launches,
+        k4 = device_launches(launched("resblock_fp32"), session)
+        row.update(k4_device_launches=k4, k1_launches=launched("resblock"),
                    replays=session.replays)
-        if cuda_decoder.launches != 0:
-            failures.append(f"serve_fp32 B={b}: {cuda_decoder.launches} K1 launches")
+        if launched("resblock") != 0:
+            failures.append(f"serve_fp32 B={b}: {launched('resblock')} K1 launches")
         k4_total += k4
         result[f"b{b}"] = row
         if b == 1:
@@ -959,12 +978,12 @@ def phase_serve_fp32(torch, failures: list, card: str, reference: tuple) -> dict
 
     bf16 = SatMAERestoration.from_config(cfg, dtype=torch.bfloat16)
     bf16.load_state_dict(cpu_model.state_dict())
-    cuda_decoder.launches = 0
+    clear_launches()
     session = InferenceSession(bf16, batch_size=1, image_size=size, num_bands=bands, tta=8)
     out = session.predict(x0)
     row = session_turns(torch, session, [x0], "resblock_kernel", 10)
     check_session(failures, "serve tta=8", row, 64)
-    tta_launches = device_launches(cuda_decoder.launches, session)
+    tta_launches = device_launches(launched("resblock"), session)
     row.update(k1_device_launches=tta_launches, replays=session.replays,
                rel_rms_vs_cpu_fp32_single_view=rel_rms(out, ref))
     result["tta8_bf16_b1"] = row
@@ -1172,13 +1191,13 @@ def phase_norm(torch, failures: list) -> dict:
     if not all(norm_within(g, w, i < 2) for i, (g, w) in enumerate(zip(
             norm_step(torch, norm, x, dy, True), norm_step(torch, norm, x, dy, False)))):
         failures.append("batchnorm [1,48,8,8]: disagrees with the composition")
-    cuda_norm.launches = 0
+    clear_launches()
     rows = []
     for c, side in NORM_SHAPES:
         norm, x, dy = norm_case(torch, c, side, seed=c + side)
-        before = cuda_norm.launches
+        before = launched("batchnorm")
         got = norm_step(torch, norm, x, dy, True)
-        launches = cuda_norm.launches - before
+        launches = launched("batchnorm") - before
         again = norm_step(torch, norm, x, dy, True)
         want = norm_step(torch, norm, x, dy, False)
         names = ("y", "dx", "dw", "db", "running_mean", "running_var")
@@ -1232,7 +1251,7 @@ def phase_norm(torch, failures: list) -> dict:
                             f"tolerances in {bad}, bit-equal twice {same}, {launches} launches")
         del norm, x, dy, xr, y, stats, got, again, want, composition
         torch.cuda.empty_cache()
-    return {"rows": rows, "launches": cuda_norm.launches}
+    return {"rows": rows, "launches": launched("batchnorm")}
 
 
 def train_batch(bands: int, b: int, seed: int) -> np.ndarray:
@@ -1376,7 +1395,6 @@ def phase_train(torch, failures: list, card: str) -> dict:
     """The flagship trains on the card: parity, a 1-epoch Trainer.fit with
     the launch counts, then step times, memory and a profiler breakdown."""
     from msid_tpu_torch.models.blocks import Norm
-    from msid_tpu_torch.ops import cuda_decoder, cuda_noise, cuda_norm
     from msid_tpu_torch.training.train_state import make_train_step
     from msid_tpu_torch.utils.config import load_config
     from msid_tpu_torch.utils.setup_helpers import setup_training_session
@@ -1401,13 +1419,13 @@ def phase_train(torch, failures: list, card: str) -> dict:
     steps, val_batches = len(train_loader), len(val_loader)
 
     torch.cuda.reset_peak_memory_stats()
-    cuda_noise.launches = cuda_decoder.launches = cuda_norm.launches = 0
+    clear_launches()
     t0 = time.perf_counter()
     history = trainer.fit(train_loader, val_loader, epochs=1)
     torch.cuda.synchronize()
     result["fit_seconds"] = time.perf_counter() - t0
-    launches = {"noise": cuda_noise.launches, "resblock": cuda_decoder.launches,
-                "batchnorm": cuda_norm.launches}
+    launches = {"noise": launched("noise"), "resblock": launched("resblock"),
+                "batchnorm": launched("batchnorm")}
     norms = sum(isinstance(m, Norm) and m.kind == "batch" for m in model.modules())
     result.update(launches=launches, steps=steps, val_batches=val_batches,
                   nan_skips=trainer.state.nan_skips, history=history,
@@ -1492,7 +1510,6 @@ def evaluate_fp32_against_cpu(torch, fp32_config: Path, ckpt_dir: Path) -> dict:
     (K2, the first batch's eval seed), restored in fp32 by the checkpoint's
     weights on the card (K4) and on the CPU from the same noisy tensor."""
     from msid_tpu_torch.data.pipeline import get_dataloaders
-    from msid_tpu_torch.ops import cuda_decoder
     from msid_tpu_torch.ops.metrics import batch_metric_sums
     from msid_tpu_torch.ops.noise import NoiseConfig, corrupt, fold_in
     from msid_tpu_torch.ops.preprocess import preprocess_tiles
@@ -1517,10 +1534,10 @@ def evaluate_fp32_against_cpu(torch, fp32_config: Path, ckpt_dir: Path) -> dict:
             torch.as_tensor(batch[:8], device="cuda"), models["cuda"].image_size)
         noisy = corrupt(fold_in(EVAL_SEED, 0), clean, NoiseConfig.from_config(config),
                         impl="pallas")
-        cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+        clear_launches()
         out = models["cuda"](noisy)
         torch.cuda.synchronize()
-        k4, k1 = cuda_decoder.launches_fp32, cuda_decoder.launches
+        k4, k1 = launched("resblock_fp32"), launched("resblock")
         torch.set_num_threads(8)
         t0 = time.perf_counter()
         ref = models["cpu"](noisy.cpu())
@@ -1539,7 +1556,6 @@ def phase_evaluate(torch, failures: list, card: str) -> dict:
     """The evaluate path through the CLIs a user runs: train one epoch and
     checkpoint, then score the checkpoint in bf16, fp32, with TTA and as an
     ensemble, holding each to the trainer's validation line or the CPU."""
-    from msid_tpu_torch.ops import cuda_decoder, cuda_noise
     from msid_tpu_torch.scripts import evaluate as evaluate_cli
     from msid_tpu_torch.scripts import train as train_cli
     from msid_tpu_torch.utils import checkpointing
@@ -1585,14 +1601,14 @@ def phase_evaluate(torch, failures: list, card: str) -> dict:
             "ensemble2_bf16": ["--config", str(CONFIG), "--ensemble", str(ckpt)],
         }
         for name, argv in runs.items():
-            cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_noise.launches = 0
+            clear_launches()
             t0 = time.perf_counter()
             out = evaluate_cli.main([*argv, *common, "--checkpoint", str(ckpt),
                                      "--output-dir", str(tmp / name)])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts = {"resblock": cuda_decoder.launches, "noise": cuda_noise.launches,
-                      "resblock_fp32": cuda_decoder.launches_fp32}
+            counts = {"resblock": launched("resblock"), "noise": launched("noise"),
+                      "resblock_fp32": launched("resblock_fp32")}
             for k, v in counts.items():
                 launches[k] += v
             result[name] = {"seconds": seconds, "launches": counts,
@@ -1750,30 +1766,26 @@ def phase_probe(torch, F, failures: list) -> dict:
     del cases
 
     # The entry point, one variant per call as a user runs it. Each variant
-    # moves its own kernel's counter by the calls it makes, and no other.
-    counters = {"resblock": (cuda_decoder, "launches"),
-                "resblock_fp32": (cuda_decoder, "launches_fp32"),
-                "resblock_v2": (cuda_decoder, "launches_v2"),
-                "any_dma": (cuda_probe, "launches_any_dma")}
+    # moves its own kernel's count by the calls it makes, and no other.
+    kernels = ("resblock", "resblock_fp32", "resblock_v2", "any_dma")
     moves = {"xla": None, "xla_bf16": None, "fused": "resblock_fp32", "v3": "resblock",
              "v2": "resblock_v2", "v2:8:32": "resblock_v2", "any_dma": "any_dma"}
-    for module, attr in counters.values():
-        setattr(module, attr, 0)
-    result["launches"] = {k: 0 for k in counters}
+    clear_launches()
+    result["launches"] = {k: 0 for k in kernels}
     result["variants"] = {}
     for variant, kernel in moves.items():
-        before = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        before = {k: launched(k) for k in kernels}
         out = kernel_probe.main([variant, "--shape", ",".join(map(str, PROBE_SHAPE)),
                                  "--iters", str(PROBE_ITERS)])
         torch.cuda.synchronize()
-        moved = {k: getattr(m, a) - before[k] for k, (m, a) in counters.items()}
-        expected = {k: (out["calls"] if k == kernel else 0) for k in counters}
+        moved = {k: launched(k) - before[k] for k in kernels}
+        expected = {k: (out["calls"] if k == kernel else 0) for k in kernels}
         out["launches"] = moved
         result["variants"][variant] = out
         for k, v in moved.items():
             result["launches"][k] += v
         if moved != expected:
-            failures.append(f"probe {variant}: counters moved by {moved}, expected {expected}")
+            failures.append(f"probe {variant}: counts moved by {moved}, expected {expected}")
         if variant == "any_dma":
             if out["correct"] is not True:
                 failures.append("probe any_dma: not correct")
@@ -1799,12 +1811,11 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
         InferenceSession,
     )
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder
     from msid_tpu_torch.scripts import evaluate as evaluate_cli
     from msid_tpu_torch.scripts import train as train_cli
 
     def block_counts():
-        return (cuda_decoder.launches, cuda_decoder.launches_fp32, cuda_decoder.launches_v2)
+        return launched("resblock"), launched("resblock_fp32"), launched("resblock_v2")
 
     cpu_model = SatMAERestoration().eval()               # the defaults: the model bench.py times
     randomize_(torch, cpu_model, seed=2)
@@ -1831,11 +1842,11 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
         failures.append(f"hybrid: the session chose {chosen}")
 
     # Agreement and launch counts: bf16 at B=16 through the sessions a user
-    # builds (each captured: its warmup and capture move the counters, its
+    # builds (each captured: its warmup and capture move the counts, its
     # replays do not), fp32 at B=2 with the graphs called directly (auto
     # would serve the module's forward at B=2).
     x16 = noisy_tiles(16, size, bands, seed=300)
-    cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
+    clear_launches()
     apply16 = session(16, False)
     ref = apply16.predict(x16)
     after_apply = block_counts()
@@ -1853,7 +1864,7 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
     expect_apply = (8 * (CAPTURE_WARMUP + 1), 0, 0)
     if (captured != {"apply": 8, "hybrid": 0, "fastpath": 0} or after_apply != expect_apply
             or after_folded != after_apply):
-        failures.append(f"hybrid bf16: captured {captured}; block-kernel counters "
+        failures.append(f"hybrid bf16: captured {captured}; block-kernel counts "
                         f"{after_apply} after the module's forward, {after_folded} after the "
                         f"folded graphs")
     for k, v in result["bf16_b16"]["rel_rms_vs_apply"].items():
@@ -1865,7 +1876,7 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
     m32 = models["float32"]
     x2 = torch.from_numpy(noisy_tiles(2, size, bands, seed=301)).cuda()
     with torch.inference_mode():
-        cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
+        clear_launches()
         ref32 = m32(x2)
         after_apply = block_counts()
         tree = fastpath.optimize_for_inference(m32, upsample="both")
@@ -1883,7 +1894,7 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
                          "rel_rms_vs_apply": {k: rel_rms(v.cpu().numpy(), ref32.cpu().numpy())
                                               for k, v in outs32.items()}}
     if after_apply != (0, 8, 0) or after_folded != after_apply:
-        failures.append(f"hybrid fp32: block-kernel counters {after_apply} after the module's "
+        failures.append(f"hybrid fp32: block-kernel counts {after_apply} after the module's "
                         f"forward, {after_folded} after the folded graphs")
     for k, v in result["fp32_b2"]["rel_rms_vs_apply"].items():
         if not v <= HYBRID_FP32_REL_RMS:
@@ -1895,7 +1906,7 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
     # captures it (CapturedForward), in turns (there and back), each called
     # as the session calls it ("auto" itself serves the module's forward
     # below 8, so a session cannot be asked for the hybrid graph at B=1).
-    before = cuda_decoder.launches
+    before = launched("resblock")
     times: dict = {}
     for b in HYBRID_BATCHES:
         iters, warmup = (30, 5) if b < 128 else (10, 3)
@@ -1916,7 +1927,7 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
                     return fn(x)
             return run
 
-        captured = {k: CapturedForward(inference(fn), xb) for k, fn in forwards.items()}
+        captured = {k: CapturedForward(inference(fn), xb, model) for k, fn in forwards.items()}
         turns: dict = {k: {"eager": [], "graph": []} for k in forwards}
         for name in ("apply", "hybrid", "fastpath", "fastpath", "hybrid", "apply"):
             turns[name]["eager"].append(
@@ -1948,7 +1959,7 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
         launches["resblock"] += (apply_graph.replays - 1) * apply_graph.launches
         del xb, hybrid_w, fast_w, captured, apply_graph
         torch.cuda.empty_cache()
-    launches["resblock"] += cuda_decoder.launches - before
+    launches["resblock"] += launched("resblock") - before
     result["device_times"] = times
 
     # --forward hybrid through the CLIs, fp32, on the flagship without its
@@ -1969,7 +1980,7 @@ def phase_hybrid(torch, failures: list, card: str) -> dict:
                                    ("hybrid", fp32_config, "hybrid"),
                                    ("apply_bf16", SKIP_CONFIG, "apply"),
                                    ("hybrid_bf16", SKIP_CONFIG, "hybrid")):
-            cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
+            clear_launches()
             t0 = time.perf_counter()
             out = evaluate_cli.main(["--config", str(config), *common, "--forward", impl,
                                      "--checkpoint", str(tmp / "run" / "checkpoints"),
@@ -2135,13 +2146,13 @@ def phase_scene(torch, failures: list, card: str) -> dict:
     launches = {}
     dev_step_bf16 = None
     for name, dtype, counter, other, tag, small_bound, tiling in (
-            ("bf16", torch.bfloat16, "launches", "launches_fp32", "resblock_kernel",
+            ("bf16", torch.bfloat16, "resblock", "resblock_fp32", "resblock_kernel",
              MAX_REL_RMS, cuda_decoder.bf16_tiling),
-            ("fp32", torch.float32, "launches_fp32", "launches", "resblock_fp32_kernel",
+            ("fp32", torch.float32, "resblock_fp32", "resblock", "resblock_fp32_kernel",
              FP32_FORWARD_REL_RMS, cuda_decoder.fp32_tiling)):
         model = SatMAERestoration.from_config(cfg, dtype=dtype)
         model.load_state_dict(weights)
-        cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+        clear_launches()
         host_step = sw.make_scene_step(model, None, SCENE_WINDOW, size)
         dev_step = sw.make_device_scene_step(model, None, SCENE_WINDOW, size, SCENE_OVERLAP)
         del model
@@ -2218,8 +2229,8 @@ def phase_scene(torch, failures: list, card: str) -> dict:
                               for c, s in SHAPES}
         captured = {k: steps[k].captured_launches for k in ("host", "device")}
         replays = host_step.replays + dev_step.replays
-        counted, wrong = getattr(cuda_decoder, counter), getattr(cuda_decoder, other)
-        # the wrappers counted each graph's warmup and capture; a replay runs
+        counted, wrong = launched(counter), launched(other)
+        # the count moved at each graph's warmup and capture; a replay runs
         # the captured launches
         device = counted - sum(captured.values()) + replays * captured["device"]
         launches[name] = device
@@ -2292,7 +2303,6 @@ def phase_data_cache(torch, failures: list, card: str) -> dict:
     one epoch each, in turns."""
     from msid_tpu_torch.data.pipeline import BatchLoader, DeviceCachedLoader, get_dataloaders
     from msid_tpu_torch.data.tiff import write_tiff
-    from msid_tpu_torch.ops import cuda_noise
     from msid_tpu_torch.training.eval import split_batch_item
     from msid_tpu_torch.utils.setup_helpers import setup_training_session
 
@@ -2360,10 +2370,10 @@ def phase_data_cache(torch, failures: list, card: str) -> dict:
         for epoch, turn in enumerate(CACHE_TURNS, start=1):
             stamps.clear()
             torch.cuda.reset_peak_memory_stats()
-            cuda_noise.launches = 0
+            clear_launches()
             trainer.train_epoch(loaders[turn], epoch)
             if turn == "cache":
-                noise_launches += cuda_noise.launches
+                noise_launches += launched("noise")
             times[turn] += list(np.diff(stamps) * 1e3)   # step to step, data included
             result[f"{turn}_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         trainer.train_step = step
@@ -2440,12 +2450,11 @@ def artifact_new_batch(torch, artifact, model, b: int, size: int, bands: int) ->
     session of batch ``b`` on the same weights. K1's device launches: the
     new graph's warmup (the capture only records) and its replays."""
     from msid_tpu_torch.deployment.inference import InferenceSession
-    from msid_tpu_torch.ops import cuda_decoder
 
     x = noisy_tiles(b, size, bands, seed=500)
-    counted = cuda_decoder.launches
+    counted = launched("resblock")
     first = artifact.predict(x)                          # captures the graph at b
-    counted = cuda_decoder.launches - counted
+    counted = launched("resblock") - counted
     encodes = resblock_encodes()
     again = [artifact.predict(x) for _ in range(REQUESTS)]
     torch.cuda.synchronize()
@@ -2485,7 +2494,6 @@ def phase_export(torch, failures: list, card: str) -> dict:
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.deployment.quantize import quantization_report
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder
 
     clock = Stopwatch()
     cfg = load_flagship()
@@ -2506,8 +2514,8 @@ def phase_export(torch, failures: list, card: str) -> dict:
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_export_")
     models = {}
     for name, dtype, counter, tag in (
-            ("bfloat16", torch.bfloat16, "launches", "resblock_kernel"),
-            ("float32", torch.float32, "launches_fp32", "resblock_fp32_kernel")):
+            ("bfloat16", torch.bfloat16, "resblock", "resblock_kernel"),
+            ("float32", torch.float32, "resblock_fp32", "resblock_fp32_kernel")):
         model = SatMAERestoration.from_config(cfg, dtype=dtype).eval()
         model.load_state_dict(cpu_model.state_dict())
         models[name] = model
@@ -2530,14 +2538,14 @@ def phase_export(torch, failures: list, card: str) -> dict:
             if not cmp.allclose:
                 failures.append(f"export float32: live vs exported {cmp}")
         for b in BATCHES:
-            setattr(cuda_decoder, counter, 0)
+            clear_launches()
             with clock(f"{name}_b{b}_artifact_session"):
                 artifact = InferenceSession(artifact_path=path, batch_size=b, image_size=size,
                                             num_bands=bands)
             requests = [x0] if b == 1 else [noisy_tiles(b, size, bands, seed=400 + i)
                                              for i in range(REQUESTS)]
             outs = [artifact.predict(r) for r in requests]
-            counted = getattr(cuda_decoder, counter)
+            counted = launched(counter)
             with clock(f"{name}_b{b}_live_session"):
                 live = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
                 want = [live.predict(r) for r in requests]
@@ -2664,7 +2672,6 @@ def phase_decoders(torch, failures: list, card: str) -> dict:
 
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder
 
     cfg = load_flagship()
     result = {"check": "decoders", "config": str(CONFIG.relative_to(ROOT)), "card": card}
@@ -2685,7 +2692,7 @@ def phase_decoders(torch, failures: list, card: str) -> dict:
                                      (torch.float32, 1, ref1, FP32_FORWARD_REL_RMS)):
             model = SatMAERestoration.from_config(arch_cfg, dtype=dtype).eval()
             model.load_state_dict(cpu_model.state_dict())
-            before = (cuda_decoder.launches, cuda_decoder.launches_fp32)
+            before = (launched("resblock"), launched("resblock_fp32"))
             session = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands)
             out = session.predict(x16[:b])
             bench = session.benchmark(warmup_runs=3, benchmark_iterations=20)
@@ -2700,8 +2707,8 @@ def phase_decoders(torch, failures: list, card: str) -> dict:
                 refused = True
             d_row = {"batch": b, "optimized": session.optimized,
                      "captured_launches": session.captured_launches,
-                     "block_launches_counted": [cuda_decoder.launches - before[0],
-                                                cuda_decoder.launches_fp32 - before[1]],
+                     "block_launches_counted": [launched("resblock") - before[0],
+                                                launched("resblock_fp32") - before[1]],
                      "rel_rms_vs_cpu_fp32": rel_rms(out, ref),
                      "finite": bool(np.isfinite(out).all()),
                      "device_p50_ms": bench["p50_ms"], "tiles_per_s": bench["images_per_sec"],
@@ -2914,7 +2921,6 @@ def parallel_dp_world_one(torch, failures: list, cfg: dict, weights: dict,
     import torch.distributed as dist
 
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_noise
     from msid_tpu_torch.ops.noise import fold_in
     from msid_tpu_torch.parallel import make_mesh
     from msid_tpu_torch.parallel.dryrun import free_port
@@ -2942,7 +2948,7 @@ def parallel_dp_world_one(torch, failures: list, cfg: dict, weights: dict,
         for i, batch in enumerate(batches):
             for form in (("plain", "dp") if i % 2 == 0 else ("dp", "plain")):
                 t = trainers[form]
-                cuda_noise.launches = 0
+                clear_launches()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 t.state, metrics = t.train_step(t.state, batch, fold_in(base, i))
@@ -2951,7 +2957,7 @@ def parallel_dp_world_one(torch, failures: list, cfg: dict, weights: dict,
                 losses[form].append(loss)
                 turns.append(form)
                 if form == "dp":
-                    launches += cuda_noise.launches
+                    launches += launched("noise")
         with torch.no_grad():
             gap = max(float((a - b).abs().max()) for a, b in zip(
                 trainers["plain"].model.parameters(), trainers["dp"].model.parameters()))
@@ -3028,19 +3034,18 @@ def parallel_mesh_session(torch, failures: list, cfg: dict, weights: dict) -> di
     B/2 session: each half bit-equal, 16 K1 launches a call."""
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder
     from msid_tpu_torch.parallel import make_mesh
 
     model = SatMAERestoration.from_config(cfg, dtype=torch.bfloat16)
     model.load_state_dict(weights)
     size, bands, b = model.image_size, model.in_channels, PARALLEL_SERVE_BATCH
     requests = [noisy_tiles(b, size, bands, seed=300 + i) for i in range(REQUESTS)]
-    cuda_decoder.launches = 0
+    clear_launches()
     mesh = make_mesh(devices=["cuda:0", "cuda:0"])
     session = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands, mesh=mesh)
     outs = [session.predict(r) for r in requests]
     torch.cuda.synchronize()
-    counted = cuda_decoder.launches
+    counted = launched("resblock")
     launches = counted + sum((r.replays - 1) * r.captured_launches for r in session.replicas)
     single = InferenceSession(model, batch_size=b // 2, image_size=size, num_bands=bands)
     halves_equal = all(np.array_equal(out[:b // 2], single.predict(r[:b // 2])) and
@@ -3148,7 +3153,7 @@ def phase_nccl_shared(torch, failures: list) -> dict:
 @contextlib.contextmanager
 def sessions_built():
     """The ``InferenceSession``s built inside the block, in a list: their
-    replays are device launches that no wrapper counts."""
+    replays are device launches that ``_build.launched`` does not count."""
     from msid_tpu_torch.deployment.inference import InferenceSession
 
     built, init = [], InferenceSession.__init__
@@ -3167,28 +3172,15 @@ def sessions_built():
 def run_example(torch, name: str, argv: list) -> dict:
     """``msid_tpu_torch/examples/<name>`` run in this process as
     ``__main__`` with ``argv`` and the card as its device: its seconds and
-    the launches of each kernel over the run, every wrapper's count set to
-    0 just before and read just after (the replays of a session it built
-    added: bf16 ones to K1, fp32 to K4), beside the launches
-    ``_build.call`` counted: the wrappers' sum, with N1's library calls in
-    place of its kernels (one call launches three)."""
+    the device launches of each kernel over the run, the count cleared just
+    before and read just after (the replays of a session it built added:
+    bf16 ones to K1, fp32 to K4)."""
     import runpy
-
-    from msid_tpu_torch.ops import _build, cuda_decoder, cuda_noise, cuda_norm, cuda_probe
 
     path = EXAMPLES_DIR / name
     saved_argv, saved_path = sys.argv, list(sys.path)
     sys.argv = [str(path), *map(str, argv)]
-    cuda_decoder.launches = cuda_decoder.launches_fp32 = cuda_decoder.launches_v2 = 0
-    cuda_noise.launches = cuda_probe.launches_any_dma = cuda_norm.launches = 0
-    build_before = _build.launches
-    norm_calls, launch = [], cuda_norm._launch
-
-    def counted_launch(*args):
-        launch(*args)
-        norm_calls.append(args[0])
-
-    cuda_norm._launch = counted_launch
+    clear_launches()
     t0 = time.perf_counter()
     try:
         with sessions_built() as sessions:
@@ -3196,22 +3188,16 @@ def run_example(torch, name: str, argv: list) -> dict:
         torch.cuda.synchronize()
     finally:
         sys.argv, sys.path[:] = saved_argv, saved_path
-        cuda_norm._launch = launch
     seconds = time.perf_counter() - t0
-    counted = {"resblock": cuda_decoder.launches, "noise": cuda_noise.launches,
-               "resblock_fp32": cuda_decoder.launches_fp32,
-               "resblock_v2": cuda_decoder.launches_v2, "any_dma": cuda_probe.launches_any_dma}
-    launches = dict(counted, batchnorm=cuda_norm.launches)
+    launches = {kernel: launched(kernel) for kernel in ENTRIES}
     for session in sessions:
         if session.compiled:
             key = "resblock" if session.dtype == torch.bfloat16 else "resblock_fp32"
             launches[key] += (session.replays - 1) * session.captured_launches
     row = {"seconds": seconds, "launches": launches,
-           "build_launches": _build.launches - build_before,
            "sessions": [{"compiled": s.compiled, "optimized": s.optimized,
                          "captured_launches": s.captured_launches, "replays": s.replays}
                         for s in sessions]}
-    row["counts_agree"] = sum(counted.values()) + len(norm_calls) == row["build_launches"]
     del sessions
     torch.cuda.empty_cache()
     return row
@@ -3277,7 +3263,6 @@ def phase_examples(torch, failures: list, card: str) -> dict:
             "k1_once_a_block_in_00": launches["00_quick_start"]["resblock"] == 8,
             "only_k1_k2_k4": all(launches[k]["resblock_v2"] == launches[k]["any_dma"] == 0
                                  for k in runs),
-            "counts_agree": all(result[k]["counts_agree"] for k in runs),
             "quick_start_png": is_png(tmp / "00" / "noise_preview.png"),
             "history_one_epoch_a_stage": len(history["train_loss"]) == 2 and all(
                 len(v) == 2 for v in history.values())
@@ -3348,7 +3333,6 @@ def capacity_artifact(torch, failures: list, model, request: np.ndarray,
     the same request."""
     from msid_tpu_torch.deployment.export import export_program
     from msid_tpu_torch.deployment.inference import InferenceSession
-    from msid_tpu_torch.ops import cuda_decoder
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_widths_export_") as tmp:
         t0 = time.perf_counter()
@@ -3356,13 +3340,13 @@ def capacity_artifact(torch, failures: list, model, request: np.ndarray,
                               input_shape=request.shape)
         row = {"export_seconds": time.perf_counter() - t0,
                "block_nodes": count_block_nodes(torch, path)}
-        cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+        clear_launches()
         session = InferenceSession(artifact_path=path, batch_size=1,
                                    image_size=request.shape[1], num_bands=request.shape[-1])
         got = session.predict(request)
         row.update(compiled=session.compiled, captured_launches=session.captured_launches,
-                   k1_device_launches=device_launches(cuda_decoder.launches, session),
-                   k4_launches=cuda_decoder.launches_fp32,
+                   k1_device_launches=device_launches(launched("resblock"), session),
+                   k4_launches=launched("resblock_fp32"),
                    rel_rms_vs_live=rel_rms(got, live))
         del session
     if not (row["block_nodes"] == 8 and row["compiled"] == "cuda_graph"
@@ -3380,7 +3364,6 @@ def capacity_serve(torch, failures: list, cfg: dict, cpu_model, weights: dict) -
     exported and served from its artifact (``capacity_artifact``)."""
     from msid_tpu_torch.deployment.inference import InferenceSession
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder
 
     size, bands = cpu_model.image_size, cpu_model.in_channels
     requests = {b: noisy_tiles(b, size, bands, seed=700 + b) for b in WIDTHS_BATCHES}
@@ -3391,15 +3374,14 @@ def capacity_serve(torch, failures: list, cfg: dict, cpu_model, weights: dict) -
         ref = cpu_model(torch.from_numpy(picks)).numpy()
     out: dict = {"launches": {"bf16": 0, "fp32": 0}}
     for name, dtype, batches, counter, other, tag, bound in (
-            ("bf16", torch.bfloat16, WIDTHS_BATCHES, "launches", "launches_fp32",
+            ("bf16", torch.bfloat16, WIDTHS_BATCHES, "resblock", "resblock_fp32",
              "resblock_kernel", MAX_REL_RMS),
-            ("fp32", torch.float32, (1,), "launches_fp32", "launches",
+            ("fp32", torch.float32, (1,), "resblock_fp32", "resblock",
              "resblock_fp32_kernel", FP32_FORWARD_REL_RMS)):
         model = SatMAERestoration.from_config(cfg, dtype=dtype)
         model.load_state_dict(weights)
         for b in batches:
-            setattr(cuda_decoder, counter, 0)
-            setattr(cuda_decoder, other, 0)
+            clear_launches()
             session = InferenceSession(model, batch_size=b, image_size=size, num_bands=bands,
                                        optimize=False)
             got = session.predict(requests[b])
@@ -3410,11 +3392,11 @@ def capacity_serve(torch, failures: list, cfg: dict, cpu_model, weights: dict) -
             prof = device_profile(torch, lambda: session.forward(xd), tags={"block_ms": tag},
                                   expect={"block_ms": 8})
             bench = session.benchmark(warmup_runs=3, benchmark_iterations=20)
-            launches = device_launches(getattr(cuda_decoder, counter), session)
+            launches = device_launches(launched(counter), session)
             row = {"dtype": name, "B": b, "compiled": session.compiled,
                    "captured_launches": session.captured_launches,
                    "device_launches": launches,
-                   "other_kernel_launches": getattr(cuda_decoder, other),
+                   "other_kernel_launches": launched(other),
                    "rel_rms_vs_cpu_fp32": rel, "device_p50_ms": bench["p50_ms"],
                    "tiles_per_s": b * 1e3 / bench["p50_ms"],
                    "device_busy_ms": prof["device_busy_ms"],
@@ -3427,7 +3409,7 @@ def capacity_serve(torch, failures: list, cfg: dict, cpu_model, weights: dict) -
                 ("compiled", session.compiled == "cuda_graph"),
                 ("captured", session.captured_launches == 8),
                 ("profiled", profile_complete(prof, "block_ms", 8)),
-                ("other kernel", getattr(cuda_decoder, other) == 0),
+                ("other kernel", launched(other) == 0),
                 ("finite", bool(np.isfinite(got).all()) and got.shape == requests[b].shape),
                 ("cpu", max(rel) <= bound)) if not ok]
             if bad:
@@ -3449,7 +3431,6 @@ def capacity_train_evaluate(torch, failures: list) -> dict:
     batch, K1 8 times a validation batch) into a checkpoint, then
     ``scripts.evaluate`` of it in bf16 (K1 8 times a batch, no K4), whose
     metrics reproduce the trainer's last validation line."""
-    from msid_tpu_torch.ops import cuda_decoder, cuda_noise
     from msid_tpu_torch.scripts import evaluate as evaluate_cli
     from msid_tpu_torch.scripts import train as train_cli
 
@@ -3466,14 +3447,14 @@ def capacity_train_evaluate(torch, failures: list) -> dict:
                 ("train", train_cli, ["--epochs", "1", "--output-dir", str(tmp / "run")]),
                 ("evaluate", evaluate_cli, ["--checkpoint", str(tmp / "run" / "checkpoints"),
                                             "--output-dir", str(tmp / "eval")])):
-            cuda_noise.launches = cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+            clear_launches()
             t0 = time.perf_counter()
             outs[name] = cli.main([*common, *argv])
             torch.cuda.synchronize()
             row[name] = {"seconds": time.perf_counter() - t0,
-                         "launches": {"noise": cuda_noise.launches,
-                                      "resblock": cuda_decoder.launches,
-                                      "resblock_fp32": cuda_decoder.launches_fp32}}
+                         "launches": {"noise": launched("noise"),
+                                      "resblock": launched("resblock"),
+                                      "resblock_fp32": launched("resblock_fp32")}}
     history, scores = outs["train"], outs["evaluate"]
     val_batches = row["evaluate"]["launches"]["noise"]
     last = {k: history[f"val_{k}"][-1] for k in metrics}
@@ -3499,14 +3480,13 @@ def capacity_scene(torch, failures: list, cfg: dict, weights: dict) -> dict:
     captured with 8 K1 launches."""
     from msid_tpu_torch.deployment import sliding_window as sw
     from msid_tpu_torch.models.restoration import SatMAERestoration
-    from msid_tpu_torch.ops import cuda_decoder
 
     model = SatMAERestoration.from_config(cfg, dtype=torch.bfloat16)
     model.load_state_dict(weights)
     side = SCENE_WINDOW + 7 * (SCENE_WINDOW - SCENE_OVERLAP)
     scene = np.random.default_rng(9).integers(0, 10000, (side, side, model.in_channels),
                                               dtype=np.uint16)
-    cuda_decoder.launches = cuda_decoder.launches_fp32 = 0
+    clear_launches()
     step = sw.make_device_scene_step(model, None, SCENE_WINDOW, model.image_size,
                                      SCENE_OVERLAP, optimize=False)
     del model
@@ -3520,9 +3500,9 @@ def capacity_scene(torch, failures: list, cfg: dict, weights: dict) -> dict:
     row = {"scene": [side, side, int(scene.shape[2])], "windows": scene_windows(side, side),
            "batch_size": SCENE_BATCH, "replays": step.replays,
            "captured_launches": step.captured_launches,
-           "k1_device_launches": cuda_decoder.launches
+           "k1_device_launches": launched("resblock")
            + (step.replays - 1) * (step.captured_launches or 0),
-           "k4_launches": cuda_decoder.launches_fp32,
+           "k4_launches": launched("resblock_fp32"),
            "first_seconds": first, "seconds": time.perf_counter() - t0,
            "repeat_equal": bool(np.array_equal(out, again))}
     row["mpix_per_s"] = side * side / 1e6 / row["seconds"]

@@ -18,9 +18,10 @@ in every turn, so that both trees are timed alike. The turns run other,
 this, this, other, so that a drift of the card's clock shows. The child
 calls only entry points that both trees have:
 ``apply_sensor_noise_kernel(seed, x, cfg)``,
-``fused_residual_block_v2(x, w1, w2, aff)`` with HWIO weights (as the
-kernel probe calls it), ``fused_residual_block(x, w1k, w2k, aff)`` with
-``prepare_bf16_weights`` operands (as the model calls K1),
+``fused_residual_block_v2(x, w1k, w2k, aff)`` and
+``fused_residual_block(x, w1k, w2k, aff)`` with ``prepare_bf16_weights``
+operands (as the kernel probe calls K3 and the model K1), K3 on HWIO
+weights for the compared outputs,
 ``fused_residual_block`` on fp32 x with HWIO weights (K4) and
 ``any_dma_scale(x)`` (K5).
 
@@ -105,9 +106,10 @@ for rows in (8, 3072):                            # K5 and x * 2: device and cal
         times[f"{name}_call_{rows}x192x48"] = time_ms(fn)
     del x
 
-args = block(48, 192, 64, seed=0)                 # the kernel probe's block
-times["k3_64x192x192x48"] = time_ms(lambda: cuda_decoder.fused_residual_block_v2(*args))
-del args
+x, w1, w2, aff = block(48, 192, 64, seed=0)       # the kernel probe's block
+p1, p2 = (cuda_decoder.prepare_bf16_weights(w) for w in (w1, w2))
+times["k3_64x192x192x48"] = time_ms(lambda: cuda_decoder.fused_residual_block_v2(x, p1, p2, aff))
+del x, w1, w2, aff, p1, p2
 for c, s in SHAPES:
     for b in (16, 64, 1):
         x, w1, w2, aff = block(c, s, b, seed=c + b)
@@ -116,7 +118,7 @@ for c, s in SHAPES:
             lambda: cuda_decoder.fused_residual_block(x, p1, p2, aff))
         if b == 16:
             times[f"k3_16x{s}x{s}x{c}"] = time_ms(
-                lambda: cuda_decoder.fused_residual_block_v2(x, w1, w2, aff))
+                lambda: cuda_decoder.fused_residual_block_v2(x, p1, p2, aff))
         elif b == 1:
             outputs[f"k3_1x{s}x{s}x{c}"] = cuda_decoder.fused_residual_block_v2(
                 x, w1, w2, aff).cpu()

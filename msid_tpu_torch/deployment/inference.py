@@ -23,7 +23,7 @@ views and its dtype, is captured once at construction into a CUDA graph
 at the session's fixed batch (``CapturedForward``), and every call
 replays it, so no call pays the host's launch costs again
 (``self.compiled == "cuda_graph"``). The graph reads its operands by
-address, so the session also holds every operand the capture read,
+address, so the captured graph holds every operand its capture read,
 among them the decoder blocks' prepared operands, which a block drops
 when it is put in train mode. A capture that fails raises; the session
 never serves eagerly instead. A CPU session runs its forward eagerly
@@ -99,14 +99,19 @@ class CapturedForward:
     device of ``example``: the port's counterpart of an ahead-of-time
     compiled executable. Calling it copies x (any device) into the static
     input, replays the graph and returns the static output, which the next
-    call overwrites. ``launches`` is the count of hand-written kernel
-    launches the capture recorded (``_build.launches``), which every
-    replay runs on the device (the wrappers' counts move at the capture,
-    not at a replay); ``replays`` counts the replays. A capture that fails
-    raises ``RuntimeError`` with the reason."""
+    call overwrites. ``launches`` is the count of hand-written device
+    kernels the capture recorded (``_build.launched``), which every replay
+    runs on the device (the count moves at the capture, not at a replay);
+    ``replays`` counts the replays. The graph reads the prepared operands
+    of ``module``'s decoder blocks by address (None: a forward with no
+    such blocks, as an artifact's), so it keeps the ones its capture read
+    (``kept_operands``): a block in train mode, or one whose sources are
+    written, drops its own reference and prepares new ones. A capture that
+    fails raises ``RuntimeError`` with the reason."""
 
     def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor],
-                 example: torch.Tensor, warmup: int = CAPTURE_WARMUP):
+                 example: torch.Tensor, module: torch.nn.Module | None,
+                 warmup: int = CAPTURE_WARMUP):
         device = example.device
         self.input = example.clone()
         side = torch.cuda.Stream(device)
@@ -116,14 +121,17 @@ class CapturedForward:
                 forward(self.input)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        before = _build.launches
+        before = _build.launched.total()
         try:
             with torch.cuda.graph(self.graph):
                 self.output = forward(self.input)
         except Exception as err:
             raise RuntimeError(f"capturing the forward as a CUDA graph failed: "
                                f"{type(err).__name__}: {err}") from err
-        self.launches = _build.launches - before
+        self.launches = _build.launched.total() - before
+        blocks = () if module is None else module.modules()
+        self.kept_operands = [m.kept_operands for m in blocks
+                              if isinstance(m, ResidualBlock) and m.kept_operands is not None]
         self.replays = 0
 
     def __call__(self, x: torch.Tensor | None = None) -> torch.Tensor:
@@ -225,16 +233,11 @@ class InferenceSession:
         # Captured graphs by batch: batch_size's, and for an artifact each
         # other batch it has served.
         self.graphs: dict[int, CapturedForward] = {}
-        self._captured_operands: list[tuple] = []
         self._lock = threading.Lock()            # one replay at a time
         if self.device.type == "cuda":
             self._graph = self._graph_for(batch_size)
             self.compiled = "cuda_graph"
             self.captured_launches = self._graph.launches
-            # What the warmup prepared and the capture read by address.
-            self._captured_operands = [
-                m.kept_operands for m in (self.model.modules() if self.model is not None else ())
-                if isinstance(m, ResidualBlock) and m.kept_operands is not None]
 
     @property
     def replays(self) -> int:
@@ -247,7 +250,7 @@ class InferenceSession:
         if graph is None:
             graph = self.graphs[batch] = CapturedForward(
                 self.forward_eager,
-                torch.zeros((batch, *self.input_shape[1:]), device=self.device))
+                torch.zeros((batch, *self.input_shape[1:]), device=self.device), self.model)
         return graph
 
     def _model_graph(self, choice: bool | str) -> Callable[[torch.Tensor], torch.Tensor]:

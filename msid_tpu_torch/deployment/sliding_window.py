@@ -56,7 +56,6 @@ import numpy as np
 import torch
 
 from msid_tpu_torch.deployment.inference import CapturedForward
-from msid_tpu_torch.models.blocks import ResidualBlock
 from msid_tpu_torch.models.restoration import resolve_device
 from msid_tpu_torch.ops.preprocess import preprocess_tiles, resize_bilinear
 from msid_tpu_torch.ops.tta import wrap_forward
@@ -154,7 +153,6 @@ class SceneStep:
             model, variables, window, model_size, optimize, tta, self.device)
         self.compiled = "cuda_graph" if self.device.type == "cuda" else None
         self._graphs: dict[tuple, CapturedForward] = {}
-        self._captured_operands: list[tuple] = []
         self.weights = None if overlap is None else torch.from_numpy(
             _blend_weights(window, overlap))[:, :, None].to(self.device)
 
@@ -172,11 +170,8 @@ class SceneStep:
         key = (tuple(batch.shape), batch.dtype)
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = CapturedForward(self._raw, batch.to(self.device))
-            # What the warmup prepared and the capture read by address.
-            self._captured_operands = [
-                m.kept_operands for m in self.model.modules()
-                if isinstance(m, ResidualBlock) and m.kept_operands is not None]
+            graph = self._graphs[key] = CapturedForward(self._raw, batch.to(self.device),
+                                                        self.model)
         else:
             graph.input.copy_(batch, non_blocking=True)
         return graph()

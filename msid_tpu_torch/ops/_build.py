@@ -11,15 +11,17 @@ source with many template instantiations is built once per define (K1:
 ``MSID_C=<width>``), each build holding a part of them. Nothing here runs
 at import time.
 
-Every wrapper launches through the same path: ``bind`` looks an entry
-point up once per library and sets its ``argtypes`` and ``restype`` then,
-and ``call`` passes the current stream, entering the tensor's device only
-when it is not the current one, and counts the launch in ``launches``.
-After the first call neither takes a lock.
+Every wrapper launches through the same path, ``launch``: it binds the
+entry point once per library (``bind``: its ``argtypes`` and ``restype``
+set then), passes the current stream, entering the tensor's device only
+when it is not the current one, raises on a failed launch and counts the
+device kernels the entry point started in ``launched``. After the first
+call neither takes a lock.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import functools
@@ -46,9 +48,11 @@ _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _libraries: dict[tuple, ctypes.CDLL] = {}
 _bound: dict[tuple, ctypes._CFuncPtr] = {}
-# Launches that ``call`` made in this process, of every kernel together:
-# what a CUDA graph's capture recorded (each wrapper also counts its own).
-launches = 0
+# Device kernels that ``launch`` started in this process, by entry point
+# (the names are unique across the libraries). A reader takes a copy before
+# a path and the difference after, or clears it; a graph's capture moves
+# it, a replay does not.
+launched: collections.Counter = collections.Counter()
 
 
 def nvcc_path() -> str:
@@ -160,24 +164,28 @@ def bind(name: str, entry: str, argtypes: list, restype=ctypes.c_int,
         return fn
 
 
-def call(fn: ctypes._CFuncPtr, device: torch.device, *args) -> int:
-    """``fn(*args, stream)`` with the current CUDA stream of ``device``, the
+def launch(name: str, entry: str, argtypes: list, device: torch.device, *args,
+           defines: tuple[str, ...] = (), kernels: int = 1) -> None:
+    """``entry(*args, stream)`` of ``csrc/<name>.cu``'s build with
+    ``defines`` (``bind``), with the current CUDA stream of ``device``, the
     last argument of every launching entry point; ``device`` is entered
-    only when it is not the current device. Returns what ``fn`` returns,
-    and counts a launch in ``launches`` when that is 0 (success).
-    The device and the stream come from torch's raw getters (what its own
-    generated launchers call): one C call each, where
-    ``torch.cuda.current_stream`` builds a ``Stream`` object per call."""
-    global launches
+    only when it is not the current device. A non-zero return raises
+    ``RuntimeError`` naming the source, the entry and the CUDA error; a
+    launch that succeeded adds ``kernels``, the device kernels the entry
+    started, to ``launched[entry]``. The device and the stream come from
+    torch's raw getters (what its own generated launchers call): one C call
+    each, where ``torch.cuda.current_stream`` builds a ``Stream`` object per
+    call."""
+    fn = bind(name, entry, argtypes, defines=defines)
     index = device.index
     if index == torch._C._cuda_getDevice():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(device):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    if err == 0:
-        launches += 1
-    return err
+    if err != 0:
+        raise RuntimeError(f"csrc/{name}.cu: {entry} failed: cudaError {err}")
+    launched[entry] += kernels
 
 
 @functools.lru_cache(maxsize=None)

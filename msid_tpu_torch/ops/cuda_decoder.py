@@ -44,7 +44,6 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.weak import WeakIdKeyDictionary
 
 from msid_tpu_torch.ops import _build
 
@@ -57,20 +56,11 @@ BF16_MIN_WIDTH, BF16_MAX_WIDTH = 8, 768
 SUPPORTED_WIDTHS = range(BF16_MIN_WIDTH, BF16_MAX_WIDTH + 1)
 BF16_BUILDS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768)
 
-# Kernel launches so far in this process, K1 (bf16), K4 (fp32) and K3 (v2)
-# apart; chip_smoke.py zeroes them before driving a path and reads them after.
-launches = 0
-launches_fp32 = 0
-launches_v2 = 0
-
 # K3's output tile (rows, cols) for a side the caller leaves out, and the
 # tile a refusal names: K1's cost model's choice at B=16 of the flagship's
 # stage of that width (and its cluster).
 V2_DEFAULT_TILES = {48: (24, 32), 96: (16, 24), 192: (12, 16), 384: (6, 12)}
 V2_MAX_TILE = 252       # a tensor map's box extent is at most 256 = tile + 4
-# The K-major weights K3's functional entry has made, per HWIO weight
-# tensor, for as long as that tensor lives: (data_ptr, _version, prepared).
-_v2_weights = WeakIdKeyDictionary()
 
 # K4's launch geometry, as csrc/resblock_fp32.cu lays it out: clusters of
 # at most FP32_MAX_CLUSTER CTAs of FP32_WARPS warps; a warp holds at most
@@ -167,43 +157,6 @@ def fused_residual_block_reference(x: torch.Tensor, w1: torch.Tensor,
     h = h.to(x.dtype).float()
     y = F.conv2d(h, k2, padding=1) * aff[2] + aff[3]
     return _gelu(y + xf).to(x.dtype).permute(0, 2, 3, 1).contiguous()
-
-
-def split_tf32(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4's operand split, in plain PyTorch: ``big = tf32(v)`` (10 mantissa
-    bits, round to nearest with ties away from zero, by integer arithmetic
-    on the fp32 bits as the kernel does it) and ``small = tf32(v - big)``,
-    both fp32 tensors whose low 13 bits are clear. ``v - big`` is exact in
-    fp32, so ``v = big + small`` up to ~2^-22 |v|."""
-    def tf32(t: torch.Tensor) -> torch.Tensor:
-        bits = t.contiguous().view(torch.int32)
-        return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-    big = tf32(v.float())
-    return big, tf32(v.float() - big)
-
-
-def conv3x3_split_tf32(x: torch.Tensor, w: torch.Tensor, terms: int = 3) -> torch.Tensor:
-    """The 3x3 'same' conv of NHWC x with HWIO w as K4's tensor cores see
-    it: the sum of ``small_x * big_w + big_x * small_w + big_x * big_w``
-    (``terms=3``), of ``big_x * big_w`` alone (``terms=1``, a single TF32
-    pass, which K4 does not use) or with ``small_x * small_w`` too
-    (``terms=4``). Products and sums are taken in float64, so the result
-    shows the error of the split alone. Returns NHWC float64."""
-    if terms not in (1, 3, 4):
-        raise ValueError(f"terms must be 1, 3 or 4, got {terms}")
-    (xb, xs), (wb, ws) = split_tf32(x), split_tf32(w)
-
-    def conv(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(u.double().permute(0, 3, 1, 2), k.double().permute(3, 2, 0, 1),
-                        padding=1).permute(0, 2, 3, 1)
-
-    pairs = {1: [(xb, wb)], 3: [(xs, wb), (xb, ws), (xb, wb)],
-             4: [(xs, ws), (xs, wb), (xb, ws), (xb, wb)]}[terms]
-    out = conv(*pairs[0])
-    for u, k in pairs[1:]:
-        out = out + conv(u, k)
-    return out
 
 
 def fp32_channel_block(c: int) -> int:
@@ -553,14 +506,11 @@ def _fused_residual_block_bf16(x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Te
     """K1 on a CUDA bf16 x with weights already in the kernel's K-major
     layout (``prepare_bf16_weights``). ``geometry`` overrides
     ``bf16_tiling``'s ``(th, tw, g, stages)`` (the tile sweep uses it)."""
-    global launches
     b, h, w, c = x.shape
     _check_width(c)
     if geometry is None:
         geometry = bf16_tiling(c, h, w, b, _build.multiprocessors(x.device))
-    out = _launch_bf16("msid_resblock_forward", x, w1k, w2k, affines, geometry)
-    launches += 1
-    return out
+    return _launch_bf16("msid_resblock_forward", x, w1k, w2k, affines, geometry)
 
 
 def weight_map(wk: torch.Tensor, g: int) -> ctypes.Array:
@@ -568,10 +518,10 @@ def weight_map(wk: torch.Tensor, g: int) -> ctypes.Array:
     clusters of ``g`` CTAs (``msid_resblock_weight_map`` of the build of
     the operand's padded width): encoded on first use and kept on the
     operand itself, per (address, g), so the operand
-    ``ResidualBlock.prepared_operands`` or ``v2_prepared_weights`` keeps
-    carries its maps for as long as it lives, and a launch encodes only
-    x's map (found again in the kernel library's bounded table). The map
-    does not depend on the true width: the operand is zero past it."""
+    ``ResidualBlock.prepared_operands`` keeps carries its maps for as long
+    as it lives, and a launch encodes only x's map (found again in the
+    kernel library's bounded table). The map does not depend on the true
+    width: the operand is zero past it."""
     c = wk.shape[0] // 9
     maps = wk.__dict__.setdefault("_tensor_maps", {})
     key = (wk.data_ptr(), g)
@@ -604,12 +554,10 @@ def _launch_bf16(entry: str, x: torch.Tensor, w1k: torch.Tensor, w2k: torch.Tens
     for name, t in (("x", x), ("w1", w1k), ("w2", w2k)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    fn = _build.bind("resblock", entry, _BF16_ARGTYPES, defines=bf16_defines(c))
     out = torch.empty_like(x)
-    err = _build.call(fn, x.device, x.data_ptr(), weight_map(w1k, g), weight_map(w2k, g),
-                      affines.data_ptr(), out.data_ptr(), b, h, w, c, th, tw, g, stages)
-    if err != 0:
-        raise RuntimeError(f"resblock kernel launch failed ({entry}): error {err}")
+    _build.launch("resblock", entry, _BF16_ARGTYPES, x.device, x.data_ptr(),
+                  weight_map(w1k, g), weight_map(w2k, g), affines.data_ptr(), out.data_ptr(),
+                  b, h, w, c, th, tw, g, stages, defines=bf16_defines(c))
     return out
 
 
@@ -619,12 +567,10 @@ def _fused_residual_block_fp32(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tens
     """K4 on a CUDA fp32 x: any channel width, HWIO weights as they are
     (copied only if they are not contiguous). ``geometry`` overrides
     ``fp32_tiling``'s ``(th, tw, nt, nu, g, kc)`` (the tile sweep uses it)."""
-    global launches_fp32
     b, h, w, c = x.shape
     _check("x", x, (b, h, w, c), torch.float32, x.device)
     _check("affines", affines, (4, c), torch.float32, x.device)
     _check_weights(w1, w2, c, torch.float32, x.device)
-    fn = _build.bind("resblock_fp32", "msid_resblock_fp32_forward", _FP32_ARGTYPES)
     w1c, w2c = w1.contiguous(), w2.contiguous()
     out = torch.empty_like(x)
     if geometry is None:
@@ -634,11 +580,9 @@ def _fused_residual_block_fp32(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tens
     for name, t in (("x", x), ("w1", w1c), ("w2", w2c), ("affines", affines)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    err = _build.call(fn, x.device, x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(),
-                      affines.data_ptr(), out.data_ptr(), b, h, w, c, th, tw, nt, nu, g, kc)
-    if err != 0:
-        raise RuntimeError(f"resblock_fp32 kernel launch failed: cudaError {err}")
-    launches_fp32 += 1
+    _build.launch("resblock_fp32", "msid_resblock_fp32_forward", _FP32_ARGTYPES, x.device,
+                  x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), affines.data_ptr(),
+                  out.data_ptr(), b, h, w, c, th, tw, nt, nu, g, kc)
     return out
 
 
@@ -680,18 +624,6 @@ def v2_tile(c: int, h: int, w: int, b: int, row_block: int | None = None,
         f"({default[0]}, {default[1]}) fits")
 
 
-def v2_prepared_weights(w: torch.Tensor) -> torch.Tensor:
-    """K3's K-major operand of HWIO ``w`` (``prepare_bf16_weights``), made
-    once per weight tensor and kept while that tensor lives; made again
-    after an in-place write (``_version``) or a change of storage."""
-    kept = _v2_weights.get(w)
-    if kept is not None and kept[:2] == (w.data_ptr(), w._version):
-        return kept[2]
-    prepared = prepare_bf16_weights(w.detach())
-    _v2_weights[w] = (w.data_ptr(), w._version, prepared)
-    return prepared
-
-
 def fused_residual_block_v2_reference(x: torch.Tensor, w1: torch.Tensor,
                                       w2: torch.Tensor,
                                       affines: torch.Tensor) -> torch.Tensor:
@@ -728,11 +660,10 @@ def fused_residual_block_v2(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     depend on it; a tile whose window, weight ring and h do not fit a CTA's
     shared memory raises ``ValueError``. A CPU tensor takes the plain
     version; a CUDA tensor (bf16, C in ``SUPPORTED_WIDTHS``, on K1's
-    builds) launches K3 or raises. On a card, w1 and w2 may also be the K-major operands
-    ``prepare_bf16_weights`` makes of them (the kernel probe's case); HWIO
-    weights are prepared once per tensor (``v2_prepared_weights``).
+    builds) launches K3 or raises. On a card, w1 and w2 may also be the 2-D
+    K-major operands ``prepare_bf16_weights`` makes of them, which saves that
+    copy on every call (the kernel probe's case).
     """
-    global launches_v2
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC [B,H,W,C], got shape {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -752,7 +683,5 @@ def fused_residual_block_v2(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         raise ValueError(f"the fused ResidualBlock kernel needs a CUDA tensor, "
                          f"got one on {x.device}")
     if not prepared:
-        w1, w2 = v2_prepared_weights(w1), v2_prepared_weights(w2)
-    out = _launch_bf16("msid_resblock_v2_forward", x, w1, w2, affines, geometry)
-    launches_v2 += 1
-    return out
+        w1, w2 = prepare_bf16_weights(w1), prepare_bf16_weights(w2)
+    return _launch_bf16("msid_resblock_v2_forward", x, w1, w2, affines, geometry)

@@ -32,10 +32,6 @@ import torch
 from msid_tpu_torch.ops import _build
 from msid_tpu_torch.ops.noise import CLAMP_HI, CLAMP_LO, NoiseConfig
 
-# Kernel launches so far in this process; chip_smoke.py zeroes it before
-# driving the training path and reads it after.
-launches = 0
-
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
@@ -196,7 +192,6 @@ def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
     CPU tensors take the plain version. CUDA tensors launch the kernel
     (fp32 or bf16) or raise.
     """
-    global launches
     if x.device.type == "cpu":
         return apply_sensor_noise_kernel_reference(seed, x, cfg, return_masks,
                                                    sample_offset)
@@ -222,14 +217,10 @@ def apply_sensor_noise_kernel(seed: int, x: torch.Tensor,
     vec = n % 4 == 0 and x.data_ptr() % align == 0 and out.data_ptr() % align == 0
     chunks, per_cta = launch_shape(bsz, n)
 
-    fn = _build.bind("noise", "msid_noise_forward", _ARGTYPES)
-    err = _build.call(fn, x.device, x.data_ptr(), out.data_ptr(),
-                      masks.data_ptr() if masks is not None else None,
-                      0 if x.dtype == torch.float32 else 1, int(vec), bsz, n, w * c, c,
-                      chunks, per_cta, k0, k1, int(sample_offset),
-                      cfg.dead_band_prob, cfg.speckle_sigma, cfg.gaussian_sigma ** 2,
-                      cfg.thermal_scale ** 2, stripe_probability(cfg), cfg.stripe_sigma)
-    if err != 0:
-        raise RuntimeError(f"noise kernel launch failed: cudaError {err}")
-    launches += 1
+    _build.launch("noise", "msid_noise_forward", _ARGTYPES, x.device, x.data_ptr(),
+                  out.data_ptr(), masks.data_ptr() if masks is not None else None,
+                  0 if x.dtype == torch.float32 else 1, int(vec), bsz, n, w * c, c,
+                  chunks, per_cta, k0, k1, int(sample_offset),
+                  cfg.dead_band_prob, cfg.speckle_sigma, cfg.gaussian_sigma ** 2,
+                  cfg.thermal_scale ** 2, stripe_probability(cfg), cfg.stripe_sigma)
     return (out, masks) if return_masks else out

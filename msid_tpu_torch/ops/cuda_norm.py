@@ -38,9 +38,6 @@ from torch.autograd.graph import increment_version
 
 from msid_tpu_torch.ops import _build
 
-# Kernel launches so far in this process: three a forward, three a backward.
-launches = 0
-
 MAX_CHANNELS = 2048       # R * C of a CTA fits its 16 KB of shared memory
 _MAX_ROW_THREADS = 512    # C / VEC threads at most own a row
 _THREADS = 256            # a CTA's target size
@@ -119,14 +116,6 @@ def plan(x: torch.Tensor) -> tuple:
             *geometry(rows, c, vec, _build.multiprocessors(x.device)))
 
 
-def _launch(entry: str, argtypes: list, kernels: int, device: torch.device, *args) -> None:
-    global launches
-    err = _build.call(_build.bind("batchnorm", entry, argtypes), device, *args)
-    if err != 0:
-        raise RuntimeError(f"batchnorm kernels {entry} failed: cudaError {err}")
-    launches += kernels
-
-
 def _forward_kernels(x, weight, bias, running_mean, running_var, momentum, eps):
     """y and the ``[4, C]`` statistics (a view of the launches' workspace),
     the running statistics updated in place: three kernels, one call."""
@@ -134,9 +123,10 @@ def _forward_kernels(x, weight, bias, running_mean, running_var, momentum, eps):
     c, parts = args[3:5]
     work = torch.empty(parts * 2 * c + 4 * c, device=x.device, dtype=torch.float32)
     y = torch.empty_like(x)
-    _launch("msid_bn_forward", _FORWARD_ARGS, 3, x.device, x.data_ptr(), y.data_ptr(),
-            work.data_ptr(), weight.data_ptr(), bias.data_ptr(), running_mean.data_ptr(),
-            running_var.data_ptr(), *args, momentum, eps)
+    _build.launch("batchnorm", "msid_bn_forward", _FORWARD_ARGS, x.device, x.data_ptr(),
+                  y.data_ptr(), work.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  running_mean.data_ptr(), running_var.data_ptr(), *args, momentum, eps,
+                  kernels=3)
     for t in (running_mean, running_var):      # written in place by the kernel
         increment_version(t)
     return y, work[parts * 2 * c:].view(4, c)
@@ -153,9 +143,9 @@ def _backward_kernels(x, dy, weight, stats, need_dx: bool):
     c, parts = args[3:5]
     work = torch.empty(parts * 2 * c + 5 * c, device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None
-    _launch("msid_bn_backward", _BACKWARD_ARGS, 2 + need_dx, x.device, x.data_ptr(),
-            dy.data_ptr(), dx.data_ptr() if need_dx else None, stats.data_ptr(),
-            work.data_ptr(), weight.data_ptr(), *args)
+    _build.launch("batchnorm", "msid_bn_backward", _BACKWARD_ARGS, x.device, x.data_ptr(),
+                  dy.data_ptr(), dx.data_ptr() if need_dx else None, stats.data_ptr(),
+                  work.data_ptr(), weight.data_ptr(), *args, kernels=2 + need_dx)
     return dx, work[parts * 2 * c:].view(5, c)
 
 

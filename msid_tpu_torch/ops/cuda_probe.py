@@ -21,10 +21,6 @@ import torch
 
 from msid_tpu_torch.ops import _build
 
-# Kernel launches so far in this process; chip_smoke.py zeroes the count
-# before driving a path and reads it after.
-launches_any_dma = 0
-
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
@@ -37,7 +33,6 @@ def any_dma_scale(x: torch.Tensor) -> torch.Tensor:
     """``x * 2`` for x ``[rows, W, C]`` fp32 through an asynchronous bulk copy
     into shared memory. A row of ``W * C`` values must be a multiple of 16
     bytes (the tensor map's stride rule)."""
-    global launches_any_dma
     if x.dim() != 3:
         raise ValueError(f"x must be [rows, W, C], got shape {tuple(x.shape)}")
     if x.dtype != torch.float32:
@@ -56,9 +51,6 @@ def any_dma_scale(x: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16 != 0:
         raise ValueError("x must be 16-byte aligned")
     out = torch.empty_like(x)
-    fn = _build.bind("any_dma", "msid_any_dma_scale", _ARGTYPES)
-    err = _build.call(fn, x.device, x.data_ptr(), out.data_ptr(), rows, n)
-    if err != 0:
-        raise RuntimeError(f"any_dma kernel launch failed: error {err}")
-    launches_any_dma += 1
+    _build.launch("any_dma", "msid_any_dma_scale", _ARGTYPES, x.device,
+                  x.data_ptr(), out.data_ptr(), rows, n)
     return out

@@ -181,7 +181,7 @@ def run_step(spec: dict, device: torch.device, mesh=None) -> dict:
     an eval step's sums on the starting weights; then noisy rows, metrics
     and K2 launches of one train step on the global ``batch`` (a ``.npy``)
     with ``seed``; the whole updated state dict with ``save_state``."""
-    from msid_tpu_torch.ops import cuda_noise
+    from msid_tpu_torch.ops import _build
     from msid_tpu_torch.parallel.mesh import shard_batch
     from msid_tpu_torch.parallel.tp import describe_sharding, gather_state_dict
 
@@ -199,10 +199,10 @@ def run_step(spec: dict, device: torch.device, mesh=None) -> dict:
         out["eval"] = {k: float(v) for k, v in sums.items()}
     batch, seed = rows(spec["batch"]), int(spec.get("seed", 0))
     _, noisy = step.prepare(batch, seed)
-    cuda_noise.launches = 0
+    before = _build.launched["msid_noise_forward"]
     state, metrics = step(built["state"], batch, seed)
     out.update(metrics={k: float(v) for k, v in metrics.items()}, noisy=noisy.cpu(),
-               noise_launches=cuda_noise.launches, step=state.step)
+               noise_launches=_build.launched["msid_noise_forward"] - before, step=state.step)
     if spec.get("save_state"):
         sd = (gather_state_dict(model, mesh) if mesh is not None and mesh.model > 1
               else model.state_dict())

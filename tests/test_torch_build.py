@@ -2,8 +2,11 @@
 the source and every local header it includes, so an edited header is
 rebuilt; and the SASS counter's parsing of a ``cuobjdump -sass`` listing."""
 
+import ast
+import collections
 import contextlib
 import ctypes
+import re
 
 import pytest
 import torch
@@ -159,12 +162,19 @@ def test_a_loaded_library_is_returned_without_the_lock(monkeypatch):
     assert _build.load_library("k") is lib
 
 
+def _bound_entry(monkeypatch, fn, name="k", entry="msid_entry", defines=()):
+    """``fn`` as the bound ``entry`` of ``csrc/<name>.cu``'s build, and an
+    empty ``launched``."""
+    monkeypatch.setattr(_build, "_bound", {(name, defines, entry): fn})
+    monkeypatch.setattr(_build, "launched", collections.Counter())
+
+
 @pytest.mark.parametrize("current,entered", [(0, False), (1, True)])
-def test_call_passes_the_stream_and_enters_only_another_device(monkeypatch, current,
-                                                               entered):
+def test_launch_passes_the_stream_and_enters_only_another_device(monkeypatch, current,
+                                                                 entered):
     """The stream of the tensor's device goes last; the device is entered
     only when it is not the current one."""
-    seen = []
+    seen, calls = [], []
 
     @contextlib.contextmanager
     def device(d):
@@ -175,18 +185,80 @@ def test_call_passes_the_stream_and_enters_only_another_device(monkeypatch, curr
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
                         lambda index: 1234 + index, raising=False)
     monkeypatch.setattr(torch.cuda, "device", device)
+    _bound_entry(monkeypatch, lambda *a: calls.append(a) or 0, defines=("MSID_C=48",))
     target = torch.device("cuda", 0)
-    assert _build.call(lambda *a: a, target, 7, 8) == (7, 8, 1234)
+    _build.launch("k", "msid_entry", [], target, 7, 8, defines=("MSID_C=48",))
+    assert calls == [(7, 8, 1234)]
     assert seen == ([target] if entered else [])
 
 
-@pytest.mark.parametrize("rc,counted", [(0, 1), (700, 0)])
-def test_call_counts_a_launch_where_the_entry_point_succeeded(monkeypatch, rc, counted):
-    """``launches`` moves once per launch that returned 0, for every kernel
-    alike (what a graph capture counts), and not for a refused one."""
+@pytest.mark.parametrize("rc,kernels,counted", [(0, 1, 1), (0, 3, 3), (700, 1, 0)])
+def test_launch_counts_kernels_where_the_entry_point_succeeded(monkeypatch, rc, kernels,
+                                                               counted):
+    """``launched[entry]`` moves by the device kernels the entry started, for
+    every kernel alike (what a graph capture counts); a refused launch
+    raises, naming the source, the entry and the CUDA error, and counts
+    nothing."""
     monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1,
                         raising=False)
-    monkeypatch.setattr(_build, "launches", 5)
-    assert _build.call(lambda *a: rc, torch.device("cuda", 0), 7) == rc
-    assert _build.launches == 5 + counted
+    _bound_entry(monkeypatch, lambda *a: rc)
+    _build.launched["msid_other"] = 5
+    if rc:
+        with pytest.raises(RuntimeError, match=f"csrc/k.cu: msid_entry .*cudaError {rc}"):
+            _build.launch("k", "msid_entry", [], torch.device("cuda", 0), 7, kernels=kernels)
+    else:
+        _build.launch("k", "msid_entry", [], torch.device("cuda", 0), 7, kernels=kernels)
+    assert _build.launched == collections.Counter(msid_other=5, msid_entry=counted)
+
+
+def _launching_entries() -> set[str]:
+    """The C entry points of ``csrc/*.cu`` that take a stream: those that
+    launch a kernel."""
+    found = set()
+    for path in _build.CSRC.glob("*.cu"):
+        for entry, params in re.findall(r'extern "C" \w+ (msid_\w+)\(([^)]*)\)',
+                                        path.read_text()):
+            if params.split(",")[-1].split()[-1] == "stream":
+                found.add(entry)
+    return found
+
+
+def test_every_launch_goes_through_the_one_path():
+    """Read the port's sources: no module but ``ops/_build.py`` defines a
+    launch counter, looks a library up or calls ``call``, and every entry
+    point a module binds outside ``_build.launch`` is one that launches
+    nothing (a stream-taking entry is reached through ``launch`` alone)."""
+    launching = _launching_entries()
+    assert launching == {"msid_resblock_forward", "msid_resblock_v2_forward",
+                         "msid_resblock_fp32_forward", "msid_noise_forward",
+                         "msid_any_dma_scale", "msid_bn_forward", "msid_bn_backward"}
+    package = _build.CSRC.parent
+    bound, launched = set(), set()
+    for path in sorted(package.rglob("*.py")):
+        if path == package / "ops" / "_build.py":
+            continue
+        where = path.relative_to(package)
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Global):
+                assert not any("launch" in n for n in node.names), where
+            if isinstance(node, (ast.Assign, ast.AugAssign, ast.AnnAssign)) and node in tree.body:
+                targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+                assert not any(isinstance(t, ast.Name) and "launch" in t.id
+                               for t in targets), where
+            if isinstance(node, ast.ImportFrom) and (node.module or "").endswith("_build"):
+                assert not {a.name for a in node.names} & {"bind", "launch", "launched"}, where
+            if not isinstance(node, ast.Call):
+                continue
+            func = ast.unparse(node.func)
+            assert func.split(".")[-1] not in ("load_library", "CDLL"), (where, func)
+            assert func != "_build.call", where
+            if func in ("_build.bind", "_build.launch"):
+                entry = node.args[1]
+                if isinstance(entry, ast.Constant):
+                    (bound if func == "_build.bind" else launched).add(entry.value)
+                else:
+                    assert func == "_build.launch", (where, ast.unparse(node))
+    assert bound and not bound & launching
+    assert launched <= launching

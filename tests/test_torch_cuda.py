@@ -28,6 +28,12 @@ K4_MAX_REL_RMS = 1e-5
 K3_RTOL, K3_ATOL = 0.03, 0.02   # the TPU kernels' golden tolerance in bf16
 
 
+def since(before) -> dict:
+    """The device kernels launched since ``before`` (a copy of
+    ``_build.launched``), by entry point."""
+    return dict(_build.launched - before)
+
+
 def need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the kernels are CUDA C++ with no CPU mode")
@@ -64,12 +70,12 @@ def test_k4_matches_plain_on_the_card(shape):
     if shape[-1] in K4_CLUSTER_WIDTHS:
         b, h, w, c = shape
         assert cuda_decoder.fp32_tiling(c, h, w, b)[4] == K4_CLUSTER_WIDTHS[c]
-    before = cuda_decoder.launches_fp32
+    before = _build.launched.copy()
     got = fused_residual_block(*args)
     with exact_fp32(torch.float32):                  # the plain version's cuDNN convs
         want = fused_residual_block_reference(*args)
     torch.cuda.synchronize()
-    assert cuda_decoder.launches_fp32 == before + 1
+    assert since(before) == {"msid_resblock_fp32_forward": 1}
     assert float((got - want).abs().max()) <= K4_MAX_ABS
     assert float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= K4_MAX_REL_RMS
 
@@ -132,7 +138,7 @@ def test_k1_matches_plain_on_the_card(c, g):
                   key=passes)
     if body == "stream":
         assert passes(deepest) >= 2
-    before = cuda_decoder.launches
+    before = _build.launched.copy()
     outs = [cuda_decoder._fused_residual_block_bf16(args[0], *prepared, args[3],
                                                     geometry=(6, 8, g, 2)),
             cuda_decoder._fused_residual_block_bf16(args[0], *prepared, args[3],
@@ -140,7 +146,7 @@ def test_k1_matches_plain_on_the_card(c, g):
             fused_residual_block(args[0], *prepared, args[3]),
             fused_residual_block(*args)]
     torch.cuda.synchronize()
-    assert cuda_decoder.launches == before + 4
+    assert since(before) == {"msid_resblock_forward": 4}
     for got in outs:
         assert bool(((got.float() - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all())
     assert torch.equal(outs[2], outs[3])      # prepared operands or HWIO: the same launch
@@ -170,7 +176,7 @@ def test_bf16_eval_block_launches_k1_with_its_kept_operands_on_the_card():
     with torch.no_grad():
         want = block(x)                            # fp32 plain version on the CPU
         block.cuda()
-        before = cuda_decoder.launches
+        before = _build.launched.copy()
         with torch.autocast("cuda", dtype=torch.bfloat16):
             got = block(x.cuda())
             kept = block.prepared_operands(torch.bfloat16, torch.device("cuda", 0))
@@ -180,7 +186,7 @@ def test_bf16_eval_block_launches_k1_with_its_kept_operands_on_the_card():
         block.conv1.weight.mul_(2.0)
         with torch.autocast("cuda", dtype=torch.bfloat16):
             changed = block(x.cuda())
-    assert cuda_decoder.launches == before + 3
+    assert since(before) == {"msid_resblock_forward": 3}
     assert got.dtype == torch.bfloat16 and torch.equal(got, again)
     assert not torch.equal(changed, got)
     assert float((got.float().cpu() - want).abs().max()) <= 0.1
@@ -195,9 +201,9 @@ def test_fp32_eval_block_launches_k4_on_the_card():
     with torch.no_grad():
         want = block(x)                            # the plain version on the CPU
         block.cuda()
-        before = cuda_decoder.launches, cuda_decoder.launches_fp32
+        before = _build.launched.copy()
         got = block(x.cuda()).cpu()
-    assert (cuda_decoder.launches, cuda_decoder.launches_fp32) == (before[0], before[1] + 1)
+    assert since(before) == {"msid_resblock_fp32_forward": 1}
     assert float((got - want).abs().max()) <= K4_MAX_ABS
 
 
@@ -211,10 +217,10 @@ def test_k5_equals_scale_on_the_card(shape):
     need_card()
     x = torch.from_numpy(np.random.default_rng(shape[0]).normal(0, 1, shape)
                          .astype(np.float32)).cuda()
-    before = cuda_probe.launches_any_dma
+    before = _build.launched.copy()
     got = cuda_probe.any_dma_scale(x)
     torch.cuda.synchronize()
-    assert cuda_probe.launches_any_dma == before + 1
+    assert since(before) == {"msid_any_dma_scale": 1}
     assert torch.equal(got, cuda_probe.any_dma_scale_reference(x))
 
 
@@ -236,11 +242,11 @@ def test_k3_matches_plain_and_k1_on_the_card(shape, tiles):
     k1 = fused_residual_block(*args).float()
     outs = []
     for tile in tiles:
-        before = cuda_decoder.launches_v2, cuda_decoder.launches
+        before = _build.launched.copy()
         rb, cb = tile or (None, None)
         got = fused_residual_block_v2(*args, row_block=rb, col_block=cb)
         torch.cuda.synchronize()
-        assert (cuda_decoder.launches_v2, cuda_decoder.launches) == (before[0] + 1, before[1])
+        assert since(before) == {"msid_resblock_v2_forward": 1}
         outs.append(got)
         for ref in (want, k1):
             assert bool(((got.float() - ref).abs() <= K3_ATOL + K3_RTOL * ref.abs()).all())
@@ -270,15 +276,14 @@ def test_folded_graphs_match_apply_and_launch_no_block_kernel_on_the_card(arch):
     x = torch.randn(2, 32, 32, 13, device="cuda")
     with torch.no_grad():
         want = model(x)
-        before = (cuda_decoder.launches, cuda_decoder.launches_fp32, cuda_decoder.launches_v2)
+        before = _build.launched.copy()
         tree = fastpath.optimize_for_inference(model)
         outs = [fastpath.make_fast_inference_fn(model, mm)(tree, x) for mm in (True, False)]
         outs.append(fastpath.make_hybrid_inference_fn(model)(
             fastpath.optimize_for_hybrid(model), x))
         outs.append(fastpath.make_hybrid_forward(model)(None, x))
     torch.cuda.synchronize()
-    assert before == (cuda_decoder.launches, cuda_decoder.launches_fp32,
-                      cuda_decoder.launches_v2)
+    assert since(before) == {}
     for got in outs:
         assert float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= 1e-4
 
@@ -573,8 +578,8 @@ def test_device_cache_gathers_uint16_tiles_on_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "launches"),
-                                          (torch.float32, "launches_fp32")])
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "msid_resblock_forward"),
+                                          (torch.float32, "msid_resblock_fp32_forward")])
 def test_artifact_session_launches_the_block_kernels_on_the_card(dtype, kernel, tmp_path):
     """An artifact exported on the card serves from a captured graph whose
     eight msid::fused_residual_block nodes launch K1 (bf16) or K4 (fp32),
@@ -585,10 +590,10 @@ def test_artifact_session_launches_the_block_kernels_on_the_card(dtype, kernel, 
 
     model = flagship_like(dtype)
     path = export_program(model, tmp_path / "a", input_shape=(1, 32, 32, 13))
-    before = getattr(cuda_decoder, kernel)
+    before = _build.launched.copy()
     session = InferenceSession(artifact_path=path, batch_size=2, image_size=32)
     assert session.compiled == "cuda_graph" and session.captured_launches == 8
-    assert getattr(cuda_decoder, kernel) > before
+    assert list(since(before)) == [kernel]
     x = np.random.default_rng(0).normal(0, 0.5, (2, 32, 32, 13)).astype(np.float32)
     got = session.predict(x)
     eager = session.forward_eager(torch.from_numpy(x).cuda())
@@ -731,12 +736,12 @@ def test_new_decoders_in_bf16_on_the_card_match_the_cpu(arch):
     x = np.random.default_rng(6).normal(0, 0.5, (2, 32, 32, 13)).astype(np.float32)
     with torch.no_grad():
         want = model(torch.from_numpy(x)).numpy()
-    before = cuda_decoder.launches
+    before = _build.launched.copy()
     session = InferenceSession(model.set_compute_dtype(torch.bfloat16).cuda(), batch_size=2,
                                image_size=32)
     got = session.predict(x)
     assert session.optimized is False and session.captured_launches == 0
-    assert cuda_decoder.launches == before
+    assert since(before) == {}
     assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 2e-2
 
 
@@ -766,12 +771,12 @@ def test_capacity_2x_bf16_session_launches_k1_and_matches_the_cpu():
     x = np.random.default_rng(7).normal(0, 0.5, (2, 64, 64, 13)).astype(np.float32)
     with torch.no_grad():
         want = model(torch.from_numpy(x)).numpy()
-    before = cuda_decoder.launches
+    before = _build.launched.copy()
     session = InferenceSession(model.set_compute_dtype(torch.bfloat16).cuda(), batch_size=2,
                                image_size=64, optimize=False)
     got = session.predict(x)
     assert session.compiled == "cuda_graph" and session.captured_launches == 8
-    assert cuda_decoder.launches > before
+    assert since(before)["msid_resblock_forward"] > 0
     assert got.shape == x.shape and np.isfinite(got).all()
     assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 2e-2
 
@@ -842,9 +847,9 @@ def test_n1_matches_the_composition_at_every_stage(monkeypatch, c, side, layout,
 
     norm, x, dy = n1_case(c, side, layout, dtype, seed=c + side)
     assert cuda_norm.serves(x)
-    before = cuda_norm.launches
+    before = _build.launched.copy()
     got = n1_step(norm, x, dy)
-    assert cuda_norm.launches == before + 6
+    assert since(before) == {"msid_bn_forward": 3, "msid_bn_backward": 3}
     with monkeypatch.context() as m:
         m.setattr(cuda_norm, "serves", lambda x: False)
         want = n1_step(norm, x, dy)
@@ -858,13 +863,11 @@ def test_an_nchw_tensor_raises_on_the_card():
     """No norm of the decoders sees an NCHW tensor; one that did would be
     refused aloud (no kernel launch, no copy, no silent composition)."""
     need_card()
-    from msid_tpu_torch.ops import cuda_norm
-
     norm, x, dy = n1_case(48, 24, "planes", torch.bfloat16, seed=5, batch=4)
-    before = cuda_norm.launches
+    before = _build.launched.copy()
     with pytest.raises(ValueError, match="not channels-last"):
         n1_step(norm, x, dy)
-    assert cuda_norm.launches == before
+    assert since(before) == {}
 
 
 @pytest.mark.cuda
@@ -883,16 +886,14 @@ def test_eval_mode_launches_no_n1_kernel():
     mode makes one call of the library forward (three kernels) and one
     backward (three more)."""
     need_card()
-    from msid_tpu_torch.ops import cuda_norm
-
     norm, x, dy = n1_case(96, 48, "rows", torch.bfloat16, seed=1, batch=4)
-    before, kernels = _build.launches, cuda_norm.launches
+    before = _build.launched.copy()
     with torch.no_grad():
         norm.eval()(x)
     torch.cuda.synchronize()
-    assert (_build.launches, cuda_norm.launches) == (before, kernels)
+    assert since(before) == {}
     xr = x.clone().requires_grad_()
     y = norm.train()(xr)
-    assert (_build.launches, cuda_norm.launches) == (before + 1, kernels + 3)
+    assert since(before) == {"msid_bn_forward": 3}
     y.backward(dy)
-    assert (_build.launches, cuda_norm.launches) == (before + 2, kernels + 6)
+    assert since(before) == {"msid_bn_forward": 3, "msid_bn_backward": 3}

@@ -21,7 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 from msid_tpu.ops.noise import NoiseConfig as JaxNoiseConfig
 from msid_tpu.ops.noise import apply_sensor_noise as jax_apply_sensor_noise
 from msid_tpu.ops.pallas_noise import apply_sensor_noise_pallas
-from msid_tpu_torch.ops import cuda_noise
+from msid_tpu_torch.ops import _build, cuda_noise
 from msid_tpu_torch.ops.cuda_noise import (
     apply_sensor_noise_kernel,
     apply_sensor_noise_kernel_reference,
@@ -222,12 +222,12 @@ def test_wrapper_never_takes_the_plain_version_off_the_cpu(monkeypatch):
         raise AssertionError("plain version called for a non-CPU tensor")
 
     monkeypatch.setattr(cuda_noise, "apply_sensor_noise_kernel_reference", forbidden)
-    before = cuda_noise.launches
+    before = _build.launched.copy()
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         x = torch.empty(2, 8, 8, 13, dtype=dtype, device="meta")
         with pytest.raises(ValueError, match="CUDA"):
             apply_sensor_noise_kernel(1, x)
-    assert cuda_noise.launches == before
+    assert _build.launched == before
 
 
 def test_fold_in():

@@ -74,7 +74,7 @@ for sub in {[s for s in SUBPACKAGES if s] + ["benchmarks", "scripts"]!r}:
 from msid_tpu_torch.ops import _build
 print(json.dumps({{"after_ops": after_ops,
                   "roots": sorted({{m.split(".")[0] for m in sys.modules}}),
-                  "libraries": len(_build._libraries), "launches": _build.launches}}))
+                  "libraries": len(_build._libraries), "launches": _build.launched.total()}}))
 """
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

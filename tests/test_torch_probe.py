@@ -9,8 +9,6 @@ numpy inputs given to both sides, and the probe's entry point runs every
 variant at a small shape.
 """
 
-import gc
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,11 +16,10 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
-from torch.utils.weak import WeakIdKeyDictionary
 
 from msid_tpu.ops.pallas_decoder import fused_residual_block_v2 as jax_v2
 from msid_tpu_torch.benchmarks import kernel_probe
-from msid_tpu_torch.ops import cuda_decoder, cuda_probe
+from msid_tpu_torch.ops import _build, cuda_decoder, cuda_probe
 from msid_tpu_torch.ops.cuda_decoder import (
     fold_batchnorm,
     fused_residual_block,
@@ -120,16 +117,15 @@ def test_plain_any_dma_matches_the_tpu_probe_kernel(shape):
         interpret=True,
     )
     want = np.asarray(fn(jnp.asarray(xs)))
-    before = cuda_probe.launches_any_dma
+    before = _build.launched.copy()
     got = cuda_probe.any_dma_scale(torch.from_numpy(xs))
-    assert cuda_probe.launches_any_dma == before       # the plain version is no launch
+    assert _build.launched == before                    # the plain version is no launch
     np.testing.assert_array_equal(got.numpy(), want)    # doubling is exact
 
 
 @pytest.mark.parametrize("variant", ["xla", "xla_bf16", "fused", "v3", "v2", "v2:4:6", "any_dma"])
 def test_probe_runs_every_variant_on_the_cpu(variant, capsys):
-    counts = (cuda_decoder.launches, cuda_decoder.launches_fp32, cuda_decoder.launches_v2,
-              cuda_probe.launches_any_dma)
+    before = _build.launched.copy()
     result = kernel_probe.main([variant, "--device", "cpu", "--shape", "2,16,12,8",
                                 "--iters", "2"])
     out = capsys.readouterr().out
@@ -147,8 +143,7 @@ def test_probe_runs_every_variant_on_the_cpu(variant, capsys):
         assert "max|d| vs xla:" in out
         assert result["max_abs_vs_xla"] <= 0.05      # bf16 outputs of the same block
     # on the CPU every variant is a plain version: no launch is counted
-    assert counts == (cuda_decoder.launches, cuda_decoder.launches_fp32,
-                      cuda_decoder.launches_v2, cuda_probe.launches_any_dma)
+    assert _build.launched == before
 
 
 def test_probe_inputs_are_the_jax_probes():
@@ -231,10 +226,10 @@ def test_v2_wrapper_refuses_and_never_takes_the_plain_version_off_the_cpu(
         w1 = torch.empty(3, 3, 48, 24, dtype=torch.bfloat16, device="meta")
     elif case == "rank":
         x = x[0]
-    before = cuda_decoder.launches_v2
+    before = _build.launched.copy()
     with pytest.raises(ValueError, match=match):
         fused_residual_block_v2(x, w1, w2, aff)
-    assert cuda_decoder.launches_v2 == before
+    assert _build.launched == before
 
 
 @pytest.mark.parametrize("c,tile", [(48, (16, 96)), (384, (16, 16)), (96, (300, 8)), (48, (0, 8))])
@@ -296,10 +291,10 @@ def test_any_dma_wrapper_refusals(monkeypatch, case, match):
         x = torch.empty(8, 3, 2, device="meta")
     elif case == "contiguous":
         x = x.transpose(0, 1)
-    before = cuda_probe.launches_any_dma
+    before = _build.launched.copy()
     with pytest.raises(ValueError, match=match):
         cuda_probe.any_dma_scale(x)
-    assert cuda_probe.launches_any_dma == before
+    assert _build.launched == before
 
 
 def test_probe_refuses_unknown_variant_and_bad_shape():
@@ -338,37 +333,3 @@ def test_v2_picker_fits_a_cta_and_covers_a_ragged_image(c, b):
         assert rows * th >= h > (rows - 1) * th and cols * tw >= w > (cols - 1) * tw
         nw, mw, nsplit = cuda_decoder.V2_VARIANTS[(cp, g)]
         assert nw * (2 if nsplit else 1) == cp // g      # the warpgroups cover the CTA's N
-
-
-def test_v2_prepared_weights_are_made_once_and_follow_the_tensor(monkeypatch):
-    """The functional entry's K-major copies: one per weight tensor, made
-    again after an in-place write or for another dtype or device, never
-    handed to another tensor at a reused address, and let go with the
-    tensor they were made of."""
-    made = []
-    prepare = cuda_decoder.prepare_bf16_weights
-    monkeypatch.setattr(cuda_decoder, "prepare_bf16_weights",
-                        lambda w: made.append(w.dtype) or prepare(w))
-    monkeypatch.setattr(cuda_decoder, "_v2_weights", WeakIdKeyDictionary())
-    w = torch.from_numpy(block_inputs((1, 4, 4, 48), seed=3)[1]).bfloat16()
-    first = cuda_decoder.v2_prepared_weights(w)
-    assert cuda_decoder.v2_prepared_weights(w) is first and len(made) == 1
-    assert torch.equal(first, prepare(w))
-    w.mul_(2)                                            # in place: a new _version
-    second = cuda_decoder.v2_prepared_weights(w)
-    assert len(made) == 2 and torch.equal(second, prepare(w))
-    assert cuda_decoder.v2_prepared_weights(w) is second
-    assert cuda_decoder.v2_prepared_weights(w.float()).dtype == torch.float32
-    assert cuda_decoder.v2_prepared_weights(w.to("meta")).device.type == "meta"
-    assert len(made) == 4
-    # the same address, shape and version in another tensor is not a hit
-    alias = w.detach()
-    assert alias.data_ptr() == w.data_ptr() and alias._version == w._version
-    cuda_decoder.v2_prepared_weights(alias)
-    assert len(made) == 5
-    trained = torch.zeros(3, 3, 16, 16, dtype=torch.bfloat16, requires_grad=True)
-    cuda_decoder.v2_prepared_weights(trained)
-    kept = len(cuda_decoder._v2_weights)
-    del alias, trained                       # their copies go with them
-    gc.collect()
-    assert len(cuda_decoder._v2_weights) == kept - 2

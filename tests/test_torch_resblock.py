@@ -22,7 +22,7 @@ from msid_tpu.ops.pallas_decoder import fused_residual_block_v3
 from msid_tpu_torch.models import blocks as port_blocks
 from msid_tpu_torch.models.blocks import ResidualBlock
 from msid_tpu_torch.models.from_jax import load_residual_block
-from msid_tpu_torch.ops import cuda_decoder
+from msid_tpu_torch.ops import _build, cuda_decoder
 from msid_tpu_torch.ops.cuda_decoder import (
     fold_batchnorm,
     fused_residual_block,
@@ -207,10 +207,10 @@ def test_wrapper_never_takes_the_plain_version_off_the_cpu(monkeypatch, dtype, e
     x = torch.empty(1, 8, 8, 48, dtype=dtype, device="meta")
     w = torch.empty(3, 3, 48, 48, dtype=dtype, device="meta")
     aff = torch.empty(4, 48, device="meta")
-    before = cuda_decoder.launches, cuda_decoder.launches_fp32
+    before = _build.launched.copy()
     with pytest.raises(error, match=match):
         cuda_decoder.fused_residual_block(x, w, w, aff)
-    assert (cuda_decoder.launches, cuda_decoder.launches_fp32) == before
+    assert _build.launched == before
 
 
 def test_cpu_plain_version_keeps_fp32_and_bf16_numerics():

@@ -122,7 +122,7 @@ def test_fp32_eval_block_takes_the_plain_version_on_the_cpu(monkeypatch):
     assert seen == [(torch.float32,) * 4] * 2
     assert out.dtype == torch.float32 and out.shape == x.shape
     assert torch.equal(out, again)
-    assert cuda_decoder.launches_fp32 == 0
+    assert _build.launched["msid_resblock_fp32_forward"] == 0
 
 
 def test_fp32_eval_block_matches_the_unfused_block():
@@ -158,13 +158,14 @@ def test_a_failed_build_raises_and_never_falls_back(monkeypatch):
         raise AssertionError("plain version called on the CUDA path")
 
     monkeypatch.setattr(_build, "load_library", failed_build)
+    monkeypatch.setattr(_build, "multiprocessors", lambda device: cuda_decoder.H100_SMS)
     monkeypatch.setattr(cuda_decoder, "fused_residual_block_reference", forbidden)
     x = torch.empty(1, 16, 16, 12, device="meta")
     w = torch.empty(3, 3, 12, 12, device="meta")
-    before = cuda_decoder.launches_fp32
+    before = _build.launched.copy()
     with pytest.raises(RuntimeError, match="resblock_fp32.cu"):
         cuda_decoder._fused_residual_block_fp32(x, w, w, torch.empty(4, 12, device="meta"))
-    assert cuda_decoder.launches_fp32 == before
+    assert _build.launched == before
 
 
 def test_config_widths_are_the_repos():

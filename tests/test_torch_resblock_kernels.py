@@ -35,7 +35,6 @@ from msid_tpu_torch.ops.cuda_decoder import (
     bf16_smem_bytes,
     bf16_steps,
     bf16_tiling,
-    conv3x3_split_tf32,
     fp32_candidates,
     fp32_channel_block,
     fp32_cluster,
@@ -44,7 +43,6 @@ from msid_tpu_torch.ops.cuda_decoder import (
     fp32_tiling,
     fused_residual_block_reference,
     prepare_bf16_weights,
-    split_tf32,
 )
 from msid_tpu_torch.utils.config import load_config
 
@@ -59,6 +57,43 @@ RAGGED = (20, 36)        # an image no picked tile divides on both sides
 
 def rel_rms(a: torch.Tensor, ref: torch.Tensor) -> float:
     return float((a - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+
+
+def split_tf32(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's operand split, in plain PyTorch: ``big = tf32(v)`` (10 mantissa
+    bits, round to nearest with ties away from zero, by integer arithmetic
+    on the fp32 bits as the kernel does it) and ``small = tf32(v - big)``,
+    both fp32 tensors whose low 13 bits are clear. ``v - big`` is exact in
+    fp32, so ``v = big + small`` up to ~2^-22 |v|."""
+    def tf32(t: torch.Tensor) -> torch.Tensor:
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    big = tf32(v.float())
+    return big, tf32(v.float() - big)
+
+
+def conv3x3_split_tf32(x: torch.Tensor, w: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """The 3x3 'same' conv of NHWC x with HWIO w as K4's tensor cores see
+    it: the sum of ``small_x * big_w + big_x * small_w + big_x * big_w``
+    (``terms=3``), of ``big_x * big_w`` alone (``terms=1``, a single TF32
+    pass, which K4 does not use) or with ``small_x * small_w`` too
+    (``terms=4``). Products and sums are taken in float64, so the result
+    shows the error of the split alone. Returns NHWC float64."""
+    if terms not in (1, 3, 4):
+        raise ValueError(f"terms must be 1, 3 or 4, got {terms}")
+    (xb, xs), (wb, ws) = split_tf32(x), split_tf32(w)
+
+    def conv(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(u.double().permute(0, 3, 1, 2), k.double().permute(3, 2, 0, 1),
+                        padding=1).permute(0, 2, 3, 1)
+
+    pairs = {1: [(xb, wb)], 3: [(xs, wb), (xb, ws), (xb, wb)],
+             4: [(xs, ws), (xs, wb), (xb, ws), (xb, wb)]}[terms]
+    out = conv(*pairs[0])
+    for u, k in pairs[1:]:
+        out = out + conv(u, k)
+    return out
 
 
 def test_split_tf32_parts_are_tf32_and_sum_to_the_value():
