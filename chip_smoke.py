@@ -1393,8 +1393,12 @@ def kernel_owners(trace_path: Path, top: int = TRACE_TOP) -> dict:
 
 def phase_train(torch, failures: list, card: str) -> dict:
     """The flagship trains on the card: parity, a 1-epoch Trainer.fit with
-    the launch counts, then step times, memory and a profiler breakdown."""
+    the launch counts, then step times, memory and a profiler breakdown.
+    The fit's step replays CUDA graphs after its first (eager) step: N1
+    counts at the eager step and at the capture, never at a replay; K2 runs
+    eagerly in every step."""
     from msid_tpu_torch.models.blocks import Norm
+    from msid_tpu_torch.training import train_state
     from msid_tpu_torch.training.train_state import make_train_step
     from msid_tpu_torch.utils.config import load_config
     from msid_tpu_torch.utils.setup_helpers import setup_training_session
@@ -1427,7 +1431,13 @@ def phase_train(torch, failures: list, card: str) -> dict:
     launches = {"noise": launched("noise"), "resblock": launched("resblock"),
                 "batchnorm": launched("batchnorm")}
     norms = sum(isinstance(m, Norm) and m.kind == "batch" for m in model.modules())
+    graphs = trainer.train_step.graphs
+    replays = sum(g.replays for g in graphs.values())
+    # micro-batches run eagerly, and one a capture
+    counted = (steps - replays) * trainer.accum_steps + len(graphs)
+    print(f"train: {replays} of {steps} steps replayed, {len(graphs)} capture(s)", flush=True)
     result.update(launches=launches, steps=steps, val_batches=val_batches,
+                  replays=replays, captures=len(graphs),
                   nan_skips=trainer.state.nan_skips, history=history,
                   fit_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     finite = all(np.isfinite(v).all() for k, v in history.items() if k != "lr")
@@ -1444,7 +1454,9 @@ def phase_train(torch, failures: list, card: str) -> dict:
         "noise_launches": launches["noise"] == steps + val_batches,
         "resblock_launches": launches["resblock"] == 8 * val_batches,
         "batchnorm_launches": (launches["batchnorm"]      # N1: 3 + 3 a norm a micro-batch
-                               == 6 * norms * steps * trainer.accum_steps),
+                               == 6 * norms * counted),
+        "replayed": (len(graphs) == 1
+                     and replays == steps - train_state.CAPTURE_AFTER),
         "steps": steps == 6 and val_batches == 2,
     }
     result["checks"] = checks

@@ -160,10 +160,13 @@ class SatMAEEncoder(nn.Module):
 
 def _blocks_and_norm(encoder: nn.Module, y: torch.Tensor) -> torch.Tensor:
     """The encoder's blocks (each under ``checkpoint`` when it is set and
-    the encoder trains) and its final LayerNorm."""
+    the encoder trains) and its final LayerNorm. A block draws no random
+    numbers, so its recomputation restores no RNG state, which a CUDA graph
+    capture of the train step could not read or set."""
     remat = encoder.gradient_checkpointing and encoder.training and torch.is_grad_enabled()
     for block in encoder.blocks:
-        y = checkpoint(block, y, use_reentrant=False) if remat else block(y)
+        y = (checkpoint(block, y, use_reentrant=False, preserve_rng_state=False) if remat
+             else block(y))
     return encoder.norm(y)
 
 

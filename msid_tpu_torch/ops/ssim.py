@@ -36,6 +36,13 @@ def gaussian_window(window_size: int = DEFAULT_WINDOW_SIZE,
     return torch.outer(g1, g1)
 
 
+@functools.lru_cache(maxsize=8)
+def _window(window_size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """``gaussian_window`` made once a device and kept: read, never written,
+    so a train step captured as a CUDA graph makes no host-to-device copy."""
+    return gaussian_window(window_size, sigma, device)
+
+
 def depthwise_filter(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """Depthwise zero-padded 'SAME' filter of an NCHW fp32 tensor."""
     c = x.shape[1]
@@ -52,7 +59,7 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor,
     """Per-pixel, per-band SSIM of two NHWC batches: fp32 ``[B, H, W, C]``."""
     x = img1.float().permute(0, 3, 1, 2)
     y = img2.float().permute(0, 3, 1, 2)
-    window = gaussian_window(window_size, sigma, x.device)
+    window = _window(window_size, sigma, x.device)
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
     mu1 = depthwise_filter(x, window)

@@ -12,6 +12,7 @@ dtype of ``pred``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -78,12 +79,18 @@ def sam_loss(pred: torch.Tensor, target: torch.Tensor,
 _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 
 
+@functools.lru_cache(maxsize=8)
+def _sobel(c: int, device: torch.device) -> torch.Tensor:
+    """The ``[2C, 1, 3, 3]`` Sobel pair of C bands, made once a device and
+    kept (a captured train step makes no host-to-device copy)."""
+    kx = torch.tensor(_SOBEL_X, dtype=torch.float32, device=device) / 8.0
+    return torch.stack([kx, kx.T])[:, None].repeat(c, 1, 1, 1)
+
+
 def _edges(x: torch.Tensor) -> torch.Tensor:
     """Depthwise Sobel magnitude of an NHWC fp32 tensor (zero padding)."""
     c = x.shape[-1]
-    kx = torch.tensor(_SOBEL_X, dtype=torch.float32, device=x.device) / 8.0
-    kernel = torch.stack([kx, kx.T])[:, None].repeat(c, 1, 1, 1)     # [2C,1,3,3]
-    g = F.conv2d(x.permute(0, 3, 1, 2), kernel, padding=1, groups=c)
+    g = F.conv2d(x.permute(0, 3, 1, 2), _sobel(c, x.device), padding=1, groups=c)
     gx, gy = g[:, 0::2], g[:, 1::2]
     return torch.sqrt(gx * gx + gy * gy + 1e-12).permute(0, 2, 3, 1)
 

@@ -18,7 +18,11 @@ encoder: AdamW at encoder_lr_scale x LR, decoder: AdamW at 1x LR)``. Here:
   * ``torch.optim.AdamW`` updates the two groups (the JAX package computes
     AdamW in XLA, not in a kernel); each group's LR is set from
     ``schedule(count)`` before the update, ``count`` being the number of
-    updates already applied.
+    updates already applied;
+  * on a card AdamW is ``capturable``: it counts its updates on the device
+    and reads each group's LR from a device tensor that ``set_lr`` writes,
+    so that an update can be captured in a CUDA graph and replayed
+    (``training/train_state.py``).
 """
 
 from __future__ import annotations
@@ -76,9 +80,13 @@ class GroupedAdamW:
         groups = [g for g in groups if g["params"]]
         self.model_group = None     # tensor parallelism: see parallel/tp.py
         self.sharded: list[bool] | None = None
+        capturable = all(p.is_cuda for p in self.params)
+        if capturable:
+            for group in groups:
+                group["lr"] = torch.zeros((), device=group["params"][0].device)
         self.adamw = torch.optim.AdamW(
             groups, lr=schedule(0), betas=(float(betas[0]), float(betas[1])),
-            eps=1e-8, weight_decay=float(weight_decay))
+            eps=1e-8, weight_decay=float(weight_decay), capturable=capturable)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -114,11 +122,28 @@ class GroupedAdamW:
         torch._foreach_div_(grads, torch.where(keep, one, norm))
         torch._foreach_mul_(grads, torch.where(keep, one, one * self.gradient_clip))
 
-    def step(self, count: int) -> None:
-        """Apply one AdamW update with the LR of ``schedule(count)``."""
+    def ready(self) -> bool:
+        """Whether every parameter AdamW trains has its moments, so that an
+        update creates no state (one that a CUDA graph captures must not)."""
+        state = self.adamw.state
+        return all(state.get(p) for group in self.adamw.param_groups for p in group["params"])
+
+    def set_lr(self, count: int) -> None:
+        """Set each group's LR to ``schedule(count)`` times its scale: on a
+        card a write of the group's LR tensor, with no host sync."""
         lr = self.schedule(count)
         for group in self.adamw.param_groups:
-            group["lr"] = lr * group["lr_scale"]
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr * group["lr_scale"])
+            else:
+                group["lr"] = lr * group["lr_scale"]
+
+    def step(self, count: int | None) -> None:
+        """Apply one AdamW update with the LR of ``schedule(count)``; None
+        keeps the LR ``set_lr`` set (a captured update, before whose every
+        replay the host sets it)."""
+        if count is not None:
+            self.set_lr(count)
         self.adamw.step()
 
     def state_dict(self) -> dict:
@@ -131,14 +156,20 @@ class GroupedAdamW:
         trained here gets them; one trained here with none starts fresh, as
         AdamW starts every parameter; saved moments of a parameter frozen
         here are dropped. Each group takes the settings (learning rate,
-        betas, ...) of the saved group with its label, where there is one."""
+        betas, ...) of the saved group with its label, where there is one,
+        but keeps whether it is ``capturable`` and, where either side's LR
+        is a tensor, its own LR (the schedule sets it before every update)."""
         saved = {name: state["state"][i]
                  for group in state["param_groups"]
                  for name, i in zip(group["names"], group["params"]) if i in state["state"]}
         settings = {group["label"]: group for group in state["param_groups"]}
-        groups = [dict(settings.get(group["label"], group), params=group["params"],
-                       names=group["names"])
-                  for group in self.adamw.state_dict()["param_groups"]]
+        groups = []
+        for group in self.adamw.state_dict()["param_groups"]:
+            merged = dict(settings.get(group["label"], group), params=group["params"],
+                          names=group["names"], capturable=group["capturable"])
+            if isinstance(group["lr"], torch.Tensor) or isinstance(merged["lr"], torch.Tensor):
+                merged["lr"] = group["lr"]
+            groups.append(merged)
         self.adamw.load_state_dict({
             "state": {i: saved[name] for group in groups
                       for name, i in zip(group["names"], group["params"]) if name in saved},

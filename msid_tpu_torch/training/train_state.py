@@ -33,6 +33,18 @@ non-finite test, so every rank skips or applies the same steps. Under
 tensor parallelism (``parallel/tp.py``) the ViT's sharded blocks carry
 their own collectives and the clip norm counts each shard once.
 
+On a card the step replays CUDA graphs (``StepGraphs``): a batch shape's
+first ``CAPTURE_AFTER`` steps run eagerly (the first creates AdamW's state
+and sets up what the libraries make once); the next captures a
+micro-batch's forward and loss, its backward, and the update (clip, AdamW,
+EMA) as three graphs on one memory pool, and that step and every later one
+of the shape copy their inputs into the graphs' own and replay them: the
+forward and backward once per micro-batch, the update on an applied step.
+The preparation (preprocessing, band permutation, K2), the global norm, the
+finite test and the skip stay eager, so a replayed step computes what an
+eager one does, kernel for kernel. The CPU, a reduced mesh and a
+tensor-parallel model stay eager.
+
 The eval step scores the live weights, one set of weights given as a
 dict (``torch.func.functional_call``, the counterpart of
 ``model.apply(variables, ...)``), or the mean restoration of an ensemble
@@ -41,8 +53,10 @@ of them, optionally over dihedral test-time views (``ops/tta.py``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import logging
 from typing import TYPE_CHECKING, Callable, Optional, Sequence
 
 import numpy as np
@@ -52,6 +66,7 @@ from torch import nn
 from torch.func import functional_call
 
 from msid_tpu_torch.models.restoration import exact_fp32
+from msid_tpu_torch.ops import _build
 from msid_tpu_torch.ops.metrics import batch_metric_sums
 from msid_tpu_torch.ops.noise import NoiseConfig, corrupt, fold_in
 from msid_tpu_torch.ops.preprocess import preprocess_tiles, random_band_permutation
@@ -67,6 +82,13 @@ from msid_tpu_torch.utils.profiling import annotate
 
 if TYPE_CHECKING:
     from msid_tpu_torch.parallel.mesh import Mesh
+
+logger = logging.getLogger(__name__)
+
+# Eager steps of a batch shape before its step is captured as CUDA graphs:
+# the first creates AdamW's state and makes what the libraries set up once
+# (cuBLAS and cuDNN plans, the kernel libraries, SSIM's window).
+CAPTURE_AFTER = 1
 
 
 @dataclasses.dataclass
@@ -96,7 +118,9 @@ class TrainState:
                 "step": self.step, "nan_skips": self.nan_skips, "ema": self.ema}
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore :meth:`state_dict` in place, onto the module's device."""
+        """Restore :meth:`state_dict` in place, onto the module's device. The
+        AdamW state and the EMA shadow are new objects: a train step drops
+        the CUDA graphs it captured on the old ones at its next call."""
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
@@ -140,6 +164,55 @@ class TrainState:
             with torch.no_grad():
                 for n, p in params.items():
                     p.copy_(live[n])
+
+
+class StepGraphs:
+    """One batch shape's train step as three CUDA graphs on one memory pool,
+    replayed in their capture order: ``forward`` (a micro-batch's forward
+    and loss, from the static ``noisy`` and ``clean`` into ``loss`` and
+    ``mse``), ``backward`` (its gradients into ``grads``, the parameters'
+    ``.grad``: written with one micro-batch, added to with more) and
+    ``update`` (the clip by ``norm``, AdamW at the LR its groups' tensors
+    hold, the EMA). ``stats`` takes the BatchNorm statistics at a step's
+    start, for a skipped step. The graphs read and write these tensors, the
+    parameters, the AdamW state and the EMA shadow by address: the object
+    keeps them, and ``holds(state)`` says whether ``state`` still has the
+    optimizer, AdamW state and shadow it captured. ``launches`` counts the
+    hand-written kernels the captures recorded (``_build.launched`` moves
+    at a capture, never at a replay); ``replays`` the steps replayed."""
+
+    def __init__(self, state: TrainState, clean: torch.Tensor, noisy: torch.Tensor,
+                 buffers: list):
+        self.operands = (state.optimizer, state.optimizer.adamw.state, state.ema)
+        self.clean, self.noisy = clean.clone(), noisy.clone()
+        self.stats = [b.clone() for b in buffers]
+        self.norm = torch.zeros((), device=clean.device)
+        self.forward, self.backward, self.update = (torch.cuda.CUDAGraph() for _ in range(3))
+        self.loss = self.mse = None
+        self.grads: list = []
+        self.launches = 0
+        self.replays = 0
+
+    def holds(self, state: TrainState) -> bool:
+        optimizer, adam_state, ema = self.operands
+        return (state.optimizer is optimizer and optimizer.adamw.state is adam_state
+                and state.ema is ema)
+
+    def capture(self, forward_loss: Callable, apply: Callable, optimizer: GroupedAdamW) -> None:
+        """Capture the three graphs: ``forward_loss(noisy, clean) -> (loss,
+        mse)``, the backward of that loss into the gradients as they are
+        (None: made in the pool), and ``apply(norm)``. Nothing runs."""
+        before = _build.launched.total()
+        with torch.cuda.graph(self.forward):
+            loss, mse = forward_loss(self.noisy, self.clean)
+        pool = self.forward.pool()
+        with torch.cuda.graph(self.backward, pool=pool):
+            loss.backward()
+        self.loss, self.mse = loss.detach(), mse.detach()
+        self.grads = optimizer.grads()
+        with torch.cuda.graph(self.update, pool=pool):
+            apply(self.norm)
+        self.launches = _build.launched.total() - before
 
 
 def _autocast(device: torch.device, dtype: torch.dtype):
@@ -195,10 +268,16 @@ def make_train_step(
     With ``mesh`` the batch is this rank's rows of the global batch
     (``mesh.data`` times as many) and the metrics are the global batch's
     (see the module docstring). ``train_step.prepare(batch, seed)`` is the
-    step's ``(clean, noisy)`` input, for checks.
+    step's ``(clean, noisy)`` input, for checks; ``train_step.graphs`` the
+    ``StepGraphs`` by batch shape (empty where the step stays eager).
     """
     device = next(model.parameters()).device
     buffers = [b for b in model.buffers() if b.is_floating_point()]
+    names = [n for n, _ in model.named_parameters()]
+    graphable = device.type == "cuda" and not _reduced(mesh)
+    step_graphs: dict[tuple, StepGraphs] = {}
+    eager_steps: collections.Counter = collections.Counter()
+    refused: set = set()
 
     def train_step(state: TrainState, batch, seed: int):
         with exact_fp32(compute_dtype):
@@ -219,33 +298,117 @@ def make_train_step(
         return clean, noisy
 
     def _train_step(state: TrainState, batch, seed: int):
-        optimizer = state.optimizer
         model.train()
         with annotate("msid.train.prepare"):
             clean, noisy = prepare(batch, seed)
         n = clean.shape[0]
         if n % accum_steps:
             raise ValueError(f"batch {n} not divisible by accum_steps {accum_steps}")
-        micro = n // accum_steps
-        stats = [b.clone() for b in buffers]
+        graphs = _graphs_for(state, clean, noisy)
+        if graphs is None:
+            return _eager_step(state, clean, noisy)
+        with annotate("msid.train.replay"):
+            return _replayed_step(state, graphs, clean, noisy)
 
-        optimizer.zero_grad()
+    def _forward_loss(noisy: torch.Tensor, clean: torch.Tensor):
+        with _autocast(device, compute_dtype):
+            out = model(noisy.to(compute_dtype))
+        loss, aux = combined_loss(out, clean, loss_cfg, vgg_params)
+        return loss, aux["mse"]
+
+    def _micro_batches(n: int):
+        micro = n // accum_steps
+        return [slice(i * micro, (i + 1) * micro) for i in range(accum_steps)]
+
+    def _eager_step(state: TrainState, clean: torch.Tensor, noisy: torch.Tensor):
+        stats = [b.clone() for b in buffers]
+        state.optimizer.zero_grad()
         loss_sum = mse_sum = None
-        for i in range(accum_steps):
-            rows = slice(i * micro, (i + 1) * micro)
+        for rows in _micro_batches(clean.shape[0]):
             with annotate("msid.train.forward"):
-                with _autocast(device, compute_dtype):
-                    out = model(noisy[rows].to(compute_dtype))
-                loss, aux = combined_loss(out, clean[rows], loss_cfg, vgg_params)
+                loss, mse = _forward_loss(noisy[rows], clean[rows])
             with annotate("msid.train.backward"):
                 loss.backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-            mse_sum = aux["mse"].detach() if mse_sum is None else mse_sum + aux["mse"].detach()
+            mse_sum = mse.detach() if mse_sum is None else mse_sum + mse.detach()
         with annotate("msid.train.update"):
-            return _update(state, optimizer, stats, loss_sum, mse_sum)
+            return _update(state, stats, loss_sum, mse_sum)
 
-    def _update(state: TrainState, optimizer: GroupedAdamW, stats: list,
-                loss_sum: torch.Tensor, mse_sum: torch.Tensor):
+    def _graphs_for(state: TrainState, clean: torch.Tensor,
+                    noisy: torch.Tensor) -> Optional[StepGraphs]:
+        """The graphs of this batch shape, captured at its step after
+        ``CAPTURE_AFTER`` eager ones (and again after their operands
+        changed); None where the step stays eager."""
+        optimizer = state.optimizer
+        if not graphable or optimizer.model_group is not None:
+            return None
+        key = tuple(clean.shape)
+        graphs = step_graphs.get(key)
+        if graphs is not None and graphs.holds(state):
+            return graphs
+        if graphs is not None:           # a new optimizer or a loaded state
+            step_graphs.clear()
+            optimizer.zero_grad()
+        if key in refused or eager_steps[key] < CAPTURE_AFTER or not optimizer.ready():
+            eager_steps[key] += 1
+            return None
+        micro = _micro_batches(clean.shape[0])[0]
+        graphs = StepGraphs(state, clean[micro], noisy[micro], buffers)
+        if accum_steps > 1:
+            optimizer.grads()           # zeros, which each micro-batch's backward adds to
+        else:
+            optimizer.zero_grad()       # the backward makes them in the graphs' pool
+        try:
+            graphs.capture(_forward_loss, lambda norm: _apply(state, norm, None), optimizer)
+        except Exception as err:        # noqa: BLE001 - the step runs eagerly instead
+            logger.warning("the train step at batch shape %s stays eager: capturing it as "
+                           "CUDA graphs failed (%s: %s)", key, type(err).__name__, err)
+            refused.add(key)
+            optimizer.zero_grad()
+            return None
+        step_graphs[key] = graphs
+        return graphs
+
+    def _replayed_step(state: TrainState, graphs: StepGraphs, clean: torch.Tensor,
+                       noisy: torch.Tensor):
+        params = state.optimizer.params
+        if params[0].grad is not graphs.grads[0]:      # an eager step let them go
+            for p, grad in zip(params, graphs.grads):
+                p.grad = grad
+        if buffers:
+            torch._foreach_copy_(graphs.stats, buffers)
+        if accum_steps > 1:
+            torch._foreach_zero_(graphs.grads)
+        loss_sum = mse_sum = None
+        for rows in _micro_batches(clean.shape[0]):
+            with annotate("msid.train.forward"):
+                graphs.noisy.copy_(noisy[rows])
+                graphs.clean.copy_(clean[rows])
+                graphs.forward.replay()
+            with annotate("msid.train.backward"):
+                graphs.backward.replay()
+            loss_sum = graphs.loss.clone() if loss_sum is None else loss_sum + graphs.loss
+            mse_sum = graphs.mse.clone() if mse_sum is None else mse_sum + graphs.mse
+        graphs.replays += 1
+        with annotate("msid.train.update"):
+            return _update(state, graphs.stats, loss_sum, mse_sum, graphs)
+
+    def _apply(state: TrainState, grad_norm: torch.Tensor, count: Optional[int]) -> None:
+        """Clip, AdamW at the LR of ``schedule(count)`` (None: as set) and
+        the EMA: what the update graph captures."""
+        state.optimizer.clip_(grad_norm)
+        state.optimizer.step(count)
+        if ema_decay > 0.0:
+            if state.ema is None:
+                raise ValueError("ema_decay > 0 needs TrainState.create(..., ema=True)")
+            with torch.no_grad():
+                torch._foreach_lerp_([state.ema[k] for k in names],
+                                     [p.detach() for p in model.parameters()],
+                                     1.0 - ema_decay)
+
+    def _update(state: TrainState, stats: list, loss_sum: torch.Tensor,
+                mse_sum: torch.Tensor, graphs: Optional[StepGraphs] = None):
+        optimizer = state.optimizer
         grads = optimizer.grads()
         if accum_steps > 1:
             torch._foreach_mul_(grads, 1.0 / accum_steps)
@@ -257,29 +420,29 @@ def make_train_step(
             all_reduce_mean_([means], mesh.data_group, mesh.data)
             loss_sum, mse_sum = means[0], means[1]
         grad_norm = optimizer.global_norm()
+        if graphs is not None:          # what the update's replay reads
+            graphs.norm.copy_(grad_norm)
+            optimizer.set_lr(state.step)
 
         finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss_sum))  # host sync
         if finite:
-            optimizer.clip_(grad_norm)
-            optimizer.step(state.step)
+            if graphs is None:
+                _apply(state, grad_norm, state.step)
+            else:
+                graphs.update.replay()
             state.step += 1
-            if ema_decay > 0.0:
-                if state.ema is None:
-                    raise ValueError("ema_decay > 0 needs TrainState.create(..., ema=True)")
-                names = [n for n, _ in model.named_parameters()]
-                with torch.no_grad():
-                    torch._foreach_lerp_([state.ema[k] for k in names],
-                                         [p.detach() for p in model.parameters()],
-                                         1.0 - ema_decay)
         else:
-            with torch.no_grad():
-                torch._foreach_copy_(buffers, stats)
+            if buffers:                 # a model of GroupNorms keeps no statistics
+                with torch.no_grad():
+                    torch._foreach_copy_(buffers, stats)
             state.nan_skips += 1
-        optimizer.zero_grad()
+        if graphs is None:
+            optimizer.zero_grad()
         return state, {"loss": loss_sum, "mse": mse_sum, "grad_norm": grad_norm,
                        "skipped": int(not finite)}
 
     train_step.prepare = prepare
+    train_step.graphs = step_graphs
     return train_step
 
 

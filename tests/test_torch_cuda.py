@@ -897,3 +897,174 @@ def test_eval_mode_launches_no_n1_kernel():
     assert since(before) == {"msid_bn_forward": 3}
     y.backward(dy)
     assert since(before) == {"msid_bn_forward": 3, "msid_bn_backward": 3}
+
+
+# The train step replayed as CUDA graphs (training/train_state.py,
+# StepGraphs) against the same step run eagerly, two models seeded alike: a
+# tiny flagship (unet_skip with fill and BatchNorm on N1, checkpointed ViT
+# blocks, bf16 autocast, K2, AdamW, EMA).
+GRAPH_STEPS = 5
+GRAPH_NAN_STEP = 3          # its tiles are made non-finite: a skipped step
+
+
+def graph_trainer(accum_steps=1):
+    """A seeded tiny flagship on the card, its train state and its step."""
+    from msid_tpu_torch.models.restoration import SatMAERestoration
+    from msid_tpu_torch.ops.noise import NoiseConfig
+    from msid_tpu_torch.training.losses import LossConfig
+    from msid_tpu_torch.training.optim import build_optimizer
+    from msid_tpu_torch.training.schedules import cosine_warm_restarts
+    from msid_tpu_torch.training.train_state import TrainState, make_train_step
+
+    torch.manual_seed(0)
+    model = SatMAERestoration(image_size=32, patch_size=16, embed_dim=64, depth=2,
+                              num_heads=4, decoder_arch="unet_skip",
+                              decoder_channels=(96, 48, 48, 48), residual_output=True,
+                              input_fill=True, gradient_checkpointing=True)
+    with torch.no_grad():                            # a head that is not zero
+        for p in model.decoder.parameters():
+            p.add_(0.01 * torch.randn_like(p))
+    model.cuda()
+    optimizer = build_optimizer(model, cosine_warm_restarts(1e-3, 4, 2, 1e-5),
+                                gradient_clip=0.5, freeze_layers=(0,))
+    state = TrainState.create(model, optimizer, ema=True)
+    step = make_train_step(model, LossConfig(mse_weight=1.0, ssim_weight=0.1), NoiseConfig(),
+                           accum_steps=accum_steps, image_size=32, ema_decay=0.9,
+                           compute_dtype=torch.bfloat16)
+    return model, state, step
+
+
+def graph_tiles(i, b=8):
+    tiles = np.random.default_rng(i).uniform(500, 9500, (b, 16, 16, 13)).astype(np.float32)
+    if i == GRAPH_NAN_STEP:
+        tiles[1] = np.nan
+    return tiles
+
+
+def graph_run(monkeypatch, accum_steps, eager, steps=GRAPH_STEPS):
+    """Each step's metrics (read at once) and LRs, the state after, and the
+    N1 and K2 launches counted over the run."""
+    from msid_tpu_torch.training import train_state
+
+    with monkeypatch.context() as m:
+        if eager:
+            m.setattr(train_state, "CAPTURE_AFTER", 10 ** 9)
+        model, state, step = graph_trainer(accum_steps)
+        groups = state.optimizer.adamw.param_groups
+        before = _build.launched.copy()
+        rows = []
+        for i in range(1, steps + 1):
+            state, metrics = step(state, graph_tiles(i), 100 + i)
+            row = {k: float(metrics[k]) for k in ("loss", "mse", "grad_norm")}
+            row.update(skipped=metrics["skipped"], step=state.step, nan_skips=state.nan_skips,
+                       lr=None if metrics["skipped"] else [float(g["lr"]) for g in groups])
+            rows.append(row)
+        torch.cuda.synchronize()
+    return rows, model, state, step, since(before)
+
+
+def graph_state_close(a, b):
+    """Parameters, BN statistics, AdamW moments and counts, and the EMA of
+    two train states within N1's bf16 tolerance."""
+    for (name, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        n1_close(x, y, torch.bfloat16)
+    for name in a.ema:
+        n1_close(a.ema[name], b.ema[name], torch.bfloat16)
+    sa, sb = a.optimizer.adamw.state, b.optimizer.adamw.state
+    for pa, pb in zip(a.optimizer.params, b.optimizer.params):
+        assert set(sa.get(pa, {})) == set(sb.get(pb, {}))
+        for key in sa.get(pa, {}):
+            n1_close(sa[pa][key], sb[pb][key], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum_steps", [1, 2])
+def test_a_replayed_train_step_is_the_eager_step(monkeypatch, accum_steps):
+    """Five steps, the third skipped: step 1 runs eagerly, step 2 captures
+    the graphs and replays them, steps 3-5 replay. Per step the loss, mse
+    and grad norm agree with the eager run within N1's bf16 tolerance, and
+    the update count, skips, skip flags and each update's LRs exactly; so do
+    the state after the run. N1 counts at the eager step and the capture
+    only, K2 in every step."""
+    need_card()
+    got, _, graphed, step, launches = graph_run(monkeypatch, accum_steps, eager=False)
+    want, _, eager, eager_step, eager_launches = graph_run(monkeypatch, accum_steps, eager=True)
+    assert eager_step.graphs == {}
+    (graphs,) = step.graphs.values()
+    assert graphs.replays == GRAPH_STEPS - 1 and graphs.launches > 0
+    for i, (g, w) in enumerate(zip(got, want), start=1):
+        for key in ("skipped", "step", "nan_skips", "lr"):
+            assert g[key] == w[key], (i, key, g[key], w[key])
+        if i == GRAPH_NAN_STEP:
+            assert g["skipped"] == 1 and not np.isfinite(g["loss"])
+            continue
+        for key in ("loss", "mse", "grad_norm"):
+            n1_close(torch.tensor(g[key]), torch.tensor(w[key]), torch.bfloat16)
+    assert graphed.step == GRAPH_STEPS - 1 and graphed.nan_skips == 1
+    graph_state_close(graphed, eager)
+    assert launches["msid_noise_forward"] == eager_launches["msid_noise_forward"] == GRAPH_STEPS
+    # a capture records one micro-batch's forward and backward
+    for entry in ("msid_bn_forward", "msid_bn_backward"):
+        assert (launches[entry] * GRAPH_STEPS * accum_steps
+                == eager_launches[entry] * (accum_steps + 1))
+    assert graphs.launches * accum_steps == sum(eager_launches.values()) // GRAPH_STEPS - 1
+
+
+@pytest.mark.cuda
+def test_held_losses_of_replayed_steps_are_their_own(monkeypatch):
+    """The harness's pattern: the loss tensors of steps 1-3 (eager, capture,
+    replay), held and read after step 3, are three different values, each
+    the eager run's."""
+    need_card()
+    from msid_tpu_torch.training import train_state
+
+    held = {}
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(train_state, "CAPTURE_AFTER", 10 ** 9)
+            _, state, step = graph_trainer()
+            losses = []
+            for i in (1, 2, 4):                       # three finite batches
+                state, metrics = step(state, graph_tiles(i), 100 + i)
+                losses.append(metrics["loss"])
+            held[eager] = [float(v) for v in losses]
+            assert len(step.graphs) == (0 if eager else 1)
+    assert len(set(held[False])) == 3
+    n1_close(torch.tensor(held[False]), torch.tensor(held[True]), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_a_loaded_state_drops_the_graphs_and_steps_as_a_fresh_one(monkeypatch):
+    """``TrainState.load_state_dict`` after a capture replaces the AdamW
+    state and the EMA shadow the graphs captured: the next step captures
+    anew, and it and the one after match a fresh eager state loaded alike."""
+    need_card()
+    import copy
+
+    from msid_tpu_torch.training import train_state
+
+    _, state, step = graph_trainer()
+    state, _ = step(state, graph_tiles(1), 101)
+    saved = copy.deepcopy(state.state_dict())
+    for i in (2, 4):
+        state, _ = step(state, graph_tiles(i), 100 + i)
+    (first,) = step.graphs.values()
+    state.load_state_dict(copy.deepcopy(saved))      # keeps the tensors it is given
+    got = []
+    for i in (5, 6):
+        state, metrics = step(state, graph_tiles(i), 100 + i)
+        got.append(float(metrics["loss"]))
+    (second,) = step.graphs.values()
+    assert second is not first and second.replays == 2 and second.holds(state)
+    with monkeypatch.context() as m:
+        m.setattr(train_state, "CAPTURE_AFTER", 10 ** 9)
+        _, fresh, eager_step = graph_trainer()
+        fresh.load_state_dict(copy.deepcopy(saved))
+        want = []
+        for i in (5, 6):
+            fresh, metrics = eager_step(fresh, graph_tiles(i), 100 + i)
+            want.append(float(metrics["loss"]))
+    assert state.step == fresh.step == 3
+    n1_close(torch.tensor(got), torch.tensor(want), torch.bfloat16)
+    graph_state_close(state, fresh)

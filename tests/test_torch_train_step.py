@@ -180,6 +180,39 @@ def test_nan_tile_leaves_state_unchanged(jax_setup, jax_runs):
     assert all(not s for s in state.optimizer.adamw.state.values())
 
 
+def test_the_cpu_step_stays_eager_and_returns_metrics_of_its_own():
+    """On the CPU the step never captures a graph and AdamW is not
+    capturable; each step's loss, mse and grad norm are tensors of their
+    own, so three held and read after the third step are three values."""
+    torch.manual_seed(0)
+    model = SatMAERestoration(**TINY_FLAGSHIP, gradient_checkpointing=True)
+    optimizer = build_optimizer(model, cosine_warm_restarts(*SGDR), **OPT)
+    step = make_train_step(model, LossConfig(**LOSS), NoiseConfig(**ZERO_NOISE),
+                           image_size=32, noise_impl="jnp")
+    state, held = TrainState.create(model, optimizer), []
+    for i in range(3):
+        state, metrics = step(state, raw_tiles(seed=i), i)
+        held.append(metrics)
+    assert step.graphs == {} and state.step == 3
+    assert not any(g["capturable"] for g in optimizer.adamw.param_groups)
+    for key in ("loss", "mse", "grad_norm"):
+        values = [m[key] for m in held]
+        assert len({v.data_ptr() for v in values}) == 3
+        assert len({float(v) for v in values}) == 3, key
+
+
+def test_a_group_norm_model_skips_a_nan_tile():
+    """A model of GroupNorms keeps no running statistics: a skipped step
+    has none to restore, and counts its skip."""
+    torch.manual_seed(0)
+    model = SatMAERestoration(**TINY_FLAGSHIP, norm="group")
+    optimizer = build_optimizer(model, cosine_warm_restarts(*SGDR), **OPT)
+    step = make_train_step(model, LossConfig(**LOSS), NoiseConfig(**ZERO_NOISE),
+                           image_size=32, noise_impl="jnp")
+    state, metrics = step(TrainState.create(model, optimizer), nan_tiles(), 0)
+    assert metrics["skipped"] == 1 and state.nan_skips == 1 and state.step == 0
+
+
 def test_eval_step_masked_sums_match_jax(jax_setup):
     model, variables = jax_setup
     batch = raw_tiles(seed=1)
