@@ -199,7 +199,7 @@ def export_program(model: nn.Module, output_path: str | Path,
 
             # The payload is fp32 (npz has no bf16); the program's inputs are
             # the compute dtype, and load_exported casts the payload to them.
-            mm = model.decoder_arch != "unet_skip"
+            mm = getattr(model, "decoder_arch", None) != "unet_skip"
             with torch.no_grad():
                 host = optimize_for_inference(model, dtype=torch.float32,
                                               upsample="matmul" if mm else "ct")

@@ -62,16 +62,20 @@ Tensors = Mapping[str, torch.Tensor]
 
 
 def supports_fastpath(model: nn.Module) -> bool:
-    """True when the model matches the hand-scheduled graphs: a
-    ``unet_light`` or ``unet_skip`` decoder with BatchNorm, no
-    ``input_fill`` stage and the one-embed encoder."""
-    return (model.decoder_arch in ("unet_light", "unet_skip")
+    """True when the model matches the hand-scheduled graphs: a SatMAE
+    restorer with a ``unet_light`` or ``unet_skip`` decoder with BatchNorm,
+    no ``input_fill`` stage and the one-embed encoder (a restorer with no
+    ``decoder_arch``, such as Restormer, is not one)."""
+    return (getattr(model, "decoder_arch", None) in ("unet_light", "unet_skip")
             and model.decoder.head_norm.kind == "batch"
             and not getattr(model, "input_fill", False)
             and getattr(model, "channel_groups", None) is None)
 
 
 def _refuse_unsupported(model: nn.Module, what: str) -> None:
+    if not hasattr(model, "decoder_arch"):
+        raise ValueError(f"{what} supports the SatMAE restorer, not {type(model).__name__}: "
+                         f"serve it through the model's own forward")
     if getattr(model, "channel_groups", None) is not None:
         raise ValueError(f"{what} does not support the group-channel encoder "
                          f"(channel_groups): the graphs rebuild the one-embed encoder "

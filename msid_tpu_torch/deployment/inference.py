@@ -269,7 +269,7 @@ class InferenceSession:
         if choice == "fastpath":
             # The JAX package's choice of upsample form: matmul +
             # depth-to-space for unet_light, conv-transpose for unet_skip.
-            mm = self.model.decoder_arch != "unet_skip"
+            mm = getattr(self.model, "decoder_arch", None) != "unet_skip"
             with torch.no_grad():
                 weights = optimize_for_inference(
                     self.model, dtype=self.dtype, upsample="matmul" if mm else "ct")

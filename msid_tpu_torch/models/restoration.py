@@ -234,14 +234,34 @@ class SatMAERestoration(nn.Module):
         return model.set_compute_dtype(dtype).to(device)
 
 
+RESTORERS = ("satmae", "restormer")
+
+
+def restorer_from_config(config: dict, dtype: torch.dtype = torch.float32,
+                         device: str | torch.device = "cuda") -> nn.Module:
+    """The restorer that ``model.architecture`` names (``RESTORERS``;
+    ``"satmae"`` when the key is absent), built from the configuration on
+    ``device``, computing in ``dtype``: ``SatMAERestoration`` or
+    ``RestormerRestoration`` (``models/restormer.py``)."""
+    arch = str(config["model"].get("architecture", "satmae"))
+    if arch == "satmae":
+        return SatMAERestoration.from_config(config, dtype=dtype, device=device)
+    if arch == "restormer":
+        from msid_tpu_torch.models.restormer import RestormerRestoration
+
+        return RestormerRestoration.from_config(config, dtype=dtype, device=device)
+    raise ValueError(f"model.architecture must be one of {RESTORERS}, got {arch!r}")
+
+
 def count_parameters(model: nn.Module) -> dict:
-    """Per-submodule parameter breakdown: encoder, decoder, total, other."""
+    """Parameters by submodule: ``encoder`` and ``decoder`` where the model
+    has them, ``total``, and ``other`` for the rest where that is not 0."""
     def _count(module) -> int:
         return sum(p.numel() for p in module.parameters())
 
-    encoder, decoder, total = _count(model.encoder), _count(model.decoder), _count(model)
-    out = {"encoder": encoder, "decoder": decoder, "total": total}
-    if total - encoder - decoder:
-        out["other"] = total - encoder - decoder
-    return out
+    total = _count(model)
+    out = {k: _count(getattr(model, k)) for k in ("encoder", "decoder") if hasattr(model, k)}
+    if out and total - sum(out.values()):
+        out["other"] = total - sum(out.values())
+    return {**out, "total": total}
 

@@ -89,25 +89,29 @@ def estimate_memory(config: dict, num_params: int) -> dict:
 
 def create_model_from_config(config: dict, seed: int = 0,
                              device: str | torch.device = "cuda"):
-    """``(model, param_counts)``: fp32 parameters initialized on the CPU
-    from ``seed`` (the global RNG is left as it was), then moved to
-    ``device``."""
+    """``(model, param_counts)``: the restorer ``model.architecture`` names
+    (``models.restoration.restorer_from_config``), fp32 parameters
+    initialized on the CPU from ``seed`` (the global RNG is left as it
+    was), then moved to ``device``. The training-memory estimate is logged
+    for the SatMAE restorer only (it counts ViT activations)."""
     from msid_tpu_torch.models.restoration import (
-        SatMAERestoration,
         count_parameters,
         resolve_device,
+        restorer_from_config,
     )
 
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = SatMAERestoration.from_config(config, device="cpu")
+        model = restorer_from_config(config, device="cpu")
     model.to(device)
     counts = count_parameters(model)
-    mem = estimate_memory(config, counts["total"])
-    logger.info("model: encoder=%.1fM decoder=%.1fM total=%.1fM params, "
-                "est. training memory %.2f GB", counts["encoder"] / 1e6,
-                counts["decoder"] / 1e6, counts["total"] / 1e6, mem["total_gb"])
+    parts = "".join(f"{k}={n / 1e6:.1f}M " for k, n in counts.items() if k != "total")
+    memory = ""
+    if config["model"].get("architecture", "satmae") == "satmae":
+        memory = f", est. training memory {estimate_memory(config, counts['total'])['total_gb']:.2f} GB"
+    logger.info("model: %s %stotal=%.1fM params%s", type(model).__name__, parts,
+                counts["total"] / 1e6, memory)
     return model, counts
 
 

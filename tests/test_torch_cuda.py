@@ -512,6 +512,42 @@ def test_scene_paths_agree_and_replay_their_eager_step_on_the_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_restormer_is_served_and_restores_scenes_through_its_module_forward_on_the_card(dtype):
+    """Restormer at its published widths on the card: a session and a device
+    scene step each capture its module forward (no block kernel: the folded
+    graphs refuse it), replay what they captured bit for bit, and in fp32
+    the scene is within 1e-4 of the same restore on the CPU."""
+    need_card()
+    from msid_tpu_torch.deployment import sliding_window as sw
+    from msid_tpu_torch.deployment.inference import InferenceSession
+    from msid_tpu_torch.models.restormer import RestormerRestoration
+
+    torch.manual_seed(7)
+    model = RestormerRestoration().eval().set_compute_dtype(dtype).cuda()
+    session = InferenceSession(model, batch_size=2, image_size=64)
+    assert session.compiled == "cuda_graph" and session.optimized is False
+    assert session.captured_launches == 0
+    x = np.random.default_rng(2).normal(-1, 0.5, (2, 64, 64, 13)).astype(np.float32)
+    xd = torch.from_numpy(x).cuda()
+    got = session.predict(x)
+    want = session.forward_eager(xd)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    scene = np.random.default_rng(5).integers(500, 4000, (80, 100, 13), dtype=np.uint16)
+    kw = dict(window=32, overlap=8, model_size=32, batch_size=4)
+    step = sw.make_device_scene_step(model, None, 32, 32, 8)
+    dev = sw.restore_scene(None, None, scene, step=step, device_assembly=True, **kw)
+    assert step.compiled == "cuda_graph" and step.captured_launches == 0
+    batch = torch.from_numpy(scene[None, :32, :32]).repeat(4, 1, 1, 1).cuda()
+    assert torch.equal(step.run(batch).clone(), step._raw(batch))
+    if dtype == torch.float32:
+        cpu = sw.restore_scene(model.cpu(), None, scene, device_assembly=True, device="cpu",
+                               **kw)
+        np.testing.assert_allclose(dev, cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_a_band_major_scene_restores_as_its_contiguous_copy_on_the_card():
     """The flagship (``long_skip_fill.yaml``) in bf16 through one captured
     device step: a band-major 1000x1111x13 uint16 scene, uploaded as it lies
