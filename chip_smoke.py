@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``msid_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase, the result lines
-    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also widths, noise, norm, probe, hybrid,
+    python3 chip_smoke.py kernel kernel_fp32   # those phases alone (also widths, noise, norm, layernorm,
+                                               # probe, hybrid,
                                                # scene, train, data_cache, export,
                                                # decoders, perceptual, pretrained,
                                                # parallel, nccl_shared, examples),
@@ -11,9 +12,9 @@
 From the repository root, on a machine with a CUDA card, ``nvcc`` and no
 network. Phases, each of which must pass:
 
-1. build: compile the five sources of ``msid_tpu_torch/csrc/`` (resblock,
+1. build: compile the six sources of ``msid_tpu_torch/csrc/`` (resblock,
    which holds K1 and K3 and includes ``hopper_common.cuh``; noise,
-   resblock_fp32, any_dma, batchnorm) for sm_90a, one ``nvcc`` per source (eleven for
+   resblock_fp32, any_dma, batchnorm, layernorm) for sm_90a, one ``nvcc`` per source (eleven for
    resblock, one per padded width), started together, with each build's
    seconds;
 2. kernel: the fused ResidualBlock kernel (K1, wgmma) against its plain
@@ -230,7 +231,21 @@ network. Phases, each of which must pass:
    the largest), six launches a step, two steps bit-equal; the forward's
    and the backward's device time (a CUDA graph of their launches) beside
    the composition's and the bytes bound (x read and y written;
-   x and dy read and dx written).
+   x and dy read and dx written);
+21. layernorm (run after norm): Restormer's bias-free LayerNorm kernel
+   (N2, ``ops/cuda_layernorm.py``) at the norm shape of each of the eight
+   levels of a B=8 batch of 512-px windows (bf16 and fp32, channels-last)
+   against its plain version (``bias_free_norm_plain`` in
+   ``models/restormer.py``): bf16 within 2^-5 of the value, fp32 within
+   1e-5 (plus 1e-7 of the largest), one launch a call, two calls
+   bit-equal; its device time (a CUDA graph of launches) beside the plain
+   version's, ``F.layer_norm``'s (the library yardstick, which the port
+   never calls), a copy of x and the bytes bound (x read and y written
+   once), each once a shape and summed over the 88 norms of one forward;
+   then Restormer at its published widths (``restormer_s2.yaml``, bf16)
+   restores a 1830x1830 scene twice through one device scene step at B=8
+   and 512-px windows: 88 N2 launches at each forward of the capture
+   (two warmups and the capture), none at a replay, restores bit-equal.
 
 A launch count in the kernels line is a count of device launches.
 ``ops/_build.py`` counts the device kernels of every launch
@@ -243,7 +258,7 @@ plus the capture's for every replay.
 The fp32 phases run with torch's TF32 flags as they are: the port turns
 TF32 off around its own fp32 forwards and steps, and this script around
 the fp32 plain versions and library yardsticks it computes itself. The
-last lines are the kernels JSON line (K1 to K5 and N1, with their
+last lines are the kernels JSON line (K1 to K5, N1 and N2, with their
 launches on each path), the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that last line; so does a machine with no card, or a
@@ -292,7 +307,8 @@ MAX_REL_RMS = 2e-2               # bf16 GPU forward vs fp32 CPU forward
 RESBLOCK_BUILDS = (768, 512, 384, 256, 192, 128, 96, 64, 48, 32, 16)
 # csrc/<name>.cu with its -D defines, built in parallel, the longest first
 KERNELS = tuple(("resblock", (f"MSID_C={c}",)) for c in RESBLOCK_BUILDS) + (
-    ("noise", ()), ("resblock_fp32", ()), ("any_dma", ()), ("batchnorm", ()))
+    ("noise", ()), ("resblock_fp32", ()), ("any_dma", ()), ("batchnorm", ()),
+    ("layernorm", ()))
 # K4 against its plain version (cuDNN fp32, TF32 off): both fp32, sums in
 # another order over K = 9C.
 FP32_SHAPES = SHAPES + ((8, 64), (24, 16))
@@ -328,13 +344,19 @@ ENTRIES = {"resblock": ("msid_resblock_forward",),
            "resblock_fp32": ("msid_resblock_fp32_forward",),
            "resblock_v2": ("msid_resblock_v2_forward",), "noise": ("msid_noise_forward",),
            "any_dma": ("msid_any_dma_scale",),
-           "batchnorm": ("msid_bn_forward", "msid_bn_backward")}
+           "batchnorm": ("msid_bn_forward", "msid_bn_backward"),
+           "layernorm": ("msid_bias_free_norm",)}
 # N1 at the flagship's train-mode norms (C, H=W): the input pyramid's 32 at 192..24,
 # then the decoder's stages
 NORM_SHAPES = ((32, 192), (32, 96), (32, 48), (32, 24), (384, 24), (192, 48), (96, 96),
                (48, 192))
 NORM_BATCH = 64
 NORM_GRAPH_LAUNCHES = 10          # N1's device time: forwards or backwards a graph
+# N2 at Restormer's norms (``norm_shapes`` of the preset at 512 px), at the
+# scene cell's batch; its scene path at the cell's window, overlap and scene side
+LN_BATCH = 8
+LN_WINDOW, LN_OVERLAP, LN_SCENE = 512, 32, 1830
+RESTORMER_CONFIG = ROOT / "configs" / "experiments" / "restormer_s2.yaml"
 PROFILE_SESSIONS = 3              # profiler sessions per measurement; the most complete is kept
 SKIP_CONFIG = ROOT / "configs" / "experiments" / "long_skip.yaml"   # full width, no fill
 HYBRID_BATCHES = (1, 16, 128)
@@ -1252,6 +1274,137 @@ def phase_norm(torch, failures: list) -> dict:
         del norm, x, dy, xr, y, stats, got, again, want, composition
         torch.cuda.empty_cache()
     return {"rows": rows, "launches": launched("batchnorm")}
+
+
+def layernorm_case(torch, c: int, side: int, dtype, seed: int, batch: int = LN_BATCH):
+    """x (each pixel's channels around a mean and a spread of their own) and
+    w in ``dtype``, x channels-last ``[batch, c, side, side]`` on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mean = torch.randn(batch, 1, side, side, device="cuda", generator=g)
+    spread = 0.5 + torch.rand(batch, 1, side, side, device="cuda", generator=g)
+    x = torch.randn(batch, c, side, side, device="cuda", generator=g) * spread + mean
+    w = torch.rand(c, device="cuda", generator=g) + 0.5
+    return x.to(dtype).contiguous(memory_format=torch.channels_last), w.to(dtype)
+
+
+def layernorm_within(got, want, bf16: bool) -> bool:
+    """bf16: the composition rounds three times and the kernel once, each
+    within 2^-8 of the value, so 2^-6 apart at most: 2^-5; fp32: the
+    variance's order of sums and rsqrt's last bits, 1e-5 (plus 1e-7 of the
+    largest, for an underflow)."""
+    got, want = got.float(), want.float()
+    bound = (2.0 ** -5 if bf16 else 1e-5) * want.abs() + 1e-7 * want.abs().max()
+    return bool(((got - want).abs() <= bound).all() and got.isfinite().all())
+
+
+def layernorm_scene(torch, failures: list) -> dict:
+    """Restormer at its published widths (``restormer_s2.yaml``, bf16)
+    restores a 1830x1830x13 uint16 scene twice through one device scene
+    step at the scene cell's B=8 and 512-px windows: N2 launches 88 times a
+    forward at the step's warmups and capture, none at a replay, and the
+    two restores are bit-equal."""
+    from msid_tpu_torch.deployment import sliding_window as sw
+    from msid_tpu_torch.deployment.inference import CAPTURE_WARMUP
+    from msid_tpu_torch.models.restoration import restorer_from_config
+    from msid_tpu_torch.utils.config import load_config
+
+    torch.manual_seed(0)
+    model = restorer_from_config(load_config(RESTORMER_CONFIG), dtype=torch.bfloat16,
+                                 device="cuda").eval()
+    norms = sum(n for _, _, n in model.norm_shapes(LN_WINDOW))
+    scene = np.random.default_rng(6).integers(500, 4000, (LN_SCENE, LN_SCENE, 13),
+                                              dtype=np.uint16)
+    kw = dict(window=LN_WINDOW, overlap=LN_OVERLAP, model_size=LN_WINDOW,
+              batch_size=LN_BATCH)
+    clear_launches()
+    step = sw.make_device_scene_step(model, None, LN_WINDOW, LN_WINDOW, LN_OVERLAP)
+    del model
+    first = sw.restore_scene(None, None, scene, step=step, device_assembly=True, **kw)
+    at_capture, replays = launched("layernorm"), step.replays
+    again = sw.restore_scene(None, None, scene, step=step, device_assembly=True, **kw)
+    torch.cuda.synchronize()
+    out = {"check": "layernorm_scene", "config": str(RESTORMER_CONFIG.relative_to(ROOT)),
+           "scene": [LN_SCENE, LN_SCENE, 13], "window": LN_WINDOW, "overlap": LN_OVERLAP,
+           "batch_size": LN_BATCH, "norms": norms, "compiled": step.compiled,
+           "captured_launches": step.captured_launches, "forwards_at_capture": CAPTURE_WARMUP + 1,
+           "launches_at_capture": at_capture, "replays": step.replays - replays,
+           "launches_at_replays": launched("layernorm") - at_capture,
+           "repeat_equal": bool(np.array_equal(first, again)),
+           "finite": bool(np.isfinite(first).all())}
+    emit(out)
+    if not (norms == 88 and step.compiled == "cuda_graph" and step.captured_launches == norms
+            and at_capture == norms * (CAPTURE_WARMUP + 1) and out["replays"] > 0
+            and out["launches_at_replays"] == 0 and out["repeat_equal"] and out["finite"]):
+        failures.append(f"layernorm_scene: not 88 N2 launches a captured forward and none "
+                        f"at a replay, or the restores differ: {out}")
+    return out
+
+
+def phase_layernorm(torch, F, failures: list) -> dict:
+    """N2 against its plain version (``bias_free_norm_plain``) at each
+    level's norm shape of a B=8 batch of 512-px windows, in bf16 and fp32,
+    the first launch a small one synchronised on its own; in bf16 its
+    device time beside the plain version's, ``F.layer_norm``'s and the
+    bytes bound; then N2's launches on Restormer's scene path
+    (``layernorm_scene``)."""
+    from msid_tpu_torch.models.restormer import LN_EPS, RestormerRestoration, bias_free_norm_plain
+    from msid_tpu_torch.ops import cuda_layernorm
+
+    with torch.device("meta"):
+        levels = RestormerRestoration().norm_shapes(LN_WINDOW)
+
+    def kernel(x, w):
+        return cuda_layernorm.bias_free_norm(x, w, LN_EPS)
+
+    x, w = layernorm_case(torch, 48, 8, torch.bfloat16, seed=1, batch=1)
+    got = kernel(x, w)
+    torch.cuda.synchronize()
+    if not layernorm_within(got, bias_free_norm_plain(x, w), True):
+        failures.append("layernorm [1,48,8,8]: disagrees with the composition")
+    clear_launches()
+    rows = []
+    for c, side, _ in dict.fromkeys(levels):
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            x, w = layernorm_case(torch, c, side, dtype, seed=c + side)
+            before = launched("layernorm")
+            got = kernel(x, w)
+            launches = launched("layernorm") - before
+            want = bias_free_norm_plain(x, w)
+            ok = (layernorm_within(got, want, bf16)
+                  and torch.equal(got, kernel(x, w)) and launches == 1
+                  and got.is_contiguous(memory_format=torch.channels_last))
+            row = {"check": "layernorm", "B": LN_BATCH, "C": c, "H": side, "W": side,
+                   "dtype": str(dtype).replace("torch.", ""), "launches": launches,
+                   "max_abs_err": float((got.float() - want.float()).abs().max()),
+                   "ok": ok}
+            if bf16:
+                xv = x.permute(0, 2, 3, 1)
+                row["ms"] = graph_ms(torch, lambda: kernel(x, w), launches=NORM_GRAPH_LAUNCHES)
+                row["plain_ms"] = graph_ms(torch, lambda: bias_free_norm_plain(x, w),
+                                           launches=NORM_GRAPH_LAUNCHES)
+                row["library_ms"] = graph_ms(torch, lambda: F.layer_norm(xv, (c,), w),
+                                             launches=NORM_GRAPH_LAUNCHES)
+                row["copy_ms"] = graph_ms(torch, lambda: x.clone(), launches=NORM_GRAPH_LAUNCHES)
+                row["bound_ms"] = 2 * x.element_size() * x.numel() / PEAK_HBM_BYTES * 1e3
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            emit(row)
+            rows.append(row)
+            if not ok:
+                failures.append(f"layernorm C={c} H={side} B={LN_BATCH} {dtype}: outside "
+                                f"the tolerance, not bit-equal twice, or {launches} launches")
+            del x, w, got, want
+            torch.cuda.empty_cache()
+    timed = {(r["C"], r["H"]): r for r in rows if "ms" in r}
+    keys = ("ms", "plain_ms", "library_ms", "copy_ms", "bound_ms")
+    shapes = {k: sum(timed[c, s][k] for c, s, _ in levels) for k in keys}
+    forward = {k: sum(n * timed[c, s][k] for c, s, n in levels) for k in keys}
+    norms = sum(n for _, _, n in levels)
+    out = {"rows": rows, "launches": launched("layernorm"), "shapes": shapes,
+           "forward": forward, "norms": norms, "levels": len(levels)}
+    emit({"check": "layernorm_summary", **{k: v for k, v in out.items() if k != "rows"}})
+    out["scene"] = layernorm_scene(torch, failures)
+    return out
 
 
 def train_batch(bands: int, b: int, seed: int) -> np.ndarray:
@@ -3653,6 +3806,7 @@ def main() -> int:
                    "widths": lambda: phase_widths(torch, F, failures, card),
                    "noise": lambda: phase_noise(torch, failures),
                    "norm": lambda: phase_norm(torch, failures),
+                   "layernorm": lambda: phase_layernorm(torch, F, failures),
                    "probe": lambda: phase_probe(torch, F, failures),
                    "hybrid": lambda: phase_hybrid(torch, failures, card),
                    "scene": lambda: phase_scene(torch, failures, card),
@@ -3690,6 +3844,7 @@ def main() -> int:
     widths = timed("widths", phase_widths, torch, F, failures, card)
     noise = timed("noise", phase_noise, torch, failures)
     norm = timed("norm", phase_norm, torch, failures)
+    layernorm = timed("layernorm", phase_layernorm, torch, F, failures)
     serve, reference = timed("serve", phase_serve, torch, failures, card)
     serve_fp32 = timed("serve_fp32", phase_serve_fp32, torch, failures, card, reference)
     scene = timed("scene", phase_scene, torch, failures, card)
@@ -3747,6 +3902,8 @@ def main() -> int:
                     "widths": widths["launches"]["resblock_fp32"]}
     norm_by_path = {"norm": norm["launches"], "train": train["launches"]["batchnorm"],
                     "examples": examples["launches"]["batchnorm"]}
+    layernorm_by_path = {"layernorm": layernorm["launches"],
+                         "scene": layernorm["scene"]["launches_at_capture"]}
     v2_by_path = {"probe": probe["launches"]["resblock_v2"]}
     any_dma_by_path = {"probe": probe["launches"]["any_dma"]}
     k3 = per_forward(probe["k3"])
@@ -3762,6 +3919,7 @@ def main() -> int:
              [p for p in fp32_by_path if p != "examples"]),
             ("fused_residual_block_v2", v2_by_path, v2_by_path),
             ("batch_norm_train", norm_by_path, norm_by_path),
+            ("bias_free_norm", layernorm_by_path, layernorm_by_path),
             ("any_dma_scale", any_dma_by_path, any_dma_by_path)):
         if not all(by_path[p] > 0 for p in paths):
             failures.append(f"{name}: a path launched it no time: {by_path}")
@@ -3909,6 +4067,27 @@ def main() -> int:
                                            r["plain_ms"]] for r in norm["rows"]},
         "stages_columns": ["forward_ms", "backward_ms", "bound_forward_ms",
                            "bound_backward_ms", "plain_ms"],
+    }, {
+        "name": "bias_free_norm",
+        "route": "cuda",
+        "source": "msid_tpu_torch/csrc/layernorm.cu",
+        "replaces": "none: Restormer's bias-free LayerNorm composition "
+                    "(msid_tpu_torch/models/restormer.py); the JAX package has no Restormer",
+        "launches": sum(layernorm_by_path.values()),
+        "launches_by_path": layernorm_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in layernorm["rows"]),
+        **layernorm["shapes"],
+        "bound_by": "bytes",
+        "library": "F.layer_norm over the channels (centring, no bias), never called by "
+                   "the port; copy_ms: x.clone(), the same bytes read and written",
+        "timing": f"device time a launch in a CUDA graph of {NORM_GRAPH_LAUNCHES}, bf16",
+        "per": f"one launch at the norm shape of each of the {layernorm['levels']} levels "
+               f"of a B={LN_BATCH} batch of 512-px windows",
+        "scene": {k: layernorm["scene"][k] for k in (
+            "captured_launches", "forwards_at_capture", "launches_at_capture", "replays",
+            "launches_at_replays")},
+        "forward": dict(layernorm["forward"],
+                        per=f"the {layernorm['norms']} norms of one B={LN_BATCH} forward"),
     }]})
     if failures:
         for f in failures:

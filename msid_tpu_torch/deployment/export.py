@@ -26,6 +26,9 @@ what is done about each:
     ``msid::fused_residual_block`` (``ops/cuda_decoder.py``) with its
     operands made by graph ops, one node per batch-norm block, which
     launches K1 (bf16) or K4 (fp32) when the program runs on the card.
+    Restormer's LayerNorm is the operator ``msid::bias_free_norm``
+    (``ops/cuda_layernorm.py``) on the card, one node per norm, which
+    launches N2.
   * **fp32 would stop being fp32.** ``exact_fp32`` sets process-wide TF32
     flags, which a trace does not record; ``load_exported``'s callable runs
     an fp32 program inside ``exact_fp32`` itself.
@@ -54,6 +57,7 @@ from torch.func import functional_call
 from msid_tpu_torch.models.blocks import sharing_weight_operands
 from msid_tpu_torch.models.restoration import exact_fp32, resolve_device
 from msid_tpu_torch.ops import cuda_decoder  # noqa: F401  registers msid::fused_residual_block
+from msid_tpu_torch.ops import cuda_layernorm  # noqa: F401  registers msid::bias_free_norm
 from msid_tpu_torch.ops.tta import wrap_forward
 
 logger = logging.getLogger(__name__)

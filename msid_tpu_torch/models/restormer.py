@@ -30,7 +30,8 @@ temperature per head (the reduction runs over every pixel), ``A v``, a 1x1
 No conv has a bias.
 
 Plain torch operations on channels-last memory: the 1x1 and 3x3 convs,
-the depthwise convs and the pixel shuffles are cuDNN's and PyTorch's. The
+the depthwise convs and the pixel shuffles are cuDNN's and PyTorch's; on a
+card the LayerNorm is the port's kernel N2 (``bias_free_norm``). The
 LayerNorm's variance and the L2 norms accumulate in float32; everything
 else computes in the model's dtype (``set_compute_dtype``). Spans:
 ``msid.restormer.mdta`` and ``msid.restormer.gdfn`` around each block's
@@ -48,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from msid_tpu_torch.models.restoration import exact_fp32, resolve_device
+from msid_tpu_torch.ops import cuda_layernorm
 from msid_tpu_torch.utils.profiling import annotate
 
 LN_EPS = 1e-5
@@ -61,7 +63,20 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
 
 def bias_free_norm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """``x / sqrt(var_c(x) + eps) * w`` over the channels of each pixel of a
-    channels-last ``[B, C, H, W]``, the variance in float32."""
+    channels-last ``[B, C, H, W]``, the variance in float32.
+
+    On a card it is the kernel N2 (``ops/cuda_layernorm.py``), one pass
+    over x, as the operator ``msid::bias_free_norm``: it raises on a tensor
+    it cannot read, stays one node in an exported program, and has a
+    closed-form backward. On the CPU it is ``bias_free_norm_plain``."""
+    if x.device.type == "cuda":
+        return cuda_layernorm.bias_free_norm_op(x, weight, LN_EPS)
+    return bias_free_norm_plain(x, weight)
+
+
+def bias_free_norm_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The LayerNorm as PyTorch passes: an fp32 variance, its rsqrt in x's
+    dtype, two multiplies in x's dtype (N2's plain version)."""
     y = x.permute(0, 2, 3, 1)                                 # [B, H, W, C] view
     var = y.float().var(dim=-1, keepdim=True, correction=0)
     return (y * torch.rsqrt(var + LN_EPS).to(x.dtype) * weight).permute(0, 3, 1, 2)
@@ -214,6 +229,15 @@ class RestormerRestoration(nn.Module):
         if torch.is_autocast_enabled(device_type):
             return torch.get_autocast_dtype(device_type)
         return self.dtype
+
+    def norm_shapes(self, side: int) -> list[tuple[int, int, int]]:
+        """``(C, side, norms)`` of each level's LayerNorms in a forward over
+        ``side`` x ``side`` tiles, in the forward's order: two norms a block."""
+        levels = ((self.encoder_level1, 1), (self.encoder_level2, 2), (self.encoder_level3, 4),
+                  (self.latent, 8), (self.decoder_level3, 4), (self.decoder_level2, 2),
+                  (self.decoder_level1, 1), (self.refinement, 1))
+        return [(blocks[0].norm1.weight.shape[0], side // scale, 2 * len(blocks))
+                for blocks, scale in levels]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape

@@ -45,7 +45,7 @@ def test_the_bf16_resblocks_share_one_header():
         assert f" {name}(" in source or f"\n    {name}(" in source
     assert not (_build.CSRC / "resblock_v2.cu").exists()
     assert _build.sources("noise") == [_build.CSRC / "noise.cu", launch]
-    for name in ("resblock_fp32", "any_dma"):
+    for name in ("resblock_fp32", "any_dma", "batchnorm", "layernorm"):
         assert _build.sources(name) == [_build.CSRC / f"{name}.cu", launch]
 
 
@@ -232,7 +232,8 @@ def test_every_launch_goes_through_the_one_path():
     launching = _launching_entries()
     assert launching == {"msid_resblock_forward", "msid_resblock_v2_forward",
                          "msid_resblock_fp32_forward", "msid_noise_forward",
-                         "msid_any_dma_scale", "msid_bn_forward", "msid_bn_backward"}
+                         "msid_any_dma_scale", "msid_bn_forward", "msid_bn_backward",
+                         "msid_bias_free_norm"}
     package = _build.CSRC.parent
     bound, launched = set(), set()
     for path in sorted(package.rglob("*.py")):

@@ -14,6 +14,7 @@ import torch
 
 from msid_tpu_torch.models.blocks import ResidualBlock
 from msid_tpu_torch.models.restoration import exact_fp32
+from msid_tpu_torch.models.restormer import LN_EPS, RestormerRestoration, bias_free_norm_plain
 from msid_tpu_torch.ops import _build, cuda_decoder, cuda_probe
 from msid_tpu_torch.ops.cuda_decoder import (
     fold_batchnorm,
@@ -516,18 +517,18 @@ def test_scene_paths_agree_and_replay_their_eager_step_on_the_card(dtype):
 def test_restormer_is_served_and_restores_scenes_through_its_module_forward_on_the_card(dtype):
     """Restormer at its published widths on the card: a session and a device
     scene step each capture its module forward (no block kernel: the folded
-    graphs refuse it), replay what they captured bit for bit, and in fp32
-    the scene is within 1e-4 of the same restore on the CPU."""
+    graphs refuse it; N2 at each of its 88 norms, one forward a capture),
+    replay what they captured bit for bit, and in fp32 the scene is within
+    1e-4 of the same restore on the CPU."""
     need_card()
     from msid_tpu_torch.deployment import sliding_window as sw
     from msid_tpu_torch.deployment.inference import InferenceSession
-    from msid_tpu_torch.models.restormer import RestormerRestoration
 
     torch.manual_seed(7)
     model = RestormerRestoration().eval().set_compute_dtype(dtype).cuda()
     session = InferenceSession(model, batch_size=2, image_size=64)
     assert session.compiled == "cuda_graph" and session.optimized is False
-    assert session.captured_launches == 0
+    assert session.captured_launches == RESTORMER_NORMS
     x = np.random.default_rng(2).normal(-1, 0.5, (2, 64, 64, 13)).astype(np.float32)
     xd = torch.from_numpy(x).cuda()
     got = session.predict(x)
@@ -538,13 +539,270 @@ def test_restormer_is_served_and_restores_scenes_through_its_module_forward_on_t
     kw = dict(window=32, overlap=8, model_size=32, batch_size=4)
     step = sw.make_device_scene_step(model, None, 32, 32, 8)
     dev = sw.restore_scene(None, None, scene, step=step, device_assembly=True, **kw)
-    assert step.compiled == "cuda_graph" and step.captured_launches == 0
+    assert step.compiled == "cuda_graph" and step.captured_launches == RESTORMER_NORMS
     batch = torch.from_numpy(scene[None, :32, :32]).repeat(4, 1, 1, 1).cuda()
     assert torch.equal(step.run(batch).clone(), step._raw(batch))
     if dtype == torch.float32:
         cpu = sw.restore_scene(model.cpu(), None, scene, device_assembly=True, device="cpu",
                                **kw)
         np.testing.assert_allclose(dev, cpu, rtol=1e-4, atol=1e-4)
+
+
+RESTORMER_NORMS = 88   # two bias-free LayerNorms in each of the preset's 44 blocks
+with torch.device("meta"):
+    # (C, H=W) of the norms of each level of a 512-px window of the preset
+    N2_LEVELS = [(c, side) for c, side, _ in RestormerRestoration().norm_shapes(512)]
+N2_BATCH = 8           # the scene cell's window batch
+
+
+def n2_case(c: int, side: int, dtype, seed: int, batch: int = N2_BATCH, loc: float = 0.0):
+    """x, channels-last ``[batch, c, side, side]`` in ``dtype`` on the card,
+    each pixel's channels around a mean of its own (``loc`` plus a standard
+    normal) with a spread of its own, and w in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mean = loc + torch.randn(batch, 1, side, side, device="cuda", generator=g)
+    spread = 0.5 + torch.rand(batch, 1, side, side, device="cuda", generator=g)
+    x = torch.randn(batch, c, side, side, device="cuda", generator=g) * spread + mean
+    w = torch.rand(c, device="cuda", generator=g) + 0.5
+    return x.to(dtype).contiguous(memory_format=torch.channels_last), w.to(dtype)
+
+
+def n2_exact(x, w):
+    """The same rows evaluated in float64 from x's and w's values."""
+    y = x.double().permute(0, 2, 3, 1)
+    var = y.var(dim=-1, keepdim=True, correction=0)
+    return (y * torch.rsqrt(var + LN_EPS) * w.double()).permute(0, 3, 1, 2)
+
+
+# x's and w's dtypes: the scene cell's bf16, the fp32 path, and bf16 x with
+# fp32 w (an fp32 model under bf16 autocast, as the eval step runs it)
+N2_KINDS = {"bf16": (torch.bfloat16, torch.bfloat16), "fp32": (torch.float32, torch.float32),
+            "bf16_x_fp32_w": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(N2_KINDS))
+@pytest.mark.parametrize("c,side", sorted(set(N2_LEVELS)))
+def test_n2_matches_the_composition_at_every_level(c, side, kind):
+    """N2 against the composition at each width and side of a 512-px
+    window's levels, B=8, one launch, channels-last out in the dtype torch
+    promotes x's and w's to. fp32: the same fp32 arithmetic but for the
+    variance's order of sums and rsqrt's last bits, so 1e-5 relative (1e-7
+    of the largest for a product that underflows). A bf16 x: the
+    composition rounds up to three times to bf16 (rsqrt, then each bf16
+    product), the kernel at most once, each rounding within 2^-8 of the
+    value (8 bits of precision): within 2^-6 of each other, and 2^-5 leaves
+    twice that."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_layernorm
+
+    x_dtype, w_dtype = N2_KINDS[kind]
+    x, w = n2_case(c, side, x_dtype, seed=c + side)
+    w = w.to(w_dtype)
+    before = _build.launched.copy()
+    got = cuda_layernorm.bias_free_norm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert since(before) == {"msid_bias_free_norm": 1}
+    want = bias_free_norm_plain(x, w)
+    assert got.dtype == want.dtype == torch.promote_types(x_dtype, w_dtype)
+    assert got.shape == x.shape and got.is_contiguous(memory_format=torch.channels_last)
+    rel = 2.0 ** -5 if x_dtype == torch.bfloat16 else 1e-5
+    err = (got.float() - want.float()).abs()
+    bound = rel * want.float().abs() + 1e-7 * want.float().abs().max()
+    assert bool((err <= bound).all()), float((err / want.float().abs().clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,side", [(48, 512), (384, 64)])
+def test_n2_bf16_error_is_no_larger_than_the_compositions(c, side):
+    """Against a float64 evaluation of the same bf16 rows, N2 (one rounding)
+    is no further off than the composition (three), in RMS and at worst."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_layernorm
+
+    x, w = n2_case(c, side, torch.bfloat16, seed=3 * c)
+    exact = n2_exact(x, w)
+    kernel = (cuda_layernorm.bias_free_norm(x, w, 1e-5).double() - exact).abs()
+    plain = (bias_free_norm_plain(x, w).double() - exact).abs()
+    assert float(kernel.pow(2).mean()) <= float(plain.pow(2).mean())
+    assert float(kernel.max()) <= float(plain.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,side", [(48, 512), (384, 64)])
+def test_n2_is_deterministic(c, side):
+    """No atomics, a fixed order of shuffles: two calls give the same bits."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_layernorm
+
+    x, w = n2_case(c, side, torch.bfloat16, seed=c)
+    assert torch.equal(cuda_layernorm.bias_free_norm(x, w, 1e-5),
+                       cuda_layernorm.bias_free_norm(x, w, 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [48, 384])
+def test_n2_holds_rows_whose_mean_is_far_above_their_spread(c):
+    """fp32 rows at a mean of 1e3 times their spread: the variance about the
+    row's own mean (two passes) keeps N2 within 1e-5 of a float64
+    evaluation, where E[x^2] - E[x]^2 in fp32 would lose most of it."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_layernorm
+
+    x, w = n2_case(c, 32, torch.float32, seed=c, loc=1e3)
+    exact = n2_exact(x, w)
+    got = cuda_layernorm.bias_free_norm(x, w, 1e-5).double()
+    err = (got - exact).abs()
+    assert bool((err <= 1e-5 * exact.abs() + 1e-7 * exact.abs().max()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nchw", "width", "fp16"])
+def test_n2_refuses_a_tensor_it_cannot_read_on_the_card(case):
+    """A contiguous NCHW tensor, a width with no instance and an fp16 tensor
+    each raise before any launch: no copy, no silent composition."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_layernorm
+
+    x, w = n2_case(48, 16, torch.bfloat16, seed=1)
+    if case == "nchw":
+        x = x.contiguous()
+    elif case == "width":
+        x, w = n2_case(64, 16, torch.bfloat16, seed=1)
+    else:
+        x, w = x.half(), w.half()
+    before = _build.launched.copy()
+    with pytest.raises(ValueError):
+        cuda_layernorm.bias_free_norm(x, w, 1e-5)
+    assert since(before) == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,side", [(48, 64), (384, 16)])
+def test_n2_backward_is_the_compositions_gradient(c, side):
+    """The operator's backward (the closed form in float32) against autograd
+    through the composition in float64, on fp32 rows around a mean of 10:
+    dx and dw within 1e-5 of their largest, one N2 launch for the forward."""
+    need_card()
+    from msid_tpu_torch.ops import cuda_layernorm
+
+    x, w = n2_case(c, side, torch.float32, seed=5 * c, batch=2, loc=10.0)
+    dy = torch.randn(x.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(c))
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = _build.launched.copy()
+    y = cuda_layernorm.bias_free_norm_op(xr, wr, LN_EPS)
+    dx, dw = torch.autograd.grad(y, (xr, wr), dy)
+    assert since(before) == {"msid_bias_free_norm": 1}
+    x64, w64 = x.double().requires_grad_(), w.double().requires_grad_()
+    want_dx, want_dw = torch.autograd.grad(n2_exact(x64, w64), (x64, w64), dy.double())
+    for got, want in ((dx, want_dx), (dw, want_dw)):
+        assert got.dtype == torch.float32
+        assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def restormer_on_card(dtype, seed: int = 7):
+    torch.manual_seed(seed)
+    return RestormerRestoration().eval().set_compute_dtype(dtype).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,autocast", [(torch.bfloat16, False), (torch.float32, False),
+                                            (torch.float32, True)])
+def test_every_restormer_norm_reaches_n2_and_a_replay_launches_none(dtype, autocast,
+                                                                    monkeypatch):
+    """A forward at the published widths calls ``bias_free_norm`` 88 times
+    and N2 launches 88 times (so no norm input is anything but
+    channels-last: N2 raises on one), at an eager call and at a capture, in
+    bf16, in fp32 and for fp32 weights under bf16 autocast (bf16 x, fp32
+    w); a replay moves no count, and replays the eager output bit for bit."""
+    need_card()
+    from msid_tpu_torch.deployment.inference import CapturedForward
+    from msid_tpu_torch.models import restormer
+
+    model = restormer_on_card(dtype)
+    calls = []
+    plain = restormer.bias_free_norm
+    monkeypatch.setattr(restormer, "bias_free_norm",
+                        lambda x, w: calls.append(x.shape) or plain(x, w))
+
+    def forward(t):
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            return model(t)
+
+    x = (torch.randn(2, 64, 64, 13, device="cuda") * 0.5 - 1.0).to(dtype)
+    before = _build.launched.copy()
+    with torch.no_grad():
+        eager = forward(x)
+    torch.cuda.synchronize()
+    assert len(calls) == RESTORMER_NORMS
+    assert since(before) == {"msid_bias_free_norm": RESTORMER_NORMS}
+    with torch.no_grad():
+        graph = CapturedForward(forward, x, model, warmup=1)
+        assert graph.launches == RESTORMER_NORMS
+        before = _build.launched.copy()
+        out = graph(x).clone()
+        graph(x)
+        torch.cuda.synchronize()
+    assert since(before) == {}
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_a_restormer_forward_under_autograd_on_the_card_runs_n2_and_its_backward():
+    """With a gradient asked, every norm is still N2 (88 launches) and the
+    gradient flows through the operator's backward: in fp32 the output
+    matches the no-grad forward and the CPU's within 1e-4, and the input's
+    gradient the CPU's (the composition under autograd) within 1e-4 in
+    relative RMS."""
+    need_card()
+    model = restormer_on_card(torch.float32)
+    x = (torch.randn(1, 32, 32, 13, device="cuda") * 0.5 - 1.0).requires_grad_()
+    before = _build.launched.copy()
+    with exact_fp32(torch.float32):
+        out = model(x)
+        out.square().mean().backward()
+    torch.cuda.synchronize()
+    assert since(before) == {"msid_bias_free_norm": RESTORMER_NORMS}
+    with torch.no_grad():
+        kernel = model(x.detach())
+    cpu_model = model.cpu()
+    xc = x.detach().cpu().requires_grad_()
+    cpu = cpu_model(xc)
+    cpu.square().mean().backward()
+    np.testing.assert_allclose(out.detach().cpu().numpy(), kernel.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), cpu.detach().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    gap = (x.grad.cpu() - xc.grad).pow(2).mean().sqrt() / xc.grad.pow(2).mean().sqrt()
+    assert float(gap) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_a_restormer_artifact_keeps_n2_on_the_card(tmp_path):
+    """A bf16 Restormer exported on the card holds one msid::bias_free_norm
+    node a norm (88), and its session's captured graph launches N2 at each:
+    88 at the capture, replays equal to eager and close to the live
+    session on the same weights."""
+    need_card()
+    from msid_tpu_torch.deployment.export import MODULE_FILE, export_program
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    model = restormer_on_card(torch.bfloat16)
+    path = export_program(model, tmp_path / "a", input_shape=(1, 32, 32, 13))
+    program = torch.export.load(path / MODULE_FILE)
+    nodes = [n for n in program.graph.nodes if n.target == torch.ops.msid.bias_free_norm.default]
+    assert len(nodes) == RESTORMER_NORMS
+    before = _build.launched.copy()
+    session = InferenceSession(artifact_path=path, batch_size=2, image_size=32)
+    assert session.compiled == "cuda_graph" and session.captured_launches == RESTORMER_NORMS
+    assert list(since(before)) == ["msid_bias_free_norm"]
+    x = np.random.default_rng(0).normal(-1, 0.5, (2, 32, 32, 13)).astype(np.float32)
+    got = session.predict(x)
+    eager = session.forward_eager(torch.from_numpy(x).cuda())
+    np.testing.assert_array_equal(got, eager.cpu().numpy())
+    want = InferenceSession(model, batch_size=2, image_size=32).predict(x)
+    rms = float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2)))
+    assert rms <= 1e-3
 
 
 @pytest.mark.cuda

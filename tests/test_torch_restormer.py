@@ -3,13 +3,17 @@ plain reference (``portbench/reference/restormer.py``) on its seeded
 weights, at a small size: dim 8, blocks (1, 1, 1, 2), one refinement block,
 heads (1, 2, 4, 8), 13 bands, 32 px, B=2; the published widths from the
 YAML on the meta device; the normal path (the factory, scenes, sessions,
-the folded graphs' refusals, the spans); the counts of
-``portbench/roofline_restormer.py`` and the readers of its two metrics."""
+the folded graphs' refusals, the spans); the LayerNorm's plain form on the
+CPU, what its kernel N2 refuses, its operator's fake and backward, and the
+norm shapes a forward runs; the counts of
+``portbench/roofline_restormer.py`` and the readers of its three metrics."""
 
 from __future__ import annotations
 
 import ast
 import copy
+import ctypes
+import re
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +32,7 @@ from msid_tpu_torch.models.restoration import (
     restorer_from_config,
 )
 from msid_tpu_torch.models.restormer import RestormerRestoration
+from msid_tpu_torch.ops import cuda_layernorm
 from msid_tpu_torch.utils.config import load_config
 from msid_tpu_torch.utils.setup_helpers import create_model_from_config
 from portbench import registry, roofline_restormer, weights
@@ -125,6 +130,133 @@ def test_the_bf16_tolerance_catches_a_wrong_block(fault, monkeypatch):
     with torch.no_grad():
         gap = rel_rms(model(x), ref(x))
     assert gap > 4 * BF16_RTOL, (fault, gap)
+
+
+def composition(x, weight):
+    """The bias-free LayerNorm as PyTorch passes: an fp32 variance, its
+    rsqrt in x's dtype, two multiplies."""
+    y = x.permute(0, 2, 3, 1)
+    var = y.float().var(dim=-1, keepdim=True, correction=0)
+    return (y * torch.rsqrt(var + restormer.LN_EPS).to(x.dtype) * weight).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_free_norm_on_the_cpu_is_the_composition_bit_for_bit(dtype):
+    """On the CPU, with or without a gradient asked, ``bias_free_norm`` is
+    the composition: the same bits, dtype and channels-last layout."""
+    g = torch.Generator().manual_seed(3)
+    x = restormer.channels_last(torch.randn(2, 48, 8, 8, generator=g) * 3 + 5).to(dtype)
+    w = (torch.rand(48, generator=g) + 0.5).to(dtype)
+    want = composition(x, w)
+    with torch.no_grad():
+        got = restormer.bias_free_norm(x, w)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    xr = x.clone().requires_grad_()
+    graded = restormer.bias_free_norm(xr, w)
+    assert torch.equal(graded.detach(), want)
+    graded.float().sum().backward()
+    assert xr.grad is not None and xr.grad.shape == x.shape
+
+
+@pytest.mark.parametrize("case,match", [
+    ("fp16", "dtypes"), ("fp32_x_bf16_w", "dtypes"), ("nchw", "not channels-last"),
+    ("width", "width other than"), ("weight", "weight other than"), ("cpu", "off the card")])
+def test_the_norm_kernel_refuses_what_it_cannot_read(case, match):
+    """N2's wrapper names what it cannot read, before any launch: an fp16
+    tensor, an fp32 x with a bf16 w (no instance), a contiguous NCHW tensor,
+    a width with no instance, a weight of another width, a tensor off the
+    card."""
+    x, w = restormer.channels_last(torch.zeros(2, 48, 4, 4)), torch.ones(48)
+    if case == "fp16":
+        x, w = x.half(), w.half()
+    elif case == "fp32_x_bf16_w":
+        w = w.bfloat16()
+    elif case == "nchw":
+        x = x.contiguous()
+    elif case == "width":
+        x, w = restormer.channels_last(torch.zeros(2, 64, 4, 4)), torch.ones(64)
+    elif case == "weight":
+        w = torch.ones(96)
+    with pytest.raises(ValueError, match=match):
+        cuda_layernorm.check(x, w)
+
+
+def test_the_norm_kernel_has_an_instance_for_every_norm_of_the_model():
+    """The source's instances are the wrapper's widths and dtype pairs, its
+    entry takes what the wrapper passes (the stream last, as a pointer), and
+    every norm of the published preset (88) has a width among them."""
+    src = (ROOT / "msid_tpu_torch" / "csrc" / "layernorm.cu").read_text()
+    widths = tuple(int(c) for c in re.findall(r"case (\d+): return launch_rows", src))
+    assert widths == cuda_layernorm.WIDTHS
+    names = {torch.bfloat16: "bf16", torch.float32: "float"}
+    kinds = {int(k): (x, w, y) for k, x, w, y in re.findall(
+        r"case (\d+): return by_width<(\w+), (\w+), (\w+)>", src)}
+    assert kinds == {k: (names[x], names[w], names[torch.promote_types(x, w)])
+                     for (x, w), k in cuda_layernorm.KINDS.items()}
+    params = re.search(r'extern "C" int msid_bias_free_norm\(([^)]*)\)', src).group(1)
+    assert len(params.split(",")) == len(cuda_layernorm._ARGS)   # the stream last, a pointer
+    assert params.split()[-1] == "stream" and cuda_layernorm._ARGS[-1] is ctypes.c_void_p
+    with torch.device("meta"):
+        model = restorer_from_config(load_config(YAML), device="meta")
+    norms = [m for m in model.modules() if isinstance(m, restormer.BiasFreeLayerNorm)]
+    assert len(norms) == 88
+    assert {m.weight.shape[0] for m in norms} <= set(cuda_layernorm.WIDTHS)
+
+
+@pytest.mark.parametrize("kind", list(cuda_layernorm.KINDS))
+def test_the_norm_operators_fake_is_the_kernels_output(kind):
+    """``msid::bias_free_norm`` on tensors without memory (what a trace by
+    ``torch.export`` hands it) gives N2's output: x's shape, channels-last,
+    in torch's promotion of x's and w's dtypes, on x's device."""
+    x_dtype, w_dtype = kind
+    x = restormer.channels_last(torch.empty(2, 96, 8, 8, dtype=x_dtype, device="meta"))
+    y = torch.ops.msid.bias_free_norm(x, torch.empty(96, dtype=w_dtype, device="meta"), 1e-5)
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert y.dtype == torch.promote_types(x_dtype, w_dtype)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("c,loc", [(48, 0.0), (96, 10.0), (384, 0.0)])
+def test_the_norm_backward_is_the_gradient_of_the_norm(c, loc):
+    """The operator's backward, the closed form in float32, against autograd
+    through ``x * rsqrt(var_c(x) + eps) * w`` in float64: dx and dw within
+    1e-5 of their largest, in x's and w's dtypes."""
+    g = torch.Generator().manual_seed(c)
+    x = restormer.channels_last(torch.randn(2, c, 6, 6, generator=g) * 2 + loc)
+    w = torch.rand(c, generator=g) + 0.5
+    dy = torch.randn(x.shape, generator=g)
+    dx, dw = cuda_layernorm.bias_free_norm_backward(x, w, dy, restormer.LN_EPS)
+    x64, w64 = x.double().requires_grad_(), w.double().requires_grad_()
+    y = x64.permute(0, 2, 3, 1)
+    var = y.var(dim=-1, keepdim=True, correction=0)
+    out = (y * torch.rsqrt(var + restormer.LN_EPS) * w64).permute(0, 3, 1, 2)
+    want_dx, want_dw = torch.autograd.grad(out, (x64, w64), dy.double())
+    for got, want in ((dx, want_dx), (dw, want_dw)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    dx16, dw16 = cuda_layernorm.bias_free_norm_backward(x.bfloat16(), w, dy.bfloat16(),
+                                                        restormer.LN_EPS)
+    assert dx16.dtype == torch.bfloat16 and dw16.dtype == torch.float32
+
+
+def test_norm_shapes_are_the_norms_a_forward_runs():
+    """``norm_shapes`` lists, in order, the (C, side) of every LayerNorm a
+    forward runs (hooks on a small model at 32 px); for the published
+    preset at 512 px, the eight levels' widths and sides and 88 norms."""
+    model, _ = pair(tiny_config())
+    seen = []
+    for m in model.modules():
+        if isinstance(m, restormer.BiasFreeLayerNorm):
+            m.register_forward_hook(lambda mod, args, out: seen.append(tuple(args[0].shape[1:3])))
+    with torch.no_grad():
+        model(tiles(1))
+    assert seen == [(c, s) for c, s, n in model.norm_shapes(32) for _ in range(n)]
+    with torch.device("meta"):
+        preset = restorer_from_config(load_config(YAML), device="meta")
+    assert preset.norm_shapes(512) == [(48, 512, 8), (96, 256, 12), (192, 128, 12),
+                                       (384, 64, 16), (192, 128, 12), (96, 256, 12),
+                                       (96, 512, 8), (96, 512, 8)]
 
 
 def test_the_published_preset_from_the_yaml():
@@ -323,6 +455,40 @@ def test_the_restormer_readers_on_a_synthetic_trace():
         assert registry.metric_reader(name)(Trace(device, [], 1.0)) is None
 
 
+N2 = ("void (anonymous namespace)::bias_free_norm_rows<__nv_bfloat16, __nv_bfloat16, "
+      "__nv_bfloat16, 48>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, "
+      "long long, float)")
+
+
+def test_the_norm_kernel_share_on_a_synthetic_trace():
+    """100 with N2 at each of the 88 norms of every traced forward, 50 with
+    half of them, 0 on a trace of PyTorch's norm kernels alone (the
+    parent's), null on another architecture or an empty record. Its name
+    fragment is the kernel's in the source, and no other reader's fragment
+    or PyTorch's LayerNorm matches N2."""
+    config = restormer_cell()["config"]["config"]
+    extra = {"config": config, "tiles": 32, "batch": 8, "scenes": 2, "model_size": 512}
+    read = registry.metric_reader("scene.norm_kernel_share")
+    name = read.__globals__["NAME"]
+    assert name in (ROOT / "msid_tpu_torch" / "csrc" / "layernorm.cu").read_text()
+    assert name in N2
+    others = [(DWCONV, 0.0, 0.1), ("void at::native::reduce_kernel<512, 1>", 0.1, 0.2),
+              ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel", 0.2, 0.3)]
+    assert not any(name in n for n, _, _ in others)
+    for part in registry.metric_reader("scene.dwconv_roofline").__globals__["NAMES"] + (
+            "resblock_kernel", "sdpa"):
+        assert part not in N2
+    norms = [(N2, 1.0 + i * 1e-4, 1.0 + (i + 0.5) * 1e-4) for i in range(4 * 88)]
+    assert read(Trace(others + norms, [], 2.0, extra=extra)) == pytest.approx(100.0)
+    assert read(Trace(others + norms[::2], [], 2.0, extra=extra)) == pytest.approx(50.0)
+    assert read(Trace(others, [], 2.0, extra=extra)) == 0.0
+    flagship = registry.cell(registry.load_benchmark(ROOT), "flagship.scene.b64")
+    assert read(Trace(others + norms, [], 2.0,
+                      extra=dict(extra, config=flagship["config"]["config"]))) is None
+    assert read(Trace([], [], 2.0, extra=extra)) is None
+    assert read(Trace(others + norms, [], 2.0)) is None
+
+
 def imports_of(path: Path) -> set:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -336,7 +502,8 @@ def imports_of(path: Path) -> set:
 @pytest.mark.parametrize("path", ["portbench/reference/restormer.py",
                                   "portbench/roofline_restormer.py",
                                   "portbench/metrics/scene.restormer_mfu.py",
-                                  "portbench/metrics/scene.dwconv_roofline.py"])
+                                  "portbench/metrics/scene.dwconv_roofline.py",
+                                  "portbench/metrics/scene.norm_kernel_share.py"])
 def test_the_reference_and_counts_import_neither_jax_nor_the_port(path):
     found = imports_of(ROOT / path)
     assert not found & {"jax", "jaxlib", "flax", "optax", "msid_tpu", "msid_tpu_torch"}, found
