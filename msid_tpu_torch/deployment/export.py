@@ -289,7 +289,13 @@ def load_exported(path: str | Path, device: str | torch.device = "cuda") -> Call
     else:
         with np.load(path / PARAMS_FILE) as z:
             flat = {k: z[k] for k in z.files}
-    inputs = [n.meta["val"] for n in exported.graph.nodes if n.op == "placeholder"]
+    # The program's own inputs: the weights and x. Tensors the trace made
+    # (SwinIR's shift mask is built from lifted constants) are bound by
+    # ``module()``.
+    given = {spec.arg.name for spec in exported.graph_signature.input_specs
+             if spec.kind == torch.export.graph_signature.InputKind.USER_INPUT}
+    inputs = [n.meta["val"] for n in exported.graph.nodes
+              if n.op == "placeholder" and n.name in given]
     if len(inputs) != len(flat) + 1:
         raise ValueError(f"artifact {path}: the program takes {len(inputs) - 1} weights, "
                          f"the payload holds {len(flat)}")

@@ -234,15 +234,17 @@ class SatMAERestoration(nn.Module):
         return model.set_compute_dtype(dtype).to(device)
 
 
-RESTORERS = ("satmae", "restormer")
+RESTORERS = ("satmae", "restormer", "swinir")
 
 
 def restorer_from_config(config: dict, dtype: torch.dtype = torch.float32,
                          device: str | torch.device = "cuda") -> nn.Module:
     """The restorer that ``model.architecture`` names (``RESTORERS``;
     ``"satmae"`` when the key is absent), built from the configuration on
-    ``device``, computing in ``dtype``: ``SatMAERestoration`` or
-    ``RestormerRestoration`` (``models/restormer.py``)."""
+    ``device``, computing in ``dtype``: ``SatMAERestoration``,
+    ``RestormerRestoration`` (``models/restormer.py``) or
+    ``SwinIRRestoration`` (``models/swinir.py``). The last two are imported
+    only when a configuration names them."""
     arch = str(config["model"].get("architecture", "satmae"))
     if arch == "satmae":
         return SatMAERestoration.from_config(config, dtype=dtype, device=device)
@@ -250,6 +252,10 @@ def restorer_from_config(config: dict, dtype: torch.dtype = torch.float32,
         from msid_tpu_torch.models.restormer import RestormerRestoration
 
         return RestormerRestoration.from_config(config, dtype=dtype, device=device)
+    if arch == "swinir":
+        from msid_tpu_torch.models.swinir import SwinIRRestoration
+
+        return SwinIRRestoration.from_config(config, dtype=dtype, device=device)
     raise ValueError(f"model.architecture must be one of {RESTORERS}, got {arch!r}")
 
 

@@ -548,6 +548,147 @@ def test_restormer_is_served_and_restores_scenes_through_its_module_forward_on_t
         np.testing.assert_allclose(dev, cpu, rtol=1e-4, atol=1e-4)
 
 
+def swinir_on_card(dtype, seed: int = 7):
+    from msid_tpu_torch.models.swinir import SwinIRRestoration
+
+    torch.manual_seed(seed)
+    model = SwinIRRestoration().eval()
+    with torch.no_grad():             # the release starts the tables at 0: let them count
+        for name, p in model.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                p.normal_(0.0, 2.0)
+    return model.set_compute_dtype(dtype).cuda()
+
+
+SWINIR_BLOCKS = 36
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swinir_is_served_and_restores_scenes_through_its_module_forward_on_the_card(dtype):
+    """SwinIR at its published widths on the card: a session and a device
+    scene step each capture its module forward (the folded graphs refuse
+    it; no kernel of the port's own), replay what they captured bit for
+    bit, and in fp32 the scene is within 1e-4 of the same restore on the
+    CPU."""
+    need_card()
+    from msid_tpu_torch.deployment import sliding_window as sw
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    model = swinir_on_card(dtype)
+    session = InferenceSession(model, batch_size=2, image_size=64)
+    assert session.compiled == "cuda_graph" and session.optimized is False
+    assert session.captured_launches == 0
+    x = np.random.default_rng(2).normal(-1, 0.5, (2, 64, 64, 13)).astype(np.float32)
+    got = session.predict(x)
+    want = session.forward_eager(torch.from_numpy(x).cuda())
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    scene = np.random.default_rng(5).integers(500, 4000, (80, 100, 13), dtype=np.uint16)
+    kw = dict(window=32, overlap=8, model_size=32, batch_size=4)
+    step = sw.make_device_scene_step(model, None, 32, 32, 8)
+    dev = sw.restore_scene(None, None, scene, step=step, device_assembly=True, **kw)
+    assert step.compiled == "cuda_graph"
+    batch = torch.from_numpy(scene[None, :32, :32]).repeat(4, 1, 1, 1).cuda()
+    assert torch.equal(step.run(batch).clone(), step._raw(batch))
+    if dtype == torch.float32:
+        cpu = sw.restore_scene(model.cpu(), None, scene, device_assembly=True, device="cpu",
+                               **kw)
+        np.testing.assert_allclose(dev, cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_a_swinir_artifact_is_served_by_a_captured_session_on_the_card(tmp_path):
+    """A bf16 SwinIR exported on the card builds its shift mask in the
+    graph from arithmetic alone, so its session captures the graph (a copy
+    from the host would break the capture), replays it bit for bit, and
+    serves what the live session serves on the same weights."""
+    need_card()
+    from msid_tpu_torch.deployment.export import export_program
+    from msid_tpu_torch.deployment.inference import InferenceSession
+
+    model = swinir_on_card(torch.bfloat16)
+    path = export_program(model, tmp_path / "a", input_shape=(1, 32, 32, 13))
+    session = InferenceSession(artifact_path=path, batch_size=2, image_size=32)
+    assert session.compiled == "cuda_graph"
+    x = np.random.default_rng(0).normal(-1, 0.5, (2, 32, 32, 13)).astype(np.float32)
+    got = session.predict(x)
+    eager = session.forward_eager(torch.from_numpy(x).cuda())
+    np.testing.assert_array_equal(got, eager.cpu().numpy())
+    want = InferenceSession(model, batch_size=2, image_size=32).predict(x)
+    assert float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_swinir_window_attention_takes_the_cudnn_back_end_on_the_card(monkeypatch):
+    """At the cell's shapes (a B=8 batch of 512-px windows) each block's
+    attention, unshifted (the windows as SDPA's batch, the bias broadcast
+    over them) and shifted (the images as SDPA's batch, B + M broadcast
+    over them), goes to cuDNN's fused attention: the dispatcher's own
+    choice on the very operands of each call, and one launch of cuDNN's
+    ``..._sdpa_...`` kernel a block in the device record."""
+    need_card()
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+
+    from msid_tpu_torch.models import swinir
+
+    choices = []
+    plain = swinir.WindowAttention._attend
+
+    def spy(self, q, k, v, mask):
+        choices.append(int(torch._fused_sdp_choice(
+            q, k, v, attn_mask=mask, scale=(self.dim // self.num_heads) ** -0.5)))
+        return plain(self, q, k, v, mask)
+
+    monkeypatch.setattr(swinir.WindowAttention, "_attend", spy)
+    model = swinir_on_card(torch.bfloat16)
+    x = (torch.randn(8, 512, 512, 13, device="cuda") * 0.5 - 1.0).bfloat16()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model(x)
+        torch.cuda.synchronize()
+    assert choices == [int(SDPBackend.CUDNN_ATTENTION)] * SWINIR_BLOCKS
+    launches = sum(e.count for e in prof.key_averages() if "_sdpa_" in e.key)
+    assert launches == SWINIR_BLOCKS
+
+
+@pytest.mark.cuda
+def test_swinir_bf16_forward_at_the_cells_size_is_within_the_cells_limit():
+    """The published SwinIR in bf16 on a B=8 batch of 512-px windows of the
+    benchmark's scene, on the benchmark's seeded weights, against the plain
+    float32 reference (TF32 off): every window's worst 64-px block within
+    the limit of the cell ``swinir.scene512.b8``."""
+    need_card()
+    from pathlib import Path
+
+    from msid_tpu_torch.models.restoration import restorer_from_config
+    from portbench import registry, traffic
+    from portbench.kinds import worst_block_rel_rms
+    from portbench.reference import scene as ref_scene
+    from portbench.reference import swinir as reference
+    from portbench.reference.precision import exact_fp32
+
+    root = Path(__file__).resolve().parent.parent
+    cell = registry.cell(registry.load_benchmark(root), "swinir.scene512.b8")
+    config, limit = cell["config"]["config"], cell["checks"]["worst_block_rel_rms"]["limit"]
+    device, seed = torch.device("cuda"), 1294967311
+    scene = traffic.scenes(cell["traffic"], seed, device)[0]
+    raw = torch.stack([torch.from_numpy(scene[y:y + 512, x:x + 512].astype(np.float32))
+                       for y, x in ref_scene.windows_of(scene.shape, 512, 32)[:8]]).to(device)
+    x = ref_scene.preprocess(raw, 512)
+    state = reference.seeded_state(config, seed, device)
+    model = restorer_from_config(config, dtype=torch.bfloat16, device=device).eval()
+    model.load_state_dict(state)
+    with torch.no_grad():
+        got = model(x.bfloat16()).float().cpu()
+    del model
+    ref = reference.reference_model(config, state, device).eval()
+    with torch.no_grad(), exact_fp32():
+        want = torch.cat([ref(x[i:i + 4]) for i in (0, 4)]).cpu()
+    worst = max(worst_block_rel_rms(got[i], want[i], 64) for i in range(8))
+    assert worst <= limit, worst
+
+
 RESTORMER_NORMS = 88   # two bias-free LayerNorms in each of the preset's 44 blocks
 with torch.device("meta"):
     # (C, H=W) of the norms of each level of a 512-px window of the preset

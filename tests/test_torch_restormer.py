@@ -287,7 +287,7 @@ def test_the_factory_and_create_model_from_config():
     satmae = load_config(ROOT / "configs" / "experiments" / "tiny_cpu.yaml")
     assert "architecture" not in satmae["model"]
     assert isinstance(restorer_from_config(satmae, device="cpu"), SatMAERestoration)
-    for bad, match in (({"architecture": "swinir"}, "architecture"),
+    for bad, match in (({"architecture": "unknown"}, "architecture"),
                        ({"encoder": dict(cfg["model"]["encoder"], bias=True)}, "biases")):
         broken = copy.deepcopy(cfg)
         broken["model"].update(bad)
